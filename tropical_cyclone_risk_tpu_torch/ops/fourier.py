@@ -1,0 +1,61 @@
+"""Synthetic synoptic wind time series F(t) as an analytic Fourier synthesis
+(twin of tropical_cyclone_risk_tpu/ops/fourier.py).
+
+    F_i(t) = sum_n A_in sin(w_n t) + B_in cos(w_n t),    w_n = 2 pi n / T
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tropical_cyclone_risk_tpu_torch import rng
+
+N_FOURIER = 15     # number of sine components (track/bam_track.py:112)
+
+
+def _omega(T_s: float, device) -> torch.Tensor:
+    """w_n = 2 pi n / T in float32, rounded as the JAX package rounds it."""
+    n = torch.arange(1, N_FOURIER + 1, dtype=torch.float32, device=device)
+    return 2.0 * math.pi * n / float(np.float32(T_s))
+
+
+class FourierSeries(NamedTuple):
+    A: torch.Tensor     # [..., C, N] sin coefficients
+    B: torch.Tensor     # [..., C, N] cos coefficients
+    T_s: float          # period (seconds)
+
+    def evaluate(self, t: float) -> torch.Tensor:
+        """F(t) -> [..., C] at a scalar time t."""
+        phase = _omega(self.T_s, self.A.device) * float(np.float32(t))
+        return self.A @ torch.sin(phase) + self.B @ torch.cos(phase)
+
+    def evaluate_grid(self, t: torch.Tensor) -> torch.Tensor:
+        """F on a time grid t [T] -> [T, ..., C] as one matrix product over
+        the component axis (a plain product outside any kernel)."""
+        phase = t[:, None] * _omega(self.T_s, t.device)[None, :]     # [T, f]
+        lead = self.A.shape[:-1]
+        a = self.A.reshape(-1, N_FOURIER)
+        b = self.B.reshape(-1, N_FOURIER)
+        out = torch.sin(phase) @ a.T + torch.cos(phase) @ b.T
+        return out.reshape((t.shape[0],) + tuple(lead))
+
+
+def take_leading(fs: FourierSeries, order: torch.Tensor) -> FourierSeries:
+    """Gather coefficient rows along the leading (seed) axis."""
+    return fs._replace(A=fs.A[order], B=fs.B[order])
+
+
+def draw_fourier(key: rng.Key, shape, T_s: float,
+                 device='cpu') -> FourierSeries:
+    """Random-phase coefficients (reference normalization sqrt(2/sum n^-3),
+    amplitude n^-1.5, phases uniform in [0, 1) cycles).
+    shape: batch shape + (C,), e.g. (n_seeds, 4)."""
+    n = torch.arange(1, N_FOURIER + 1, dtype=torch.float32, device=device)
+    amp = torch.sqrt(2.0 / torch.sum(n ** -3.0)) * n ** -1.5
+    phi = rng.uniform(key, tuple(shape) + (N_FOURIER,), device=device)
+    return FourierSeries(amp * torch.cos(2 * math.pi * phi),
+                         amp * torch.sin(2 * math.pi * phi), float(T_s))
