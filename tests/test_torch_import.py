@@ -1,8 +1,7 @@
-"""The port stands alone from jax: every module imports with jax blocked, no
-source imports jax, the only JAX-package modules it uses are the jax-free
-shared ones, and on CPU tensors the kernel dispatchers take the plain
-twins (no kernel is counted) while the kernel wrappers refuse CPU tensors
-instead of falling back."""
+"""The port stands alone: every module imports with jax and the JAX package
+both blocked, no source (nor chip_smoke.py) imports either, and on CPU
+tensors the kernel dispatchers take the plain twins (no kernel is counted)
+while the kernel wrappers refuse CPU tensors instead of falling back."""
 
 import ast
 import os
@@ -16,8 +15,8 @@ import pytest
 import torch
 
 import tropical_cyclone_risk_tpu_torch as port
-from tropical_cyclone_risk_tpu.config import Namelist
 from tropical_cyclone_risk_tpu_torch import kernels
+from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch.kernels import integrator, vmax
 from tropical_cyclone_risk_tpu_torch.models import (diagnostics, fast,
                                                     fields, simulator)
@@ -26,11 +25,8 @@ from tropical_cyclone_risk_tpu_torch.utils import basins
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(port.__file__).parent
-# the jax-free modules of the JAX package that the port shares
-SHARED = {'tropical_cyclone_risk_tpu.config',
-          'tropical_cyclone_risk_tpu.constants',
-          'tropical_cyclone_risk_tpu.io.netcdf',
-          'tropical_cyclone_risk_tpu.utils.obs'}
+# packages the port and chip_smoke.py must never import
+BLOCKED = ('jax', 'tropical_cyclone_risk_tpu')
 MODULES = sorted(m.name for m in pkgutil.walk_packages([str(PKG)],
                                                        port.__name__ + '.'))
 
@@ -47,10 +43,12 @@ def _imports(path: Path):
 
 
 def test_every_module_imports_with_jax_blocked():
-    assert len(MODULES) >= 15
-    code = ("import sys, importlib; sys.modules['jax'] = None\n"
+    """...and with the JAX package blocked too."""
+    assert len(MODULES) >= 30
+    code = ("import sys, importlib\n"
+            f"for b in {BLOCKED!r}: sys.modules[b] = None\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
-            "assert not any(k == 'jax' or k.startswith('jax.') "
+            f"assert not any(k.split('.')[0] in {BLOCKED!r} "
             "for k, v in sys.modules.items() if v is not None)\n")
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -61,10 +59,9 @@ def test_every_module_imports_with_jax_blocked():
                          [ROOT / 'chip_smoke.py'],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_sources(path):
+    """No import of jax, nor of anything of the JAX package."""
     for names in _imports(path):
-        assert names[0].split('.')[0] != 'jax', (path, names)
-        if names[0].split('.')[0] == 'tropical_cyclone_risk_tpu':
-            assert SHARED & set(names), (path, names)
+        assert names[0].split('.')[0] not in BLOCKED, (path, names)
 
 
 def test_chip_smoke_refuses_without_cuda():
@@ -77,9 +74,22 @@ def test_chip_smoke_refuses_without_cuda():
     assert res.stdout == ''
 
 
+def test_chip_smoke_alone_fails(tmp_path):
+    """chip_smoke.py in a directory that holds nothing else of the repo
+    fails and prints no result."""
+    (tmp_path / 'chip_smoke.py').write_text(
+        (ROOT / 'chip_smoke.py').read_text())
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    res = subprocess.run([sys.executable, 'chip_smoke.py'], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert res.returncode != 0
+    assert res.stdout == ''
+
+
 def _small_segment():
     cfg = Namelist()
-    pack = fields.synthetic_pack(cfg, 12, 19, 36, seed=1)
+    pack = fields.synthetic_pack(cfg, 12, 19, 36, seed=1, device='cpu')
     n = 64
     r = np.random.default_rng(0)
     y = fast.State(*(torch.tensor(x, dtype=torch.float32) for x in (
@@ -103,8 +113,9 @@ def test_cpu_tensors_take_the_plain_twins():
                                             outs[2], outs[4], outs[5], last,
                                             cfg)
     assert outs[0].shape == vm.shape == (7, 64)
-    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0}
-    assert kernels.PLAIN_ON_CUDA == {'integrator': 0, 'vmax': 0}
+    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0, 'cape_pi': 0}
+    assert kernels.PLAIN_ON_CUDA == {'integrator': 0, 'vmax': 0,
+                                     'cape_pi': 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -120,7 +131,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             t, t, 3600.0, t, torch.zeros(4, 8, 4),
             torch.ones(4, 8, dtype=torch.bool),
             torch.zeros(8, dtype=torch.int64), (0, 1, 2, 3))
-    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0}
+    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0, 'cape_pi': 0}
 
 
 @pytest.mark.parametrize('option', ['time_interp_fields', 'vmax_in_scan',

@@ -45,10 +45,10 @@ N = 1500
 @pytest.fixture(scope='module')
 def packs():
     jpack = jfields.synthetic_pack(CFG, 12, 91, 180, seed=0)
-    tpack = fields.pack_from_numpy(jpack)
+    tpack = fields.pack_from_numpy(jpack, device='cpu')
     np.testing.assert_array_equal(
-        tpack.env.numpy(), fields.synthetic_pack(CFG, 12, 91, 180,
-                                                 seed=0).env.numpy())
+        tpack.env.numpy(), fields.synthetic_pack(CFG, 12, 91, 180, seed=0,
+                                                 device='cpu').env.numpy())
     return jpack, tpack
 
 
@@ -196,7 +196,7 @@ def test_integrate_segment(packs, storms, k0, n_steps):
     outs, (yend, aend) = simulator.integrate_segment(
         fields.build_stacks(tpack), CFG, basins.basin_bounds(CFG, 'GL'), ty,
         torch.from_numpy(alive0), tp, k0, n_steps)
-    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0}
+    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0, 'cape_pi': 0}
     names = ('lon', 'lat', 'v', 'm', 'wnds', 'alive')
     tol = {'lon': 1e-4, 'lat': 1e-4, 'v': 1e-3, 'm': 1e-4, 'wnds': 1e-3}
     np.testing.assert_array_equal(outs[5].numpy(), np.asarray(outs_j[5]))
@@ -301,7 +301,7 @@ def test_axi_to_max_wind_raw(boundaries):
         *(torch.from_numpy(x) for x in (lon, lat)), 3600.0,
         torch.from_numpy(v), torch.from_numpy(wnds), torch.from_numpy(alive),
         torch.from_numpy(last), CFG, **kw_t)
-    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0}
+    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0, 'cape_pi': 0}
     np.testing.assert_allclose(vmax.numpy(), np.asarray(vmax_j), rtol=0,
                                atol=1e-4)
     np.testing.assert_allclose(peak.numpy(), np.asarray(peak_j), rtol=0,

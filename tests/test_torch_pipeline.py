@@ -41,7 +41,7 @@ TRACK_TOL = {'lon': 1e-3, 'lat': 1e-3, 'v': 1e-2, 'm': 1e-3, 'vmax': 1e-2,
 @pytest.fixture(scope='module')
 def packs():
     jpack = jfields.synthetic_pack(CFG, 12, 91, 180, seed=0)
-    return jpack, fields.pack_from_numpy(jpack)
+    return jpack, fields.pack_from_numpy(jpack, device='cpu')
 
 
 def _np(d):

@@ -1,74 +1,30 @@
-"""K1 wrapper: build csrc/integrator.cu with nvcc, bind it with ctypes and
-launch it on PyTorch's current stream.
+"""K1 wrapper: build csrc/integrator.cu with nvcc (kernels/build.py), bind
+it with ctypes and launch it on PyTorch's current stream.
 
-The shared library goes to ``build/`` at the repository root, named by a
-hash of the source and flags, so a changed source is rebuilt and a built one
-is reused.  It has a plain C interface (no PyTorch headers), which keeps the
-build to seconds.  The kernel replaces the JAX package's XLA-fused segment
-loop; see the note at the top of the source.  Its plain twin is
-models/simulator.py integrate_segment_plain.
+The kernel replaces the JAX package's XLA-fused segment loop; see the note
+at the top of the source.  Its plain twin is models/simulator.py
+integrate_segment_plain.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from tropical_cyclone_risk_tpu.config import Namelist
 from tropical_cyclone_risk_tpu_torch import kernels
+from tropical_cyclone_risk_tpu_torch.config import Namelist
+from tropical_cyclone_risk_tpu_torch.kernels import build as kbuild
 from tropical_cyclone_risk_tpu_torch.models import fast
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / 'csrc' / 'integrator.cu'
-BUILD_DIR = _PKG.parent / 'build'
-# no --use_fast_math, and no FMA contraction: each operation rounds as the
-# separate torch kernels of the plain twin do
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-fmad=false', '-Xptxas=-v', '-shared',
-              '-Xcompiler', '-fPIC')
 N_POINTERS = 20          # device pointers of tc_integrate_segment
 
 
-def _nvcc() -> str:
-    home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
-    path = Path(home) / 'bin' / 'nvcc'
-    if path.exists():
-        return str(path)
-    found = shutil.which('nvcc')
-    if found is None:
-        raise RuntimeError('nvcc not found (set CUDA_HOME)')
-    return found
-
-
-@functools.cache
 def build() -> dict:
-    """Compile the kernel library if it is not built yet.  Returns
-    {'path', 'seconds', 'log'}: the library, the build time (0 when it was
-    already built) and nvcc's register/spill report."""
-    tag = hashlib.sha256(SOURCE.read_bytes() +
-                         ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f'libtc_integrator_{tag}.so'
-    if out.exists():
-        return {'path': out, 'seconds': 0.0, 'log': ''}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-    t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{res.stderr}')
-    os.replace(tmp, out)
-    return {'path': out, 'seconds': time.perf_counter() - t0,
-            'log': res.stdout + res.stderr}
+    """Build (or find) the kernel library; see kernels/build.py."""
+    return kbuild.library('integrator')
 
 
 @functools.cache

@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from tropical_cyclone_risk_tpu import constants
+from tropical_cyclone_risk_tpu_torch import constants
 from tropical_cyclone_risk_tpu_torch import kernels
 from tropical_cyclone_risk_tpu_torch.kernels import vmax as vmax_kernel
 from tropical_cyclone_risk_tpu_torch.models.fast import deep_layer_indices

@@ -14,8 +14,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from tropical_cyclone_risk_tpu import constants
-from tropical_cyclone_risk_tpu.config import Namelist
+from tropical_cyclone_risk_tpu_torch import constants
+from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch.models import fields as F
 from tropical_cyclone_risk_tpu_torch.ops import chol, interp
 from tropical_cyclone_risk_tpu_torch.ops.fourier import FourierSeries

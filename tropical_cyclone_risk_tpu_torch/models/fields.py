@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tropical_cyclone_risk_tpu.config import Namelist
+from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch.ops.interp import (UniformGrid,
                                                         pack_corners)
 from tropical_cyclone_risk_tpu_torch.utils import basins as basins_mod
@@ -85,6 +85,42 @@ def build_stacks(pack: FieldPack) -> GatherStacks:
                         land_geo4=pack_corners(land_geo),
                         bathy_grid=pack.bathy_grid,
                         bathy4=pack_corners(pack.bathy[..., None]))
+
+
+def crop_pack(pack: FieldPack, cfg: Namelist, basin_id: str,
+              margin_deg: float = 2.5) -> FieldPack:
+    """Crop the atmospheric stacks to the run basin's bounds plus a margin
+    (models/fields.py crop_pack of the JAX package).
+
+    Tracks end one degree outside the basin bounds, so fields beyond
+    bounds + margin are never sampled; the reference crops the same way
+    when it builds its per-basin splines (util/basins.py:57-75).
+    Land/bathy/basin masks keep their own grids unless they share the
+    atmospheric grid; GL returns the pack unchanged."""
+    lo0, la0, lo1, la1 = basins_mod.basin_bounds(cfg, basin_id)
+    g = pack.grid
+    if (lo1 - lo0) >= 360.0 - g.dlon and (la1 - la0) >= 180.0 - g.dlat:
+        return pack
+    lon = g.lon_axis()
+    lat = g.lat_axis()
+    jsel = np.nonzero((lon >= lo0 - margin_deg) & (lon <= lo1 + margin_deg)
+                      )[0]
+    isel = np.nonzero((lat >= la0 - margin_deg) & (lat <= la1 + margin_deg)
+                      )[0]
+    j0, j1 = int(jsel[0]), int(jsel[-1]) + 1
+    i0, i1 = int(isel[0]), int(isel[-1]) + 1
+    new_grid = UniformGrid(float(lon[j0]), g.dlon, j1 - j0,
+                           float(lat[i0]), g.dlat, i1 - i0)
+    # copies, not views: a view would keep the uncropped stacks alive
+    crop = lambda a: a[..., i0:i1, j0:j1, :].contiguous()
+    repl = {'grid': new_grid, 'wind': crop(pack.wind), 'env': crop(pack.env)}
+    if pack.land_grid == pack.grid:
+        repl.update(land_grid=new_grid,
+                    land=pack.land[..., i0:i1, j0:j1].contiguous())
+    if pack.bathy_grid == pack.grid:
+        repl.update(bathy_grid=new_grid,
+                    bathy=pack.bathy[..., i0:i1, j0:j1].contiguous())
+    return pack._replace(**repl)
 
 
 def year_plane_indices(cfg: Namelist, n_planes: int, year_idx: int
@@ -191,10 +227,11 @@ def synthetic_pack_numpy(cfg: Namelist, n_planes: int = 12, nlat: int = 181,
                 basin_masks=basin_masks, run_mask=run_mask)
 
 
-def pack_from_numpy(pack_np, device='cpu') -> FieldPack:
-    """A FieldPack on ``device`` from numpy arrays: a dict of FieldPack's
-    fields, or any FieldPack-shaped tuple such as the JAX package's (each
-    array goes through np.asarray, each grid through UniformGrid)."""
+def pack_from_numpy(pack_np, device='cuda') -> FieldPack:
+    """A FieldPack on ``device`` (the GPU unless the caller asks for the
+    CPU) from numpy arrays: a dict of FieldPack's fields, or any
+    FieldPack-shaped tuple such as the JAX package's (each array goes
+    through np.asarray, each grid through UniformGrid)."""
     if not isinstance(pack_np, dict):
         pack_np = pack_np._asdict()
     out = {}
@@ -210,7 +247,7 @@ def pack_from_numpy(pack_np, device='cpu') -> FieldPack:
 
 def synthetic_pack(cfg: Namelist, n_planes: int = 12, nlat: int = 181,
                    nlon: int = 360, seed: int = 0, run_basin: str = 'GL',
-                   device='cpu') -> FieldPack:
+                   device='cuda') -> FieldPack:
     """A physically plausible synthetic global environment on ``device``
     (zonal jets with seasonal modulation, warm-pool PI, idealized land);
     shapes mirror a 1-degree ERA5 preprocessing output."""

@@ -24,8 +24,8 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from tropical_cyclone_risk_tpu.config import Namelist
-from tropical_cyclone_risk_tpu.utils import obs
+from tropical_cyclone_risk_tpu_torch.config import Namelist
+from tropical_cyclone_risk_tpu_torch.utils import obs
 from tropical_cyclone_risk_tpu_torch import rng
 from tropical_cyclone_risk_tpu_torch.models import (diagnostics, fast,
                                                     seeding, simulator)

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tropical_cyclone_risk_tpu.config import Namelist
+from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch import rng
 from tropical_cyclone_risk_tpu_torch.models import fields as F
 from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops

@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from tropical_cyclone_risk_tpu.config import Namelist
+from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch import kernels
 from tropical_cyclone_risk_tpu_torch.kernels import integrator
 from tropical_cyclone_risk_tpu_torch.models import fast

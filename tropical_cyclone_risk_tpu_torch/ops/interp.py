@@ -48,10 +48,21 @@ class UniformGrid(NamedTuple):
         return self.lat0 + self.dlat * np.arange(self.nlat)
 
 
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` for a constant ``c``, rounded as one float division on
+    every device (as the JAX package and the CUDA kernels divide): torch's
+    CUDA kernel computes ``tensor / python_scalar`` as a multiply by the
+    reciprocal, which can differ in the last bit."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
 def _cell_and_weight(x, x0: float, dx: float, n: int):
     """Cell index (int64) and fractional offset, clamped to the grid."""
-    u = torch.clamp((x - x0) / dx, 0.0, n - 1.0)
-    i = torch.clamp(torch.floor(u), 0, n - 2).to(torch.int64)
+    u = torch.clamp(true_div(x - x0, dx), 0.0, n - 1.0)
+    # a NaN query reads cell 0 with a NaN weight (the CUDA kernels' float
+    # to int conversion gives 0 for NaN; torch's is undefined)
+    i = torch.nan_to_num(torch.clamp(torch.floor(u), 0, n - 2)).to(
+        torch.int64)
     return i, u - i.to(u.dtype)
 
 
@@ -89,6 +100,20 @@ def bilinear_scalar(field2d, grid: UniformGrid, lon, lat,
                     plane_idx: Optional[torch.Tensor] = None):
     """Single-channel bilinear: field2d [nlat, nlon] (or [P, ...]) -> [N]."""
     return bilinear(field2d[..., None], grid, lon, lat, plane_idx)[..., 0]
+
+
+def regrid(field, src_lon, src_lat, dst_lon, dst_lat):
+    """Regrid a [lat, lon] field bilinearly to a new grid (reference
+    interp_2d_grid, util/mat.py:159-164).  ``field`` is a tensor or a numpy
+    array; the result is a tensor [dst_lat, dst_lon] on the field's device
+    (the CPU for numpy input), in float32 as in the JAX package."""
+    grid = UniformGrid.from_axes(np.asarray(src_lon), np.asarray(src_lat))
+    field = torch.as_tensor(field).to(torch.float32)
+    axis = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                     device=field.device)
+    qlat, qlon = torch.meshgrid(axis(dst_lat), axis(dst_lon), indexing='ij')
+    vals = bilinear_scalar(field, grid, qlon.reshape(-1), qlat.reshape(-1))
+    return vals.reshape(qlat.shape)
 
 
 def pack_corners(field):

@@ -2,8 +2,8 @@
 tropical_cyclone_risk_tpu/runtime.py, single device).
 
 The output schema is the JAX package's, field for field (itself the
-reference's, util/compute.py:250-264), written through the shared
-``tropical_cyclone_risk_tpu.io.netcdf`` writer.
+reference's, util/compute.py:250-264), written through the port's copy of
+the NetCDF writer (io/netcdf.py).
 """
 
 from __future__ import annotations
@@ -16,9 +16,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tropical_cyclone_risk_tpu.config import Namelist
-from tropical_cyclone_risk_tpu.io import netcdf
-from tropical_cyclone_risk_tpu.utils import obs
+from tropical_cyclone_risk_tpu_torch.config import Namelist
+from tropical_cyclone_risk_tpu_torch.io import netcdf
+from tropical_cyclone_risk_tpu_torch.utils import obs
 from tropical_cyclone_risk_tpu_torch import rng
 from tropical_cyclone_risk_tpu_torch.models import pipeline, seeding
 from tropical_cyclone_risk_tpu_torch.models.fields import FieldPack
@@ -85,18 +85,25 @@ def write_tracks_nc(path: str, out: dict, cfg: Namelist) -> None:
 def run_downscaling(cfg: Namelist, basin_id: str, pack: FieldPack,
                     seed: Optional[int] = None,
                     n_years: Optional[int] = None,
-                    device=None) -> str:
+                    device=None, key: Optional[rng.Key] = None,
+                    trace_dir: Optional[str] = None) -> str:
     """Simulate every configured year on ``device`` (default: the pack's)
     and write the tracks file (util/compute.py:216-270).  Returns the
     written path.  ``seed`` draws the same streams as the JAX package's
-    ``key=jax.random.key(seed)``; None takes one from the clock."""
+    ``key=jax.random.key(seed)``; ``key`` (an ``rng.Key``, e.g.
+    ``rng.fold_in(rng.key(s), e)`` per ensemble member) those of the same
+    JAX key; with neither, a seed is taken from the clock.  ``trace_dir``
+    writes a torch.profiler trace of the simulation there."""
     basin_id = basins_mod.validate_basin_id(cfg, basin_id)
     if device is not None and pack.device != torch.device(device):
         pack = FieldPack(*(x.to(device) if isinstance(x, torch.Tensor)
                            else x for x in pack))
-    if seed is None:
-        seed = int(time.time_ns() % (2 ** 31))
-    key = rng.key(seed)
+    if key is not None and seed is not None:
+        raise ValueError('pass seed or key, not both')
+    if key is None:
+        if seed is None:
+            seed = int(time.time_ns() % (2 ** 31))
+        key = rng.key(seed)
     if n_years is not None and n_years < 1:
         raise ValueError(f'n_years must be >= 1, got {n_years}')
     years = cfg.years()[:n_years] if n_years is not None else cfg.years()
@@ -111,16 +118,17 @@ def run_downscaling(cfg: Namelist, basin_id: str, pack: FieldPack,
     metrics = obs.Metrics()
     results = []
     adapt = {'cfg': cfg}     # cap-overflow re-tuning persists across years
-    for yi, year in enumerate(years):
-        with obs.phase(f'year {year}', metrics):
-            results.append(pipeline.run_tracks_year(
-                rng.fold_in(key, year), pack, cfg, basin_id, yi,
-                adapt=adapt))
-        metrics.count('tracks', results[-1].lon.shape[0])
-        metrics.count('seeds', float(results[-1].n_seeds.sum()))
-        metrics.count('seeds_dropped', results[-1].n_dropped)
-        metrics.count('seeds_proposed', results[-1].n_proposed)
-        metrics.time('simulate', metrics.timings.pop(f'year {year}'))
+    with obs.maybe_profile(trace_dir):
+        for yi, year in enumerate(years):
+            with obs.phase(f'year {year}', metrics):
+                results.append(pipeline.run_tracks_year(
+                    rng.fold_in(key, year), pack, cfg, basin_id, yi,
+                    adapt=adapt))
+            metrics.count('tracks', results[-1].lon.shape[0])
+            metrics.count('seeds', float(results[-1].n_seeds.sum()))
+            metrics.count('seeds_dropped', results[-1].n_dropped)
+            metrics.count('seeds_proposed', results[-1].n_proposed)
+            metrics.time('simulate', metrics.timings.pop(f'year {year}'))
     obs.log.info('throughput: %.0f seeds/s, %.2f tracks/s',
                  metrics.rate('seeds', 'simulate'),
                  metrics.rate('tracks', 'simulate'))

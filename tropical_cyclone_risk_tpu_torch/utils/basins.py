@@ -9,7 +9,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tropical_cyclone_risk_tpu.config import Namelist
+from tropical_cyclone_risk_tpu_torch.config import Namelist
 
 
 def parse_bound(bound: str) -> float:
