@@ -5,35 +5,48 @@
 Phases (any failure raises, and the script exits non-zero):
 
 1. device    - require CUDA; print the card's name and power limit.
-2. build     - build the CUDA integrator (K1) and the CAPE-PI kernel (K6)
-               with nvcc, one process each, started together, while the
-               Triton vmax kernel (K2) is JIT-compiled; print the build
-               times and nvcc's register and stack report.
+2. build     - build the CUDA integrator (K1), seeding (K3), threefry (K5)
+               and CAPE-PI (K6) kernels with nvcc, one process each, all
+               started together, while the Triton vmax kernel (K2) is
+               JIT-compiled; print the build times and nvcc's register and
+               stack report.
 3. K1, K2    - one 131072-seed launch on the 181x360 one-degree pack with
                every integration segment run through K1 and through the
                plain PyTorch twin on the same inputs, and every vmax pass
                through K2 and its twin; agreement within the stated
                tolerances; times on the first segment at full width.
-4. workspace - write one year of a one-degree ERA5-shaped raw workspace on
+4. K3, K5    - propose_seeds at 131072 slots through K3 and through its
+               plain twin on the card, without retry caps, with the
+               auto-tuned caps and with caps that overflow (slots drop),
+               and retry_unresolved_curve; K5's bits / uniform / normal /
+               randint at [16, n] and [n] and its fused draw_fourier at
+               [n, 4, 15] against the plain threefry twins: all bit-exact;
+               times and bounds; K4 (stable_partition_order) timed.
+5. workspace - write one year of a one-degree ERA5-shaped raw workspace on
                the 28 ERA5 pressure levels (utils/synthetic_era5.py).
-5. K6        - gen_thermo over that workspace with cape_pi captured: all
+6. K6        - gen_thermo over that workspace with cape_pi captured: all
                12 x 181 x 360 columns on 28 levels through K6 and through
                the plain twin on the card (and a sample of columns through
                the twin on the CPU), within the stated tolerances; times.
-6. slice 1   - runtime.run_downscaling(cfg, 'GL', pack, seed=0) at
+7. slice 1   - runtime.run_downscaling(cfg, 'GL', pack, seed=0) at
                seed_batch=131072 for two years on a 24-plane synthetic
                pack, counters reset just before and read just after; the
                tracks file is read back and checked; a small launch on the
-               card agrees with the same launch through the plain twins on
-               the CPU.
-7. slice 2   - the workspace path: cli.main(['GL', '--namelist', ...,
+               card (K1, K2, K3, K5) agrees with the same launch through
+               the plain twins on the CPU.
+8. dvdt0     - run_downscaling as in 7 for one year with
+               m_init_mode='dvdt0', counters reset just before and read
+               just after; the tracks file is read back and checked.
+9. slice 2   - the workspace path: cli.main(['GL', '--namelist', ...,
                '--seed', '0']) on cuda at seed_batch=131072 (land masks,
                wind statistics, thermo, pack builder, simulation), counters
                reset just before and read just after; the thermo and
                tracks files are read back and checked; stage times; then
                the CLI once more with --trace-dir (the device's busy share
                of the simulation, from the torch.profiler trace).
-8. times     - launch times and the two-year run.
+10. times    - launch times, a torch.profiler trace of three launches
+               (device kernels per launch, busy share, host time by
+               stage, device time by operator) and the two-year run.
 
 The line before the card line is a JSON object with each kernel's route,
 source, launches on the workspace path, error against its twin, times and
@@ -42,6 +55,7 @@ build/.  Every time printed stands beside the card's name and power limit.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -78,6 +92,15 @@ K6_CPU_TOL = 1e-3
 K6_CPU_SHARE = 0.99
 K6_CPU_MAX = 0.1
 K6_CPU_COLUMNS = 4096
+# K3 and K5 against their twins on the card: the same operations in the
+# same order (-fmad=false, CUDA's libm on both sides, true divisions), so
+# every output field is bit-exact
+K3_K5_TOL = 0.0
+# retry caps whose 2048-wide rounds overflow at 131072 slots: unresolved
+# slots beyond a round's width are dropped (the twin's semantics)
+OVERFLOW_CAPS = (1 / 64,) * 15
+# the kernels a simulation (run_downscaling) launches
+SIMULATION_KERNELS = ('integrator', 'vmax', 'seeding', 'threefry')
 WS_YEAR = 2016      # the workspace: one year at one degree
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
 # HBM bytes/s and float32 operations/s outside the tensor cores
@@ -197,6 +220,291 @@ def k6_bound(args, out):
                  n_col * (140 + 100 * L))
 
 
+def same(a, b):
+    """Bit-exact equality of two tensors (NaN equal to NaN)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    eq = a == b
+    if a.is_floating_point():
+        eq = eq | (torch.isnan(a) & torch.isnan(b))
+    return bool(eq.all())
+
+
+def max_err(a, b):
+    """Max abs difference of two tensors of one shape (NaN pairs skipped)."""
+    if a.is_floating_point():
+        d = (a - b).abs()[~(torch.isnan(a) & torch.isnan(b))]
+    else:
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+    return float(d.max()) if d.numel() else 0.0
+
+
+def check_counts(label, launches, plain, names):
+    """Every kernel of `names` launched on the path and no twin on CUDA."""
+    log(f'[{label}] kernel launches {launches}; plain twins on CUDA {plain}')
+    if min(launches[k] for k in names) < 1 or max(plain.values()) > 0:
+        raise AssertionError(f'{label} did not run through {names} alone')
+
+
+# K3 and K5 operation counts (csrc/seeding.cu, csrc/rng.cu): a threefry
+# draw is ~110 integer operations (20 rounds of add, rotate and xor, the
+# five key injections, the counter split and the output xor), counted
+# against the float32 peak as bound() does, so the bound is optimistic
+# (H100 runs int32 operations at half its float32 rate); an
+# interpolated value ~25 float32 operations (two cell lookups and the
+# blend); a Fourier coefficient ~8 besides its draw (uniform, 2 pi phi,
+# cos, sin, two products; a transcendental as one)
+OPS_PER_DRAW = 110
+OPS_PER_VALUE = 25
+OPS_PER_COEF = 8
+
+
+def k3_bound(key, pack, cfg, prop):
+    """K3's bound on one propose_seeds call.  Bytes: the run-mask cells
+    (four corners) of the rounds its slots test, the basin-mask cells (all
+    basins) and env cells (vpot and rh of the slot's plane) at each slot's
+    final position, and its 11 outputs, each once.  Operations: the draws
+    it makes (two per tested round; month two, rejection one, v_init one;
+    with retry caps the final round's position is drawn again) and the
+    values it interpolates.  Returns ((ms, by), tested rounds)."""
+    from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.models import seeding
+    from tropical_cyclone_risk_tpu_torch.ops import interp
+    from tropical_cyclone_risk_tpu_torch.utils import basins
+    R, n, dev = seeding.N_RETRY_ROUNDS, N_SEEDS, pack.device
+    k_lon, k_lat0, k_latr, *_ = rng.split(key, 6)
+    lon_r, lat_r = seeding._position_rounds(
+        k_lon, k_lat0, k_latr, basins.basin_bounds(cfg, BASIN), n, dev)
+    passes = (seeding._mask_lookup(pack)(lon_r.reshape(-1), lat_r.reshape(-1))
+              .reshape(R, n) >= seeding.MASK_PASS)
+    first = torch.where(passes.any(0), passes.to(torch.uint8).argmax(0), R)
+    tested = torch.arange(R, device=dev)[:, None] <= first[None]
+
+    def cells(grid, lon, lat, plane=None):
+        ix, _ = interp._cell_and_weight(lon, grid.lon0, grid.dlon, grid.nlon)
+        iy, _ = interp._cell_and_weight(lat, grid.lat0, grid.dlat, grid.nlat)
+        base = iy * grid.nlon + ix
+        if plane is not None:
+            base = base + plane.to(torch.int64) * (grid.nlat * grid.nlon)
+        return int(torch.unique(torch.cat([
+            base, base + 1, base + grid.nlon, base + grid.nlon + 1])).numel())
+
+    n_tested = int(tested.sum())
+    B = pack.basin_masks.shape[-1]
+    n_bytes = 4 * (cells(pack.mask_grid, lon_r[tested], lat_r[tested])
+                   + B * cells(pack.mask_grid, prop.lon, prop.lat)
+                   + 2 * cells(pack.grid, prop.lon, prop.lat, prop.plane)
+                   ) + nbytes(*prop)
+    draws = 2 * n_tested + (4 + (2 if cfg.seed_retry_caps else 0)) * n
+    values = n_tested + (B + 2) * n
+    return bound(n_bytes, OPS_PER_DRAW * draws + OPS_PER_VALUE * values), \
+        n_tested
+
+
+def check_k3_k5(pack_y, cfg_t, card):
+    """Phase 4: K3 and K5 against their plain twins on the card at the
+    bench's shapes, then their times and bounds.  Returns the two kernels'
+    JSON entries (launches are filled in from the workspace path)."""
+    from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
+    from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
+    from tropical_cyclone_risk_tpu_torch.models import seeding
+    from tropical_cyclone_risk_tpu_torch.ops import fourier
+    from tropical_cyclone_risk_tpu_torch.utils import basins
+    dev = pack_y.device
+    key = rng.fold_in(rng.key(0), 3)
+    plane0 = cfg_t.start_month - 1
+    props, err3 = {}, 0.0
+    for name, caps in (('no caps', None),
+                       ('auto-tuned caps', cfg_t.seed_retry_caps),
+                       ('overflow caps', OVERFLOW_CAPS)):
+        c = cfg_t.replace(seed_retry_caps=caps)
+        out = seeding.propose_seeds(key, pack_y, c, BASIN, N_SEEDS, plane0)
+        ref = seeding.propose_seeds_plain(key, pack_y, c, BASIN, N_SEEDS,
+                                          plane0)
+        bad = [f for f, a, b in zip(out._fields, out, ref) if not same(a, b)]
+        err3 = max([err3] + [max_err(a, b) for a, b in zip(out, ref)])
+        props[name] = out
+        log(f'[K3] {name} {caps}: {N_SEEDS} slots, dropped '
+            f'{int(out.dropped.sum())} (twin {int(ref.dropped.sum())}), '
+            f'integrable {int(out.integrate.sum())}; fields not bit-exact: '
+            f'{bad or "none"}')
+        if bad:
+            raise AssertionError(f'K3 ({name}) differs from its twin: {bad}')
+    if not props['overflow caps'].dropped.sum() > \
+            props['no caps'].dropped.sum():
+        raise AssertionError('the overflow caps dropped no slot')
+    curve = seeding.retry_unresolved_curve(key, pack_y, cfg_t, BASIN,
+                                           N_SEEDS)
+    curve_ref = seeding.retry_unresolved_curve_plain(key, pack_y, cfg_t,
+                                                     BASIN, N_SEEDS)
+    log(f'[K3] retry_unresolved_curve {curve.tolist()}, twin equal: '
+        f'{np.array_equal(curve, curve_ref)}')
+    if not np.array_equal(curve, curve_ref):
+        raise AssertionError(f'K3 curve {curve} != twin {curve_ref}')
+
+    b = basins.basin_bounds(cfg_t, BASIN)
+    k5key = rng.fold_in(rng.key(0), 5)
+    samplers = {'bits': (rng.bits, rng.bits_plain, ()),
+                'uniform': (rng.uniform, rng.uniform_plain, (b[0], b[2])),
+                'normal': (rng.normal, rng.normal_plain, ()),
+                'randint': (rng.randint, rng.randint_plain, (1, 13))}
+    err5 = 0.0
+    for shape in ((seeding.N_RETRY_ROUNDS, N_SEEDS), (N_SEEDS,)):
+        for nm, (kern, plain, extra) in samplers.items():
+            a = kern(k5key, shape, *extra, device=dev)
+            r = plain(k5key, shape, *extra, device=dev)
+            err5 = max(err5, max_err(a, r))
+            if not same(a, r):
+                raise AssertionError(f'K5 {nm} at {shape} differs from its '
+                                     f'twin (max abs {max_err(a, r)})')
+    shape4 = (N_SEEDS, 4)
+    fs = fourier.draw_fourier(k5key, shape4, cfg_t.T_fourier_s, dev)
+    fr = fourier.draw_fourier_plain(k5key, shape4, cfg_t.T_fourier_s, dev)
+    err5 = max(err5, max_err(fs.A, fr.A), max_err(fs.B, fr.B))
+    if not (same(fs.A, fr.A) and same(fs.B, fr.B)):
+        raise AssertionError(f'K5 draw_fourier differs from its twin '
+                             f'(max abs {err5})')
+    log(f'[K5] bits, uniform, normal, randint at [16, {N_SEEDS}] and '
+        f'[{N_SEEDS}], draw_fourier at {tuple(fs.A.shape)}: bit-exact')
+
+    c = cfg_t
+    main = props['auto-tuned caps']
+    launch = k3.launcher('propose' if c.seed_retry_caps is None
+                         else 'propose_caps', key, pack_y, c, BASIN, N_SEEDS,
+                         plane0, [t.clone() for t in main])
+    ms3 = cuda_ms(launch, 20)
+    ms3_call = cuda_ms(lambda: seeding.propose_seeds(
+        key, pack_y, c, BASIN, N_SEEDS, plane0), 20)
+    ms3_plain = cuda_ms(lambda: seeding.propose_seeds_plain(
+        key, pack_y, c, BASIN, N_SEEDS, plane0), 3)
+    (b3, by3), n_tested = k3_bound(key, pack_y, c, main)
+    log(f'[K3] {card}: propose_seeds {N_SEEDS} slots (caps '
+        f'{c.seed_retry_caps}, {n_tested} rounds tested): kernel {ms3:.4f} '
+        f'ms, through the dispatcher {ms3_call:.4f} ms, plain twin '
+        f'{ms3_plain:.3f} ms, bound {b3:.5f} ms ({by3})')
+    amp = fourier._amplitudes(dev)
+    ms5 = cuda_ms(lambda: k5.fourier_cuda(k5key, shape4, amp), 20)
+    ms5_plain = cuda_ms(lambda: fourier.draw_fourier_plain(
+        k5key, shape4, c.T_fourier_s, dev), 5)
+    b5, by5 = bound(nbytes(fs.A, fs.B, amp),
+                    fs.A.numel() * (OPS_PER_DRAW + OPS_PER_COEF))
+    shape16 = (seeding.N_RETRY_ROUNDS, N_SEEDS)
+    ms5u = cuda_ms(lambda: rng.uniform(k5key, shape16, device=dev), 20)
+    ms5u_plain = cuda_ms(lambda: rng.uniform_plain(k5key, shape16,
+                                                   device=dev), 5)
+    b5u, by5u = bound(4 * math.prod(shape16),
+                      (OPS_PER_DRAW + 4) * math.prod(shape16))
+    log(f'[K5] {card}: draw_fourier {tuple(fs.A.shape)}: kernel '
+        f'{ms5:.4f} ms, plain twin {ms5_plain:.3f} ms, bound {b5:.5f} ms '
+        f'({by5}); uniform {shape16}: kernel {ms5u:.4f} ms, plain twin '
+        f'{ms5u_plain:.3f} ms, bound {b5u:.5f} ms ({by5u})')
+    src = 'tropical_cyclone_risk_tpu_torch/'
+    return [
+        {'name': 'seeding', 'route': 'cuda', 'source': src + 'csrc/seeding.cu',
+         'replaces': 'tropical_cyclone_risk_tpu/models/seeding.py:95',
+         'launches': None, 'max_abs_err': err3, 'ms': ms3,
+         'plain_ms': ms3_plain, 'bound_ms': b3, 'bound_by': by3,
+         'library_ms': None},
+        {'name': 'threefry', 'route': 'cuda', 'source': src + 'csrc/rng.cu',
+         'replaces': 'tropical_cyclone_risk_tpu/ops/fourier.py:84',
+         'launches': None, 'max_abs_err': err5, 'ms': ms5,
+         'plain_ms': ms5_plain, 'bound_ms': b5, 'bound_by': by5,
+         'library_ms': None}]
+
+
+def k4_probe(key, pack_y, cfg_t, plane0, card):
+    """K4 (ops/compact.stable_partition_order, still plain torch): its
+    calls in one launch, and the time of the launch's integrate compaction
+    (131072 slots to the integrate width) against its bound, the mask read
+    and the order written once (bytes)."""
+    from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.models import pipeline, seeding
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+    orig = compact_ops.stable_partition_order
+    calls = []
+
+    def counted(mask, w=None):
+        calls.append((mask.shape[0], w))
+        return orig(mask, w)
+
+    compact_ops.stable_partition_order = counted
+    try:
+        pipeline._simulate_batch(key, pack_y, cfg_t, BASIN, N_SEEDS, 64,
+                                 plane0)
+    finally:
+        compact_ops.stable_partition_order = orig
+    prop = seeding.propose_seeds(rng.split(key)[0], pack_y, cfg_t, BASIN,
+                                 N_SEEDS, plane0)
+    m = pipeline.launch_width(cfg_t, N_SEEDS)
+    ms = cuda_ms(lambda: orig(prop.integrate, m), 50)
+    b4, by4 = bound(nbytes(prop.integrate, orig(prop.integrate, m)),
+                    3 * N_SEEDS)
+    log(f'[K4] {card}: stable_partition_order {len(calls)} calls per launch '
+        f'(n, w) {calls}; the integrate compaction {N_SEEDS} -> {m}: '
+        f'{ms:.4f} ms (plain torch), bound {b4:.5f} ms ({by4})')
+
+
+def profile_launches(run, reps, path):
+    """torch.profiler over `reps` launches, each pipeline stage under a
+    record_function range.  Returns (device kernels per launch, busy
+    share, traced ms per launch, {stage: (host ms, device span ms)} per
+    launch, the top device operators as (ms per launch, name, calls per
+    launch)).  A stage's host ms is its range on the host; its device span
+    runs from its first kernel's start to its last kernel's end, idle gaps
+    included."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from tropical_cyclone_risk_tpu_torch.models import (diagnostics, fields,
+                                                        pipeline, seeding,
+                                                        simulator)
+    from tropical_cyclone_risk_tpu_torch.ops import compact, fourier
+    stages = [(seeding, 'propose_seeds'), (fourier, 'draw_fourier'),
+              (fields, 'build_stacks'), (simulator, 'genesis_alive'),
+              (simulator, 'integrate_segment'),
+              (diagnostics, 'axi_to_max_wind_raw'),
+              (pipeline, 'compact_survivors'),
+              (compact, 'stable_partition_order')]
+    originals = [getattr(mod, nm) for mod, nm in stages]
+
+    def ranged(fn, label):
+        def run_ranged(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return run_ranged
+
+    for (mod, nm), fn in zip(stages, originals):
+        setattr(mod, nm, ranged(fn, 'stage:' + nm))
+    try:
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+    finally:
+        for (mod, nm), fn in zip(stages, originals):
+            setattr(mod, nm, fn)
+    prof.export_chrome_trace(path)
+    busy, span, n_kern = trace_busy(path)
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    stage_ms = {}
+    for e in events:
+        if e.get('ph') == 'X' and str(e.get('name')).startswith('stage:'):
+            side = 1 if e.get('cat') == 'gpu_user_annotation' else 0
+            ms = stage_ms.setdefault(e['name'][len('stage:'):], [0.0, 0.0])
+            ms[side] += float(e['dur']) / 1e3 / reps
+    avg = prof.key_averages()
+    attr = ('self_device_time_total'
+            if hasattr(avg[0], 'self_device_time_total')
+            else 'self_cuda_time_total')
+    top = sorted(((getattr(e, attr) / 1e3 / reps, e.key[:60], e.count / reps)
+                  for e in avg if getattr(e, attr) > 0
+                  and not e.key.startswith('stage:')), reverse=True)[:12]
+    return n_kern / reps, busy / span, span / 1e3 / reps, stage_ms, top
+
+
 def card_line():
     return subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -205,10 +513,13 @@ def card_line():
 
 
 def build_all(dev):
-    """nvcc for K1 and K6 in two threads (two processes at once) while the
-    Triton K2 JIT-compiles here; returns the build seconds by kernel."""
+    """nvcc for K1, K3, K5 and K6 in four threads (four processes at once)
+    while the Triton K2 JIT-compiles here; logs the build seconds by
+    kernel."""
     from tropical_cyclone_risk_tpu_torch.kernels import cape_pi as k6
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
+    from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
     from tropical_cyclone_risk_tpu_torch.kernels import vmax as vmax_kernel
     builds, errors = {}, []
 
@@ -221,6 +532,7 @@ def build_all(dev):
 
     threads = [threading.Thread(target=nvcc, args=a)
                for a in (('integrator', integrator.build),
+                         ('seeding', k3.build), ('threefry', k5.build),
                          ('cape_pi', k6.build))]
     for t in threads:
         t.start()
@@ -355,8 +667,11 @@ def main():
         f'({k2_by})')
     del k1_calls, k2_calls, args0, out0, v_args, v_kw, v_out
 
+    # ---- 4. K3 and K5 against their plain twins --------------------------
+    k35 = check_k3_k5(pack_y, cfg_t, card)
+
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
-        # ---- 4. workspace -------------------------------------------------
+        # ---- 5. workspace -------------------------------------------------
         t0 = time.perf_counter()
         ws = f'{tmp}/ws'
         nl = synthetic_era5.make_workspace(ws, WS_YEAR, WS_YEAR, nlat=181,
@@ -365,7 +680,7 @@ def main():
             f'{synthetic_era5.LEVELS_HPA.size} levels, twice-daily winds, '
             f'written in {time.perf_counter() - t0:.1f} s')
 
-        # ---- 5. K6 against its plain twin ---------------------------------
+        # ---- 6. K6 against its plain twin ---------------------------------
         # gen_thermo into a side directory with cape_pi captured, so K6
         # sees exactly the main path's inputs
         cfg_ws = load_namelist_py(nl)
@@ -423,7 +738,7 @@ def main():
             f'{ms_k6_plain:.3f} ms, bound {k6_bound_ms:.4f} ms ({k6_by})')
         del k6_calls, k6_args, k6_out, k6_ref
 
-        # ---- 6. slice 1: run_downscaling on the synthetic pack ------------
+        # ---- 7. slice 1: run_downscaling on the synthetic pack ------------
         cfg_run = cfg.replace(output_directory=f'{tmp}/slice1',
                               exp_name='smoke')
         torch.cuda.synchronize()
@@ -433,15 +748,10 @@ def main():
                                      device=dev)
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
-        launches1 = dict(kernels.LAUNCHES)
-        plain1 = dict(kernels.PLAIN_ON_CUDA)
+        log(f'[slice 1] run_downscaling 2 years in {t_run:.2f} s')
+        check_counts('slice 1', dict(kernels.LAUNCHES),
+                     dict(kernels.PLAIN_ON_CUDA), SIMULATION_KERNELS)
         ds = netcdf.read(fn)
-        log(f'[slice 1] run_downscaling 2 years in {t_run:.2f} s; kernel '
-            f'launches {launches1}; plain twins on CUDA {plain1}')
-        if (min(launches1['integrator'], launches1['vmax']) < 1
-                or max(plain1.values()) > 0):
-            raise AssertionError('slice 1 did not run through K1 and K2 '
-                                 'alone')
         n_trk, peaks = check_tracks(ds, cfg)
         if n_trk != 2 * cfg.tracks_per_year:
             raise AssertionError(f'{n_trk} tracks != 2 x '
@@ -451,7 +761,28 @@ def main():
             f'{peaks.max():.1f} m/s, seeds per month sum {spm.sum():.0f}')
         check_small_launch(dev, Namelist, fields, pipeline, rng)
 
-        # ---- 7. slice 2: the workspace path through the CLI ---------------
+        # ---- 8. m_init_mode='dvdt0' ---------------------------------------
+        cfg_dv = cfg.replace(output_directory=f'{tmp}/dvdt0', exp_name='dv',
+                             end_year=cfg.start_year, m_init_mode='dvdt0')
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        fn_dv = runtime.run_downscaling(cfg_dv, BASIN, pack24, seed=2,
+                                        device=dev)
+        torch.cuda.synchronize()
+        t_dv = time.perf_counter() - t0
+        check_counts('dvdt0', dict(kernels.LAUNCHES),
+                     dict(kernels.PLAIN_ON_CUDA), SIMULATION_KERNELS)
+        ds_dv = netcdf.read(fn_dv)
+        n_dv, peaks_dv = check_tracks(ds_dv, cfg_dv)
+        m0 = ds_dv.variables['m_trks'].data[:, 0]
+        log(f'[dvdt0] run_downscaling one year in {t_dv:.2f} s: {n_dv} '
+            f'tracks, peak v {peaks_dv.min():.1f}..{peaks_dv.max():.1f} m/s, '
+            f'genesis m {m0.min():.4f}..{m0.max():.4f}')
+        if not (n_dv == cfg.tracks_per_year and np.all((m0 >= 0) & (m0 <= 1))):
+            raise AssertionError(f'dvdt0: {n_dv} tracks, genesis m {m0}')
+
+        # ---- 9. slice 2: the workspace path through the CLI ---------------
         stage_s = {}
         timed = [(winds, 'gen_wind_mean_cov', 'winds'),
                  (thermo_driver, 'gen_thermo', 'thermo'),
@@ -482,14 +813,11 @@ def main():
         torch.cuda.synchronize()
         t_cli = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-        plain = dict(kernels.PLAIN_ON_CUDA)
         log(f'[slice 2] {card}: cli.main GL one year in {t_cli:.2f} s; '
             f'stages (s) {json.dumps({k: round(v, 3) for k, v in stage_s.items()})}'
-            f' (winds and thermo overlap); kernel launches {launches}; '
-            f'plain twins on CUDA {plain}')
-        if min(launches.values()) < 1 or max(plain.values()) > 0:
-            raise AssertionError('the workspace path did not run through '
-                                 'K1, K2 and K6 alone')
+            f' (winds and thermo overlap)')
+        check_counts('slice 2', launches, dict(kernels.PLAIN_ON_CUDA),
+                     kernels.NAMES)
         check_thermo_file(thermo_driver.get_fn_thermo(cfg_ws), netcdf,
                           synthetic_era5)
         fn_ws = runtime.get_fn_tracks(cfg_ws, BASIN)
@@ -503,16 +831,33 @@ def main():
         # the simulation under torch.profiler; the device's busy share is
         # the union of its kernels' intervals over the traced span
         t0 = time.perf_counter()
+        kernels.reset_counts()
         cli.main(['GL', '--namelist', nl, '--seed', '1', '--trace-dir',
                   f'{tmp}/trace'])
         busy, span, n_kern = trace_busy(f'{tmp}/trace/trace.json')
+        n_prop = kernels.LAUNCHES['seeding']
         log(f'[slice 2] {card}: --trace-dir run {time.perf_counter() - t0:.2f}'
-            f' s; simulation trace: {n_kern} device kernels, busy '
+            f' s; simulation trace (auto-tune probes and the year\'s '
+            f'launches, {n_prop} K3 launches): {n_kern} device kernels, busy '
             f'{busy / 1e3:.2f} ms of {span / 1e3:.2f} ms traced '
             f'({busy / span:.3f} busy share)')
 
-    # ---- 8. times ---------------------------------------------------------
-    plane0 = cfg.start_month - 1
+        # ---- 10. times ----------------------------------------------------
+        plane0 = cfg.start_month - 1
+        k4_probe(rng.key(99), pack_y, cfg_t, plane0, card)
+        per_launch, share, traced_ms, stage_ms, top = profile_launches(
+            lambda: pipeline._simulate_batch(rng.key(98), pack_y, cfg_t,
+                                             BASIN, N_SEEDS, 64, plane0),
+            3, f'{tmp}/launches.json')
+        log(f'[times] {card}: torch.profiler over 3 launches: '
+            f'{per_launch:.0f} device kernels per launch, busy share '
+            f'{share:.3f}, {traced_ms:.2f} ms traced per launch (the '
+            f'profiler slows the host); by stage, ms per launch on the host '
+            f'and device span: ' + '; '.join(
+                f'{nm} {h:.3f} / {d:.3f}' for nm, (h, d) in stage_ms.items()))
+        log('[times] device ms per launch by operator: ' + '; '.join(
+            f'{nm} {ms:.4f} ({calls:.0f}x)' for ms, nm, calls in top))
+
     dts = []
     for i in range(6):
         torch.cuda.synchronize()
@@ -544,6 +889,8 @@ def main():
         f'sim-years/min; two-year run_downscaling {t_run:.2f} s incl. '
         f'auto-tune and write; workspace CLI {t_cli:.2f} s')
 
+    for k in k35:
+        k['launches'] = launches[k['name']]
     src = 'tropical_cyclone_risk_tpu_torch/'
     print(json.dumps({'kernels': [
         {'name': 'integrator', 'route': 'cuda',
@@ -559,6 +906,7 @@ def main():
          'launches': launches['vmax'], 'max_abs_err': k2_err, 'ms': ms_k2,
          'plain_ms': ms_k2_plain, 'bound_ms': k2_bound_ms,
          'bound_by': k2_by, 'library_ms': None},
+        *k35,
         {'name': 'cape_pi', 'route': 'cuda',
          'source': src + 'csrc/cape_pi.cu',
          'replaces': 'tropical_cyclone_risk_tpu/ops/pi.py:92',
@@ -630,9 +978,9 @@ def check_thermo_file(fn, netcdf, synthetic_era5):
 
 
 def check_small_launch(dev, Namelist, fields, pipeline, rng):
-    """A small launch on the card against the same launch through the plain
-    twins on the CPU (themselves held against the JAX package by the CPU
-    tests): rounding-level differences may flip a borderline verdict, so
+    """A small launch on the card (K1, K2, K3, K5) against the same launch
+    through the plain twins on the CPU (themselves held against the JAX
+    package by the CPU tests): rounding-level differences may flip a borderline verdict, so
     verdicts must agree on >= 99.5% of slots and matched survivors within
     1e-3 deg at genesis and 0.5 m/s in lifetime peak vmax."""
     small = Namelist(seed_batch=2048, integrate_cap=0.5,

@@ -18,6 +18,8 @@ import tropical_cyclone_risk_tpu_torch as port
 from tropical_cyclone_risk_tpu_torch import kernels
 from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch.kernels import integrator, vmax
+from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
+from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
 from tropical_cyclone_risk_tpu_torch.models import (diagnostics, fast,
                                                     fields, simulator)
 from tropical_cyclone_risk_tpu_torch.ops import fourier
@@ -113,9 +115,8 @@ def test_cpu_tensors_take_the_plain_twins():
                                             outs[2], outs[4], outs[5], last,
                                             cfg)
     assert outs[0].shape == vm.shape == (7, 64)
-    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0, 'cape_pi': 0}
-    assert kernels.PLAIN_ON_CUDA == {'integrator': 0, 'vmax': 0,
-                                     'cape_pi': 0}
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.NAMES, 0)
+    assert kernels.PLAIN_ON_CUDA == dict.fromkeys(kernels.NAMES, 0)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -131,7 +132,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             t, t, 3600.0, t, torch.zeros(4, 8, 4),
             torch.ones(4, 8, dtype=torch.bool),
             torch.zeros(8, dtype=torch.int64), (0, 1, 2, 3))
-    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0, 'cape_pi': 0}
+    with pytest.raises(ValueError, match='CUDA'):
+        k5.fill_cuda('bits', (0, 1), (8,), 'cpu')
+    pack = fields.synthetic_pack(cfg, 12, 19, 36, seed=1, device='cpu')
+    with pytest.raises(ValueError, match='CUDA'):
+        k3.propose_seeds_cuda((0, 1), pack, cfg, 'GL', 256)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.NAMES, 0)
 
 
 @pytest.mark.parametrize('option', ['time_interp_fields', 'vmax_in_scan',

@@ -196,7 +196,7 @@ def test_integrate_segment(packs, storms, k0, n_steps):
     outs, (yend, aend) = simulator.integrate_segment(
         fields.build_stacks(tpack), CFG, basins.basin_bounds(CFG, 'GL'), ty,
         torch.from_numpy(alive0), tp, k0, n_steps)
-    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0, 'cape_pi': 0}
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.NAMES, 0)
     names = ('lon', 'lat', 'v', 'm', 'wnds', 'alive')
     tol = {'lon': 1e-4, 'lat': 1e-4, 'v': 1e-3, 'm': 1e-4, 'wnds': 1e-3}
     np.testing.assert_array_equal(outs[5].numpy(), np.asarray(outs_j[5]))
@@ -301,24 +301,34 @@ def test_axi_to_max_wind_raw(boundaries):
         *(torch.from_numpy(x) for x in (lon, lat)), 3600.0,
         torch.from_numpy(v), torch.from_numpy(wnds), torch.from_numpy(alive),
         torch.from_numpy(last), CFG, **kw_t)
-    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0, 'cape_pi': 0}
+    assert not any(kernels.LAUNCHES.values())
     np.testing.assert_allclose(vmax.numpy(), np.asarray(vmax_j), rtol=0,
                                atol=1e-4)
     np.testing.assert_allclose(peak.numpy(), np.asarray(peak_j), rtol=0,
                                atol=1e-4)
 
 
-@pytest.mark.parametrize('caps', [None, (0.5, 0.25, 0.125) + (1 / 64,) * 12])
+# 256-wide retry rounds: at 8192 slots, ~830 unresolved slots enter round 1
+OVERFLOW_CAPS = (1 / 64,) * 15
+
+
+@pytest.mark.parametrize('caps', [None, (0.5, 0.25, 0.125) + (1 / 64,) * 12,
+                                  OVERFLOW_CAPS])
 def test_propose_seeds_seed_by_seed(packs, caps):
-    """Both the argmax path and the retry-compaction path, against JAX and
-    against each other (the compaction is bit-identical when every
-    unresolved slot fits its round, test_seeding_parity)."""
+    """The argmax path, the retry-compaction path and a compaction whose
+    rounds overflow (unresolved slots beyond a round's width are dropped),
+    against JAX; the non-overflowing compaction also against the argmax
+    path (bit-identical when every unresolved slot fits its round,
+    test_seeding_parity)."""
     jpack, tpack = packs
     cfg = CFG.replace(seed_retry_caps=caps)
+    n = 8192 if caps == OVERFLOW_CAPS else 2048
     kj = jax.random.key(21)
     kt = rng.key_from_jax(jax.random.key_data(kj))
-    pj = jseed.propose_seeds(kj, jpack, cfg, 'GL', 2048, jnp.int32(0))
-    pt = seeding.propose_seeds(kt, tpack, cfg, 'GL', 2048, 0)
+    pj = jseed.propose_seeds(kj, jpack, cfg, 'GL', n, jnp.int32(0))
+    kernels.reset_counts()
+    pt = seeding.propose_seeds(kt, tpack, cfg, 'GL', n, 0)
+    assert kernels.LAUNCHES['seeding'] == kernels.LAUNCHES['threefry'] == 0
     tol = {'lat': 1e-5, 'v_init': 1e-6, 'm_init': 1e-6}
     for name in jseed.SeedProposal._fields:
         a, b = getattr(pt, name).numpy(), np.asarray(getattr(pj, name))
@@ -328,13 +338,16 @@ def test_propose_seeds_seed_by_seed(packs, caps):
         else:
             np.testing.assert_array_equal(a, b, err_msg=name)
     assert pt.integrate.sum() > 100
-    if caps is not None:
-        full = seeding.propose_seeds(kt, tpack, CFG, 'GL', 2048, 0)
+    if caps == OVERFLOW_CAPS:
+        full = seeding.propose_seeds(kt, tpack, CFG, 'GL', n, 0)
+        assert int(pt.dropped.sum()) > int(full.dropped.sum()) + 100
+    elif caps is not None:
+        full = seeding.propose_seeds(kt, tpack, CFG, 'GL', n, 0)
         for a, b in zip(pt, full):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
-    curve_j = jseed.retry_unresolved_curve(kj, jpack, cfg, 'GL', 2048)
+    curve_j = jseed.retry_unresolved_curve(kj, jpack, cfg, 'GL', n)
     np.testing.assert_array_equal(
-        seeding.retry_unresolved_curve(kt, tpack, cfg, 'GL', 2048),
+        seeding.retry_unresolved_curve(kt, tpack, cfg, 'GL', n),
         np.asarray(curve_j))
     spm = seeding.count_seeds_per_month(pt.basin_idx.numpy(),
                                         pt.month.numpy(), pt.counted.numpy(),
@@ -342,3 +355,139 @@ def test_propose_seeds_seed_by_seed(packs, caps):
     np.testing.assert_array_equal(spm, jseed.count_seeds_per_month(
         pj.basin_idx, pj.month, pj.counted, len(cfg.basin_ids_sorted()),
         1000))
+
+
+def _k3_caps_first(first, widths, R):
+    """The retry-compaction result the seeding kernel computes from each
+    slot's full-width first passing round (csrc/seeding.cu seed_caps): from
+    the first round whose unresolved slots #{first >= r} exceed its width
+    on, the slots still active and unresolved past rank widths[r] (slot
+    order) drop out; a dropped slot reads as never passing (R)."""
+    f = first.copy()
+    active = np.ones_like(f, dtype=bool)
+    counts = np.bincount(f, minlength=R + 1)
+    ge = np.cumsum(counts[::-1])[::-1]
+    over = [r for r in range(1, R) if ge[r] > widths[r]]
+    for r in range(over[0] if over else R, R):
+        unresolved = active & (f >= r)
+        rank = np.cumsum(unresolved) - 1
+        active &= ~(unresolved & (rank >= widths[r]))
+    f[~active] = R
+    return f, ge
+
+
+@pytest.mark.parametrize('caps', [(0.5, 0.25, 0.125) + (1 / 64,) * 12,
+                                  OVERFLOW_CAPS])
+def test_seeding_kernel_design_matches_the_twin(packs, caps):
+    """K3's design on the host: a full-width first passing round per slot
+    plus its histogram, then the successive stable ranks only where a
+    retry round overflows, gives the twin's first round, and with it its
+    dropped slots, exactly; the histogram gives retry_unresolved_curve."""
+    _, tpack = packs
+    cfg = CFG.replace(seed_retry_caps=caps)
+    n = 8192 if caps == OVERFLOW_CAPS else 2048
+    R = seeding.N_RETRY_ROUNDS
+    kt = rng.key(21)
+    k_lon, k_lat0, k_latr, *_ = rng.split(kt, 6)
+    b = basins.basin_bounds(cfg, 'GL')
+    lon_r, lat_r = seeding._position_rounds(k_lon, k_lat0, k_latr, b, n,
+                                            'cpu')
+    passes = (seeding._mask_lookup(tpack)(lon_r.reshape(-1),
+                                          lat_r.reshape(-1))
+              .reshape(R, n) >= seeding.MASK_PASS).numpy()
+    full = np.where(passes.any(0), passes.argmax(0), R)
+    first, ge = _k3_caps_first(full, [n] + seeding.retry_widths(cfg, n), R)
+    pt = seeding.propose_seeds(kt, tpack, cfg, 'GL', n, 0)
+    np.testing.assert_array_equal(first == R, pt.dropped.numpy())
+    np.testing.assert_array_equal(
+        ge[1:], seeding.retry_unresolved_curve(kt, tpack, cfg, 'GL', n))
+    if caps == OVERFLOW_CAPS:
+        assert (first == R).sum() > (full == R).sum() + 100
+
+
+def test_seeding_kernel_params_are_the_twins_constants(packs):
+    """K3's parameter block: the split keys, the uniform bounds and the
+    float32 constants of propose_seeds_plain, in csrc/seeding.cu's order."""
+    from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
+    _, tpack = packs
+    cfg = CFG.replace(seed_retry_caps=OVERFLOW_CAPS)
+    kt = rng.key(21)
+    keys, dp, fp, ip = k3.params(kt, tpack, cfg, 'GL', 2048, 3)
+    k_lon, k_lat0, k_latr, k_month, k_reject, k_vinit = rng.split(kt, 6)
+    assert keys.tolist() == [w for k in (k_lon, k_lat0, k_latr,
+                                         *rng.split(k_month, 2), k_reject,
+                                         k_vinit) for w in k]
+    b = basins.basin_bounds(cfg, 'GL')
+    assert dp[:2].tolist() == list(rng.uniform_params(b[0], b[2]))
+    assert dp[8:].tolist() == list(rng.uniform_params(rng.NORMAL_LO, 1.0))
+    nb = len(cfg.basin_ids_sorted())
+    assert fp.dtype == np.float32 and fp.size == 19 + 2 * k3.MAX_BASINS
+    np.testing.assert_array_equal(fp[19:19 + nb],
+                                  np.float32(cfg.lat_vort_power_by_basin()))
+    np.testing.assert_array_equal(fp[35:35 + nb],
+                                  np.float32(cfg.h_bl_by_basin()))
+    assert fp[13] == np.float32(12.0) and fp[3] == np.float32(35.0)
+    assert ip[:2].tolist() == [2048, seeding.N_RETRY_ROUNDS]
+    assert ip[11] == 3 - cfg.start_month
+    R = seeding.N_RETRY_ROUNDS
+    assert ip[15:15 + R].tolist() == [2048] + seeding.retry_widths(cfg, 2048)
+
+
+def test_seeding_wrappers_refuse_cpu_tensors(packs):
+    from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
+    from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
+    _, tpack = packs
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match='CUDA'):
+        k3.propose_seeds_cuda(rng.key(1), tpack, CFG, 'GL', 256)
+    with pytest.raises(ValueError, match='CUDA'):
+        k3.retry_unresolved_curve_cuda(rng.key(1), tpack, CFG, 'GL', 256)
+    with pytest.raises(ValueError, match='CUDA'):
+        k5.fill_cuda('uniform', rng.key(1), (8,), 'cpu', 0.0, 1.0)
+    with pytest.raises(ValueError, match='CUDA'):
+        k5.fourier_cuda(rng.key(1), (8, 4), torch.ones(15))
+    assert not any(kernels.LAUNCHES.values())
+
+
+def _dvdt0_storms(storms, case):
+    """(JAX, port) State/SeedParams pairs: the six storms of
+    tests/test_fast_golden.py's dvdt0 test (zero Fourier flow), or the
+    module's 1500 storms with random Fourier phases."""
+    if case == 'storms':
+        return storms
+    n, W = 6, CFG.n_wind_levels
+    arrs = [np.linspace(a, b, n).astype(np.float32)
+            for a, b in ((150.0, 210.0), (8.0, 30.0), (4.0, 9.0),
+                         (0.5, 0.5))]
+    plane = np.full(n, 7, np.int32)
+    h_bl = np.full(n, 1600.0, np.float32)
+    z = np.zeros((n, W, fourier.N_FOURIER), np.float32)
+    jy = jfast.State(*(jnp.asarray(x) for x in arrs))
+    jp = jfast.SeedParams(jnp.asarray(plane), jnp.asarray(h_bl),
+                          jfourier.FourierSeries(jnp.asarray(z),
+                                                 jnp.asarray(z),
+                                                 jnp.asarray(CFG.T_fourier_s)))
+    ty = fast.State(*(torch.from_numpy(x) for x in arrs))
+    tp = fast.SeedParams(torch.from_numpy(plane), torch.from_numpy(h_bl),
+                         fourier.FourierSeries(torch.from_numpy(z),
+                                               torch.from_numpy(z),
+                                               CFG.T_fourier_s))
+    return jy, jp, ty, tp
+
+
+@pytest.mark.parametrize('case', ['golden', 'storms'])
+def test_init_m_dvdt0_matches_jax(packs, storms, case):
+    """m_init_mode='dvdt0' against the JAX package's init_m_dvdt0: within
+    1e-6 absolute, about 1e-6 relative (m lies in [0, 1]; found: 6e-8,
+    one ulp).  The ratio under the cube root carries the rounding of the
+    bilinear lookups, the wind coloring and alpha's exp, which the cube
+    root divides by three; torch has no cbrt, and |x|^(1/3) in float64
+    rounds within an ulp of jnp.cbrt."""
+    jpack, tpack = packs
+    jy, jp, ty, tp = _dvdt0_storms(storms, case)
+    want = np.asarray(jfast.init_m_dvdt0(jpack, CFG, jy.lon, jy.lat, jy.v,
+                                         jp))
+    got = fast.init_m_dvdt0(tpack, CFG, ty.lon, ty.lat, ty.v, tp).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.all((got >= 0) & (got <= 1))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)

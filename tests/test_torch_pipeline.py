@@ -15,7 +15,8 @@ Tolerances, with their reasons:
   bit for bit, as test_integrate_compaction_bit_identical pins for JAX;
 - (c) run_downscaling for one year from the same seed in both packages:
   the same variables, dims and dtypes, the same seeds_per_month and the
-  same track count.
+  same track count;
+- (d) m_init_mode='dvdt0' launches: as (a).
 """
 
 import jax
@@ -58,13 +59,9 @@ def port_segmented(packs):
     return _np(tr), _np(meta)
 
 
-def test_multi_segment_launch_matches_jax(packs, port_segmented):
-    cfg = CFG.replace(**SEG)
-    tj, mj = jpipeline._simulate_batch(jax.random.key(5), packs[0], cfg,
-                                       'GL', CFG.seed_batch, 256,
-                                       jnp.int32(0))
-    tj, mj = _np(tj), _np(mj)
-    tt, mt = port_segmented
+def _assert_launches_match(port, jax_out):
+    """Tolerance (a) between the port's launch and the JAX package's."""
+    (tt, mt), (tj, mj) = port, jax_out
     assert (mt['keep'] == mj['keep']).mean() >= 0.995
     np.testing.assert_array_equal(mt['counted'], mj['counted'])
     if (mt['keep'] == mj['keep']).all():
@@ -84,6 +81,32 @@ def test_multi_segment_launch_matches_jax(packs, port_segmented):
                                    atol=TRACK_TOL[k], err_msg=k)
     for k in ('month', 'basin_idx'):
         np.testing.assert_array_equal(tt[k][rt], tj[k][rj], err_msg=k)
+
+
+def _jax_launch(packs, cfg, seed):
+    return tuple(map(_np, jpipeline._simulate_batch(
+        jax.random.key(seed), packs[0], cfg, 'GL', CFG.seed_batch, 256,
+        jnp.int32(0))))
+
+
+def test_multi_segment_launch_matches_jax(packs, port_segmented):
+    _assert_launches_match(port_segmented,
+                           _jax_launch(packs, CFG.replace(**SEG), 5))
+
+
+def test_dvdt0_launch_matches_jax(packs, port_segmented):
+    """(d) m_init_mode='dvdt0' (m from the dv/dt = 0 inversion instead of
+    the RH sigmoid): the same multi-segment launch in both packages agrees
+    under tolerance (a), and its survivors start from other m than the
+    'rh' launch of the same key."""
+    cfg = CFG.replace(m_init_mode='dvdt0', **SEG)
+    port = tuple(map(_np, pipeline._simulate_batch(
+        rng.key(5), packs[1], cfg, 'GL', CFG.seed_batch, 256, 0)))
+    _assert_launches_match(port, _jax_launch(packs, cfg, 5))
+    (tt, mt), (tr, mr) = port, port_segmented
+    m0 = tt['m'][tt['valid'], 0]
+    assert np.all((m0 >= 0) & (m0 <= 1))
+    assert not np.allclose(m0[:10], tr['m'][:10, 0], atol=1e-3)
 
 
 def test_compaction_bit_identical_to_uncapped(packs, port_segmented):

@@ -8,12 +8,17 @@ from JAX's in the last ulps: |diff| <= 1e-6 (4 ulps near |z| = 4) and at
 least 95% of draws bit-exact.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
-from tropical_cyclone_risk_tpu_torch import rng
+from tropical_cyclone_risk_tpu_torch import kernels, rng
+from tropical_cyclone_risk_tpu_torch.ops import fourier
 
 SEEDS = [0, 1, 7, 123456]
 
@@ -66,3 +71,61 @@ def test_normal(seed):
     b = np.asarray(jax.random.normal(kj, (50000,)))
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
     assert (a == b).mean() >= 0.95
+
+
+@pytest.mark.parametrize('seed', SEEDS)
+def test_split_fold_in_on_host_ints(seed):
+    """split and fold_in run the 20 rounds on Python ints: keys of plain
+    ints equal to jax.random's, for several split counts and fold-in data
+    across the 32-bit range, and the block function on ints equals the one
+    on int64 tensors."""
+    kj, kt = jax.random.key(seed), rng.key(seed)
+    for num in (2, 3, 16):
+        keys = rng.split(kt, num)
+        assert all(type(w) is int for k in keys for w in k)
+        assert [tuple(k) for k in keys] == \
+            [_key_tuple(k) for k in jax.random.split(kj, num)]
+    for data in (1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1):
+        k = rng.fold_in(kt, data)
+        assert all(type(w) is int for w in k)
+        assert tuple(k) == _key_tuple(jax.random.fold_in(kj, data))
+    x = np.arange(0, 2 ** 34, 2 ** 34 // 97, dtype=np.int64)
+    y0, y1 = rng.threefry2x32(kt, torch.from_numpy(x >> 32),
+                              torch.from_numpy(x & rng.MASK))
+    assert list(zip(y0.tolist(), y1.tolist())) == \
+        [rng.threefry2x32(kt, int(i) >> 32, int(i) & rng.MASK) for i in x]
+
+
+def test_cpu_draws_launch_no_kernel():
+    """On the CPU every sampler and draw_fourier take the plain twins: no
+    seeding or threefry kernel is counted, and no twin on CUDA."""
+    kernels.reset_counts()
+    kt = rng.key(3)
+    rng.bits(kt, (4, 5))
+    rng.uniform(kt, (7,), -1.0, 2.0)
+    rng.normal(kt, (7,))
+    rng.randint(kt, (7,), 1, 13)
+    fs = fourier.draw_fourier(kt, (6, 4), 3600.0)
+    ref = fourier.draw_fourier_plain(kt, (6, 4), 3600.0)
+    assert torch.equal(fs.A, ref.A) and torch.equal(fs.B, ref.B)
+    assert kernels.LAUNCHES['seeding'] == kernels.LAUNCHES['threefry'] == 0
+    assert not any(kernels.PLAIN_ON_CUDA.values())
+
+
+def _cuh_floats(name):
+    """The float literals of a brace-initialised array in
+    csrc/threefry.cuh."""
+    text = (Path(rng.__file__).parent / 'csrc' / 'threefry.cuh').read_text()
+    body = re.search(name + r'\[\d+\] = \{([^}]*)\}', text).group(1)
+    return [float.fromhex(t.strip().rstrip('f')) for t in body.split(',')]
+
+
+def test_cuda_erf_inv_constants_are_the_twins():
+    """The seeding and threefry kernels' erf_inv coefficients and sqrt(2)
+    are the float32 roundings the plain twin uses."""
+    f32 = lambda xs: [float(np.float32(x)) for x in xs]
+    assert _cuh_floats('c_lt') == f32(rng._ERFINV_LT5)
+    assert _cuh_floats('c_ge') == f32(rng._ERFINV_GE5)
+    text = (Path(rng.__file__).parent / 'csrc' / 'threefry.cuh').read_text()
+    sqrt2 = re.search(r'TF_SQRT2_F32 (\S+)f', text).group(1)
+    assert float.fromhex(sqrt2) == rng.SQRT2_F32

@@ -150,7 +150,7 @@ def test_cli_matches_jax_seed_by_seed(ws, tmp_path):
     kernels.reset_counts()
     assert cli.main(['GL', '--namelist', nl, '--seed', '3', '--device',
                      'cpu']) == 0
-    assert kernels.LAUNCHES == {'integrator': 0, 'vmax': 0, 'cape_pi': 0}
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.NAMES, 0)
     # the JAX run: a copy of the workspace whose outputs hold the port's
     # preprocessing files, so both simulate from the same inputs
     jroot = tmp_path / 'jws'

@@ -3,6 +3,12 @@
 - ``integrator`` (K1): the fused track integrator, CUDA C++ for sm_90a
   (csrc/integrator.cu).
 - ``vmax`` (K2): the vmax diagnostic pass, a Triton kernel.
+- ``seeding`` (K3): genesis seeding, one thread per slot with lazily drawn
+  proposal rounds, CUDA C++ for sm_90a (csrc/seeding.cu).
+- ``threefry`` (K5): the threefry2x32 stream and its bits / uniform /
+  normal / randint samplers, and the fused draw_fourier, CUDA C++ for
+  sm_90a (csrc/rng.cu; its device functions, csrc/threefry.cuh, are
+  shared with K3).
 - ``cape_pi`` (K6): potential intensity per column, CUDA C++ for sm_90a
   (csrc/cape_pi.cu).
 
@@ -14,8 +20,9 @@ path never does (it is only done on purpose, to compare a kernel with its
 twin).
 """
 
-LAUNCHES = {'integrator': 0, 'vmax': 0, 'cape_pi': 0}
-PLAIN_ON_CUDA = {'integrator': 0, 'vmax': 0, 'cape_pi': 0}
+NAMES = ('integrator', 'vmax', 'seeding', 'threefry', 'cape_pi')
+LAUNCHES = dict.fromkeys(NAMES, 0)
+PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
 
 
 def reset_counts() -> None:

@@ -2,9 +2,10 @@
 
 Each library has a plain C interface (no PyTorch headers), which keeps a
 build to seconds; the wrappers bind it with ctypes.  It goes to ``build/``
-at the repository root, named by a hash of the source and flags, so a
-changed source is rebuilt and a built one is reused.  Different sources
-build independently, so callers may build them in parallel threads.
+at the repository root, named by a hash of the source, every header of
+csrc/ and the flags, so a changed source or shared header is rebuilt and a
+built one is reused.  Different sources build independently, so callers
+may build them in parallel threads.
 """
 
 from __future__ import annotations
@@ -43,8 +44,9 @@ def library(name: str) -> dict:
     'seconds', 'log'}: the library, the build time (0 when it was already
     built) and nvcc's register/spill report."""
     source = PKG / 'csrc' / f'{name}.cu'
-    tag = hashlib.sha256(source.read_bytes() +
-                         ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = sorted((PKG / 'csrc').glob('*.cuh'))
+    tag = hashlib.sha256(b''.join(p.read_bytes() for p in [source, *headers])
+                         + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f'libtc_{name}_{tag}.so'
     if out.exists():
         return {'path': out, 'seconds': 0.0, 'log': ''}

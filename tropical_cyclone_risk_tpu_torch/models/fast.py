@@ -208,6 +208,50 @@ def rhs_given_winds(cfg: Namelist, y: State, params: SeedParams,
     return State(dlon, dlat, dvdt, dmdt), wnds
 
 
+def _cbrt(x):
+    """Real cube root (torch has none): |x|^(1/3) in float64, rounded to
+    x's type, with x's sign."""
+    return torch.sign(x) * (x.abs().double() ** (1.0 / 3.0)).to(x.dtype)
+
+
+def init_m_dvdt0(pack: F.FieldPack, cfg: Namelist, lon, lat, v,
+                 params: SeedParams, dvdt: float = 0.0):
+    """m initialization by dv/dt = dvdt inversion (coupled_fast.py:152-167),
+    cfg.m_init_mode='dvdt0':
+
+        m = clip(cbrt((2 h_bl/Ck dvdt + v^2)
+                      / (alpha beta vpot_5^2 + gamma v^2)), 0, 1)
+
+    with vpot_5 the max of the (land-zeroed) potential intensity over the
+    seed point and the four (+/-0.25 deg, +/-0.25 deg) corners, and alpha
+    evaluated with the BAM translation speed at t=0.  Batched [N]; gathers
+    from the pack directly (it runs once per launch)."""
+    stats = interp.bilinear(pack.wind, pack.grid, lon, lat, params.plane)
+    wnds = color_winds(cfg, stats, params.fourier, 0.0)
+    u_bam, v_bam, _ = bam_velocity(cfg, lat, v, wnds)
+    u_T = torch.sqrt(u_bam * u_bam + v_bam * v_bam)
+
+    def vpot_at(lo, la):
+        env = interp.bilinear(pack.env, pack.grid, lo, la, params.plane)
+        land = interp.bilinear_scalar(pack.land, pack.land_grid, lo, la)
+        return torch.where(_is_land(land), 0.0, env[:, F.VPOT])
+
+    vpot5 = vpot_at(lon, lat)
+    for dx, dy in ((-0.25, -0.25), (-0.25, 0.25), (0.25, -0.25),
+                   (0.25, 0.25)):
+        vpot5 = torch.maximum(vpot5, vpot_at(lon + dx, lat + dy))
+
+    env_c = interp.bilinear(pack.env, pack.grid, lon, lat, params.plane)
+    land_c = interp.bilinear_scalar(pack.land, pack.land_grid, lon, lat)
+    bathy_c = interp.bilinear_scalar(pack.bathy, pack.bathy_grid, lon, lat)
+    alpha, _ = ocean_alpha(cfg, env_c, land_c, bathy_c, u_T, v)
+    gamma = EPSILON + alpha * KAPPA
+
+    numer = 2.0 * params.h_bl / cfg.Ck * dvdt + v * v
+    denom = alpha * BETA * (vpot5 * vpot5) + gamma * (v * v)
+    return torch.clamp(_cbrt(numer / denom), 0.0, 1.0)
+
+
 def ventilation_index_reject(stacks: F.GatherStacks, cfg: Namelist,
                              y0: State, params: SeedParams):
     """Genesis gate: reject when S * chi / v_pot >= 1 at t=0 with v_pot > 0

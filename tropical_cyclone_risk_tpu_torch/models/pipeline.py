@@ -266,9 +266,6 @@ def launch_inputs(key: rng.Key, pack: FieldPack, cfg: Namelist,
     full batch width and gathered, so survivor tracks are identical to an
     uncapped launch."""
     simulator.check_supported(cfg)
-    if cfg.m_init_mode != 'rh':
-        raise NotImplementedError(f'm_init_mode={cfg.m_init_mode!r} is not '
-                                  'ported yet')
     dev = pack.device
     k_seed, k_fourier = rng.split(key)
     prop = seeding.propose_seeds(k_seed, pack, cfg, basin_id, n,
@@ -288,6 +285,9 @@ def launch_inputs(key: rng.Key, pack: FieldPack, cfg: Namelist,
                              fourier=fs)
     state = fast.State(g(prop.lon), g(prop.lat), g(prop.v_init),
                        g(prop.m_init))
+    if cfg.m_init_mode == 'dvdt0':
+        state = state._replace(m=fast.init_m_dvdt0(
+            pack, cfg, state.lon, state.lat, state.v, params))
     stacks = fields_mod.build_stacks(pack)
     alive0 = simulator.genesis_alive(stacks, cfg, state, params,
                                      g(prop.integrate))

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from tropical_cyclone_risk_tpu_torch import rng
+from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
 
 N_FOURIER = 15     # number of sine components (track/bam_track.py:112)
 
@@ -49,13 +50,29 @@ def take_leading(fs: FourierSeries, order: torch.Tensor) -> FourierSeries:
     return fs._replace(A=fs.A[order], B=fs.B[order])
 
 
+def _amplitudes(device) -> torch.Tensor:
+    """[N_FOURIER] amplitudes n^-1.5 with the reference normalization
+    sqrt(2 / sum n^-3)."""
+    n = torch.arange(1, N_FOURIER + 1, dtype=torch.float32, device=device)
+    return torch.sqrt(2.0 / torch.sum(n ** -3.0)) * n ** -1.5
+
+
 def draw_fourier(key: rng.Key, shape, T_s: float,
                  device='cpu') -> FourierSeries:
-    """Random-phase coefficients (reference normalization sqrt(2/sum n^-3),
-    amplitude n^-1.5, phases uniform in [0, 1) cycles).
-    shape: batch shape + (C,), e.g. (n_seeds, 4)."""
-    n = torch.arange(1, N_FOURIER + 1, dtype=torch.float32, device=device)
-    amp = torch.sqrt(2.0 / torch.sum(n ** -3.0)) * n ** -1.5
-    phi = rng.uniform(key, tuple(shape) + (N_FOURIER,), device=device)
+    """Random-phase coefficients (amplitudes as _amplitudes, phases
+    uniform in [0, 1) cycles).  shape: batch shape + (C,), e.g.
+    (n_seeds, 4).  On a CUDA device K5's fused entry draws the phases and
+    writes A and B directly; on the CPU the plain twin runs."""
+    if torch.device(device).type == 'cuda':
+        A, B = k5.fourier_cuda(key, shape, _amplitudes(device))
+        return FourierSeries(A, B, float(T_s))
+    return draw_fourier_plain(key, shape, T_s, device)
+
+
+def draw_fourier_plain(key: rng.Key, shape, T_s: float,
+                       device='cpu') -> FourierSeries:
+    """Plain twin of ``draw_fourier``."""
+    amp = _amplitudes(device)
+    phi = rng.uniform_plain(key, tuple(shape) + (N_FOURIER,), device=device)
     return FourierSeries(amp * torch.cos(2 * math.pi * phi),
                          amp * torch.sin(2 * math.pi * phi), float(T_s))
