@@ -5,11 +5,11 @@
 Phases (any failure raises, and the script exits non-zero):
 
 1. device    - require CUDA; print the card's name and power limit.
-2. build     - build the CUDA integrator (K1), seeding (K3), threefry (K5)
-               and CAPE-PI (K6) kernels with nvcc, one process each, all
-               started together, while the Triton vmax kernel (K2) is
-               JIT-compiled; print the build times and nvcc's register and
-               stack report.
+2. build     - build the CUDA integrator (K1), seeding (K3), compaction
+               (K4), threefry (K5) and CAPE-PI (K6) kernels with nvcc, one
+               process each, all started together, while the Triton vmax
+               kernel (K2) is JIT-compiled; print the build times and
+               nvcc's register and stack report.
 3. K1, K2    - one 131072-seed launch on the 181x360 one-degree pack with
                every integration segment run through K1 and through the
                plain PyTorch twin on the same inputs, and every vmax pass
@@ -21,7 +21,19 @@ Phases (any failure raises, and the script exits non-zero):
                and retry_unresolved_curve; K5's bits / uniform / normal /
                randint at [16, n] and [n] and its fused draw_fourier at
                [n, 4, 15] against the plain threefry twins: all bit-exact;
-               times and bounds; K4 (stable_partition_order) timed.
+               times and bounds.
+   K4        - one 131072-seed launch with every compaction (the integrate
+               compaction, every re-compaction boundary) and
+               compact_survivors' partition and survivor stitch at k_max 64
+               and at k_max = m through K4 and through the plain twins on
+               the same inputs, and the edge cases: all bit-exact; times of
+               the integrate compaction (beside torch.sort's stable order)
+               and of the stitch, with their bounds.
+   modes     - _omega on the card equals the CPU's bit for bit; for each of
+               the default path, time_interp_fields, rk_exact_stage_fields
+               and rk_substeps=2 one 131072-seed launch with K1 held
+               against its twin on the first and the last segment; K1's
+               time per mode.
 5. workspace - write one year of a one-degree ERA5-shaped raw workspace on
                the 28 ERA5 pressure levels (utils/synthetic_era5.py).
 6. K6        - gen_thermo over that workspace with cape_pi captured: all
@@ -36,7 +48,9 @@ Phases (any failure raises, and the script exits non-zero):
                the plain twins on the CPU.
 8. dvdt0     - run_downscaling as in 7 for one year with
                m_init_mode='dvdt0', counters reset just before and read
-               just after; the tracks file is read back and checked.
+               just after; the tracks file is read back and checked; the
+               same for one year with time_interp_fields=True and
+               rk_substeps=2.
 9. slice 2   - the workspace path: cli.main(['GL', '--namelist', ...,
                '--seed', '0']) on cuda at seed_batch=131072 (land masks,
                wind statistics, thermo, pack builder, simulation), counters
@@ -100,7 +114,7 @@ K3_K5_TOL = 0.0
 # slots beyond a round's width are dropped (the twin's semantics)
 OVERFLOW_CAPS = (1 / 64,) * 15
 # the kernels a simulation (run_downscaling) launches
-SIMULATION_KERNELS = ('integrator', 'vmax', 'seeding', 'threefry')
+SIMULATION_KERNELS = ('integrator', 'vmax', 'seeding', 'threefry', 'compact')
 WS_YEAR = 2016      # the workspace: one year at one degree
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
 # HBM bytes/s and float32 operations/s outside the tensor cores
@@ -413,36 +427,231 @@ def check_k3_k5(pack_y, cfg_t, card):
          'library_ms': None}]
 
 
-def k4_probe(key, pack_y, cfg_t, plane0, card):
-    """K4 (ops/compact.stable_partition_order, still plain torch): its
-    calls in one launch, and the time of the launch's integrate compaction
-    (131072 slots to the integrate width) against its bound, the mask read
-    and the order written once (bytes)."""
-    from tropical_cyclone_risk_tpu_torch import rng
-    from tropical_cyclone_risk_tpu_torch.models import pipeline, seeding
+def same_parts(a, b):
+    """Names of the fields where two K4 results differ (None pairs equal).
+    A result is an ops.compact.Partition or a stitch's (tracks, keep)."""
+    if isinstance(a, tuple) and len(a) == 2 and isinstance(a[0], dict):
+        pairs = [(f'tracks.{k}', a[0][k], b[0][k]) for k in a[0]]
+        pairs.append(('keep_full', a[1], b[1]))
+    else:
+        pairs = [(f, x, y) for f, x, y in zip(a._fields, a, b)
+                 if f != 'rows']
+        pairs += [(f'rows[{i}]', x, y)
+                  for i, (x, y) in enumerate(zip(a.rows, b.rows))]
+    return [nm for nm, x, y in pairs
+            if (x is None) != (y is None)
+            or (x is not None and not same(x, y))]
+
+
+def k4_edge_cases(dev):
+    """partition_take through K4 and its twin on the edge cases: n = 1,
+    a tile's width, not a multiple of it and the launch's width; masks all
+    False, all True and sparse; w below, at and above the true count and
+    w >= n; every option.  Returns the number of cases (all bit-exact)."""
     from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
-    orig = compact_ops.stable_partition_order
+    g = torch.Generator(device=dev).manual_seed(4)
+    cases = 0
+    for n in (1, 1024, 4097, N_SEEDS):
+        for density in (0.0, 1.0, 0.3):
+            mask = torch.rand((n,), generator=g, device=dev) < density
+            count = int(mask.sum())
+            rows = (torch.randn((n,), generator=g, device=dev),
+                    torch.randint(0, 1 << 40, (n,), generator=g, device=dev),
+                    mask.clone(),
+                    torch.randn((n, 4, 15), generator=g, device=dev))
+            a_prev = torch.randperm(n + 7, generator=g, device=dev)[:n]
+            acc = torch.tensor([5], dtype=torch.int64, device=dev)
+            for w in sorted({max(count - 7, 0), count, min(count + 5, n),
+                             n + 3}):
+                for kw in ({}, dict(acc=acc, slot_rank=True, a_prev=a_prev,
+                                    inv_len=n + 7)):
+                    out = compact_ops.partition_take(mask, w, rows, **kw)
+                    ref = compact_ops.partition_take_plain(mask, w, rows,
+                                                           **kw)
+                    bad = same_parts(out, ref)
+                    if bad:
+                        raise AssertionError(f'K4 edge case n={n} density='
+                                             f'{density} w={w} {kw.keys()}:'
+                                             f' {bad} differ from the twin')
+                    cases += 1
+    return cases
+
+
+def partition_bound(mask, out, a_prev=None):
+    """K4's bound on one partition_take call: the mask read once, the w
+    rows that the order picks of each row tensor (and of a_prev) read once,
+    the order, the gathered rows and the optional outputs written once;
+    ~12 integer operations per slot (the count, the scan, the rank),
+    against the float32 peak."""
+    outs = [t for t in (out.order, out.overflow, out.slot_rank, out.a_idx,
+                        out.inv, out.selected) if t is not None]
+    picked = list(out.rows) + ([out.a_idx] if a_prev is not None else [])
+    return bound(nbytes(mask, *picked, *outs, *out.rows), 12 * mask.numel())
+
+
+def stitch_bound(order, tms, segs, out):
+    """K4's bound on one survivor stitch: what the k survivors need of the
+    segment buffers (six fields and alive per survivor and step, their
+    map entries) read once, and the [k, T] outputs written once."""
+    k, T = out[0]['lon'].shape
+    reads = k * T * (5 * 4 + 16 + 1) + nbytes(order) + 9 * k * len(segs)
+    return bound(reads + nbytes(*out[0].values(), out[1]), 4 * k * T)
+
+
+def check_k4(key, pack_y, cfg_t, plane0, card):
+    """Phase K4: one full-width launch (the auto-tuned cfg_t) with both K4
+    dispatchers wrapped, so that every compaction of the launch (the
+    integrate compaction, every boundary) and compact_survivors' partition
+    and stitch at k_max 64 and at k_max = m are repeated through the plain
+    twins on the same inputs: all bit-exact; then the edge cases, and the
+    times of the integrate compaction and the stitch.  Returns the kernel's
+    JSON entry (launches are filled in from the workspace path)."""
+    from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
+    from tropical_cyclone_risk_tpu_torch.models import pipeline
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+    part_k, stitch_k = compact_ops.partition_take, compact_ops.stitch_survivors
     calls = []
 
-    def counted(mask, w=None):
-        calls.append((mask.shape[0], w))
-        return orig(mask, w)
+    def part_checked(mask, w, rows=(), *a, **kw):
+        out = part_k(mask, w, rows, *a, **kw)
+        calls.append(('partition', (mask, w, rows) + a, kw, out, same_parts(
+            out, compact_ops.partition_take_plain(mask, w, rows, *a, **kw))))
+        return out
 
-    compact_ops.stable_partition_order = counted
-    try:
-        pipeline._simulate_batch(key, pack_y, cfg_t, BASIN, N_SEEDS, 64,
-                                 plane0)
-    finally:
-        compact_ops.stable_partition_order = orig
-    prop = seeding.propose_seeds(rng.split(key)[0], pack_y, cfg_t, BASIN,
-                                 N_SEEDS, plane0)
+    def stitch_checked(*a):
+        out = stitch_k(*a)
+        calls.append(('stitch', a, {}, out, same_parts(
+            out, compact_ops.stitch_survivors_plain(*a))))
+        return out
+
+    compact_ops.partition_take = part_checked
+    compact_ops.stitch_survivors = stitch_checked
     m = pipeline.launch_width(cfg_t, N_SEEDS)
-    ms = cuda_ms(lambda: orig(prop.integrate, m), 50)
-    b4, by4 = bound(nbytes(prop.integrate, orig(prop.integrate, m)),
-                    3 * N_SEEDS)
-    log(f'[K4] {card}: stable_partition_order {len(calls)} calls per launch '
-        f'(n, w) {calls}; the integrate compaction {N_SEEDS} -> {m}: '
-        f'{ms:.4f} ms (plain torch), bound {b4:.5f} ms ({by4})')
+    n_basins = len(cfg_t.basin_ids_sorted())
+    try:
+        body = pipeline.launch_body(key, pack_y, cfg_t, BASIN, N_SEEDS,
+                                    plane0)
+        n_launch = len(calls)
+        for k_max in (64, m):
+            pipeline.compact_survivors(body, m, k_max, n_basins)
+    finally:
+        compact_ops.partition_take = part_k
+        compact_ops.stitch_survivors = stitch_k
+    torch.cuda.synchronize()
+    bad = [(i, kind, b) for i, (kind, _, _, _, b) in enumerate(calls) if b]
+    sizes = [(c[1][0].shape[0], c[1][1]) for c in calls
+             if c[0] == 'partition']
+    log(f'[K4] {len(calls)} K4 calls ({n_launch} in the launch, the rest '
+        f'compact_survivors at k_max 64 and {m}): partitions (n, w) {sizes}; '
+        f'not bit-exact: {bad or "none"}')
+    if bad or n_launch != (m < N_SEEDS) + len(pipeline.seg_schedule(cfg_t,
+                                                                      m)):
+        raise AssertionError(f'K4 differs from its twin: {bad}')
+    n_edge = k4_edge_cases(pack_y.device)
+    log(f'[K4] {n_edge} edge cases (n 1, 1024, 4097, {N_SEEDS}; masks none, '
+        f'all, sparse; w below, at, above the count and >= n): bit-exact')
+
+    _, (mask, w, rows), kw, out, _ = calls[0]
+    launch, _ = k4.launcher('partition', mask, w, rows, kw.get('acc'),
+                            kw.get('slot_rank', False), kw.get('a_prev'),
+                            kw.get('inv_len'))
+    ms = cuda_ms(launch, 50)
+    ms_call = cuda_ms(lambda: part_k(mask, w, rows, **kw), 50)
+    ms_order = cuda_ms(k4.launcher('partition', mask, w, (), None, False,
+                                   None, None)[0], 50)
+    ms_plain = cuda_ms(lambda: compact_ops.partition_take_plain(
+        mask, w, rows, **kw), 20)
+    ms_lib = cuda_ms(lambda: torch.sort((~mask).to(torch.uint8),
+                                        stable=True).indices[:w], 50)
+    b4, by4 = partition_bound(mask, out, kw.get('a_prev'))
+    sargs, sout = next((c[1], c[3]) for c in calls if c[0] == 'stitch')
+    ms_st = cuda_ms(k4.launcher('stitch', *sargs)[0], 50)
+    ms_st_call = cuda_ms(lambda: stitch_k(*sargs), 50)
+    ms_st_plain = cuda_ms(lambda: compact_ops.stitch_survivors_plain(*sargs),
+                          20)
+    b4s, by4s = stitch_bound(sargs[0], sargs[1], sargs[2], sout)
+    log(f'[K4] {card}: integrate compaction {N_SEEDS} -> {w} with '
+        f'{len(rows)} row tensors: kernels {ms:.4f} ms ({ms_call:.4f} ms '
+        f'through the dispatcher; the order alone {ms_order:.4f} ms), plain '
+        f'twin {ms_plain:.4f} ms, torch.sort {ms_lib:.4f} ms, bound '
+        f'{b4:.5f} ms ({by4}); survivor stitch '
+        f'{tuple(sout[0]["lon"].shape)} over {len(sargs[1])} segments: '
+        f'kernel {ms_st:.4f} ms ({ms_st_call:.4f} ms through the '
+        f'dispatcher), plain twin {ms_st_plain:.4f} ms, bound {b4s:.5f} ms '
+        f'({by4s})')
+    return {'name': 'compact', 'route': 'cuda',
+            'source': 'tropical_cyclone_risk_tpu_torch/csrc/compact.cu',
+            'replaces': 'tropical_cyclone_risk_tpu/ops/compact.py:30',
+            'launches': None, 'max_abs_err': 0.0, 'ms': ms,
+            'plain_ms': ms_plain, 'bound_ms': b4, 'bound_by': by4,
+            'library_ms': ms_lib, 'dispatch_ms': ms_call,
+            'order_ms': ms_order, 'stitch_ms': ms_st,
+            'stitch_dispatch_ms': ms_st_call, 'stitch_plain_ms': ms_st_plain,
+            'stitch_bound_ms': b4s}
+
+
+# the integration modes of the modes phase on the auto-tuned namelist; the
+# default path first, so that K1's times per mode compare within one phase
+MODES = {'default': {},
+         'time_interp_fields': dict(time_interp_fields=True),
+         'rk_exact_stage_fields': dict(rk_exact_stage_fields=True),
+         'rk_substeps=2': dict(rk_substeps=2),
+         'time_interp_fields+rk_substeps=2': dict(time_interp_fields=True,
+                                                  rk_substeps=2),
+         'time_interp_fields+rk_exact_stage_fields': dict(
+             time_interp_fields=True, rk_exact_stage_fields=True)}
+
+
+def check_modes(key, pack_y, cfg_t, plane0, card):
+    """Phase modes: _omega on the card equals _omega on the CPU bit for
+    bit; for the default path and each mode one full-width launch with K1
+    held against its twin on the first and the last segment (K1_TOL,
+    K1_ALIVE_AGREE), and K1's time on the first segment, through its
+    dispatcher.  Returns the largest error found."""
+    from tropical_cyclone_risk_tpu_torch.models import pipeline, simulator
+    from tropical_cyclone_risk_tpu_torch.ops import fourier
+    w_card = fourier._omega(cfg_t.T_fourier_s, pack_y.device).cpu()
+    w_cpu = fourier._omega(cfg_t.T_fourier_s, 'cpu')
+    log(f'[modes] _omega on the card equals the CPU\'s bit for bit: '
+        f'{torch.equal(w_card, w_cpu)}')
+    if not torch.equal(w_card, w_cpu):
+        raise AssertionError(f'_omega differs: {w_card} vs {w_cpu}')
+    k1_kernel = simulator.integrate_segment
+    worst = 0.0
+    for name, kw in MODES.items():
+        cfg = cfg_t.replace(**kw)
+        calls = []
+
+        def k1_captured(*args):
+            out = k1_kernel(*args)
+            calls.append((args, out))
+            return out
+
+        simulator.integrate_segment = k1_captured
+        try:
+            pipeline._simulate_batch(key, pack_y, cfg, BASIN, N_SEEDS, 64,
+                                     plane0)
+        finally:
+            simulator.integrate_segment = k1_kernel
+        torch.cuda.synchronize()
+        res = []
+        for args, out in (calls[0], calls[-1]):
+            agree, err, _ = compare_k1(
+                out, simulator.integrate_segment_plain(*args))
+            res.append((args[7], args[3].lon.shape[0], agree, err))
+            worst = max([worst] + list(err.values()))
+            if agree < K1_ALIVE_AGREE or any(
+                    not err[nm] <= tol for nm, tol in K1_TOL.items()):
+                raise AssertionError(f'K1 under {name}: alive agreement '
+                                     f'{agree}, errors {err}')
+        args0 = calls[0][0]
+        ms = cuda_ms(lambda: k1_kernel(*args0), 3)
+        log(f'[modes] {name}: {len(calls)} segments; K1 against its twin on '
+            f'the first and last (steps, storms, alive agreement, max abs '
+            f'err) {res}; {card}: K1 segment 0 ({args0[7]} steps x '
+            f'{args0[3].lon.shape[0]} storms) {ms:.3f} ms')
+        del calls, args0
+    return worst
 
 
 def profile_launches(run, reps, path):
@@ -463,7 +672,7 @@ def profile_launches(run, reps, path):
               (simulator, 'integrate_segment'),
               (diagnostics, 'axi_to_max_wind_raw'),
               (pipeline, 'compact_survivors'),
-              (compact, 'stable_partition_order')]
+              (compact, 'partition_take'), (compact, 'stitch_survivors')]
     originals = [getattr(mod, nm) for mod, nm in stages]
 
     def ranged(fn, label):
@@ -513,10 +722,11 @@ def card_line():
 
 
 def build_all(dev):
-    """nvcc for K1, K3, K5 and K6 in four threads (four processes at once)
-    while the Triton K2 JIT-compiles here; logs the build seconds by
+    """nvcc for K1, K3, K4, K5 and K6 in five threads (five processes at
+    once) while the Triton K2 JIT-compiles here; logs the build seconds by
     kernel."""
     from tropical_cyclone_risk_tpu_torch.kernels import cape_pi as k6
+    from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
     from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
     from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
@@ -532,8 +742,8 @@ def build_all(dev):
 
     threads = [threading.Thread(target=nvcc, args=a)
                for a in (('integrator', integrator.build),
-                         ('seeding', k3.build), ('threefry', k5.build),
-                         ('cape_pi', k6.build))]
+                         ('seeding', k3.build), ('compact', k4.build),
+                         ('threefry', k5.build), ('cape_pi', k6.build))]
     for t in threads:
         t.start()
     t0 = time.perf_counter()
@@ -669,6 +879,13 @@ def main():
 
     # ---- 4. K3 and K5 against their plain twins --------------------------
     k35 = check_k3_k5(pack_y, cfg_t, card)
+    plane0 = cfg.start_month - 1
+
+    # ---- K4 against its plain twins on a launch's compactions ------------
+    k4_entry = check_k4(rng.key(99), pack_y, cfg_t, plane0, card)
+
+    # ---- modes: K1 under the integration modes ----------------------------
+    modes_err = check_modes(rng.key(97), pack_y, cfg_t, plane0, card)
 
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
         # ---- 5. workspace -------------------------------------------------
@@ -781,6 +998,24 @@ def main():
             f'genesis m {m0.min():.4f}..{m0.max():.4f}')
         if not (n_dv == cfg.tracks_per_year and np.all((m0 >= 0) & (m0 <= 1))):
             raise AssertionError(f'dvdt0: {n_dv} tracks, genesis m {m0}')
+        cfg_md = cfg.replace(output_directory=f'{tmp}/modes', exp_name='md',
+                             end_year=cfg.start_year, time_interp_fields=True,
+                             rk_substeps=2)
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        fn_md = runtime.run_downscaling(cfg_md, BASIN, pack24, seed=3,
+                                        device=dev)
+        torch.cuda.synchronize()
+        t_md = time.perf_counter() - t0
+        check_counts('modes', dict(kernels.LAUNCHES),
+                     dict(kernels.PLAIN_ON_CUDA), SIMULATION_KERNELS)
+        n_md, peaks_md = check_tracks(netcdf.read(fn_md), cfg_md)
+        log(f'[modes] run_downscaling one year with time_interp_fields and '
+            f'rk_substeps=2 in {t_md:.2f} s: {n_md} tracks, peak v '
+            f'{peaks_md.min():.1f}..{peaks_md.max():.1f} m/s')
+        if n_md != cfg.tracks_per_year:
+            raise AssertionError(f'modes: {n_md} tracks')
 
         # ---- 9. slice 2: the workspace path through the CLI ---------------
         stage_s = {}
@@ -843,8 +1078,6 @@ def main():
             f'({busy / span:.3f} busy share)')
 
         # ---- 10. times ----------------------------------------------------
-        plane0 = cfg.start_month - 1
-        k4_probe(rng.key(99), pack_y, cfg_t, plane0, card)
         per_launch, share, traced_ms, stage_ms, top = profile_launches(
             lambda: pipeline._simulate_batch(rng.key(98), pack_y, cfg_t,
                                              BASIN, N_SEEDS, 64, plane0),
@@ -889,7 +1122,7 @@ def main():
         f'sim-years/min; two-year run_downscaling {t_run:.2f} s incl. '
         f'auto-tune and write; workspace CLI {t_cli:.2f} s')
 
-    for k in k35:
+    for k in k35 + [k4_entry]:
         k['launches'] = launches[k['name']]
     src = 'tropical_cyclone_risk_tpu_torch/'
     print(json.dumps({'kernels': [
@@ -899,14 +1132,15 @@ def main():
          'launches': launches['integrator'],
          'max_abs_err': max(k1_err.values()), 'ms': ms_k1,
          'plain_ms': ms_k1_plain, 'bound_ms': k1_bound_ms,
-         'bound_by': k1_by, 'library_ms': None},
+         'bound_by': k1_by, 'library_ms': None,
+         'modes_max_abs_err': modes_err},
         {'name': 'vmax', 'route': 'triton',
          'source': src + 'kernels/vmax.py',
          'replaces': 'tropical_cyclone_risk_tpu/models/diagnostics.py:193',
          'launches': launches['vmax'], 'max_abs_err': k2_err, 'ms': ms_k2,
          'plain_ms': ms_k2_plain, 'bound_ms': k2_bound_ms,
          'bound_by': k2_by, 'library_ms': None},
-        *k35,
+        *k35, k4_entry,
         {'name': 'cape_pi', 'route': 'cuda',
          'source': src + 'csrc/cape_pi.cu',
          'replaces': 'tropical_cyclone_risk_tpu/ops/pi.py:92',

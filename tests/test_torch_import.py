@@ -18,6 +18,7 @@ import tropical_cyclone_risk_tpu_torch as port
 from tropical_cyclone_risk_tpu_torch import kernels
 from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch.kernels import integrator, vmax
+from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
 from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
 from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
 from tropical_cyclone_risk_tpu_torch.models import (diagnostics, fast,
@@ -47,6 +48,7 @@ def _imports(path: Path):
 def test_every_module_imports_with_jax_blocked():
     """...and with the JAX package blocked too."""
     assert len(MODULES) >= 30
+    assert 'tropical_cyclone_risk_tpu_torch.kernels.compact' in MODULES
     code = ("import sys, importlib\n"
             f"for b in {BLOCKED!r}: sys.modules[b] = None\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
@@ -124,8 +126,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     f_all = simulator.fourier_grid(cfg, params, 0, 6)
     with pytest.raises(ValueError, match='CUDA'):
         integrator.integrate_segment_cuda(stacks, cfg, bounds, y, alive,
-                                          params.plane, params.h_bl, f_all,
-                                          3, 2)
+                                          params, 0, 6, f_all, 3, 2)
+    with pytest.raises(ValueError, match='CUDA'):
+        integrator.integrate_segment_cuda(
+            stacks, cfg.replace(rk_substeps=2), bounds, y, alive, params, 0,
+            6, None, 3, 0)
     t = torch.zeros(4, 8)
     with pytest.raises(ValueError, match='CUDA'):
         vmax.axi_to_max_wind_raw_triton(
@@ -137,11 +142,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     pack = fields.synthetic_pack(cfg, 12, 19, 36, seed=1, device='cpu')
     with pytest.raises(ValueError, match='CUDA'):
         k3.propose_seeds_cuda((0, 1), pack, cfg, 'GL', 256)
+    with pytest.raises(ValueError, match='CUDA'):
+        k4.partition_cuda(alive, 8, (y.lon,), slot_rank=True)
     assert kernels.LAUNCHES == dict.fromkeys(kernels.NAMES, 0)
 
 
-@pytest.mark.parametrize('option', ['time_interp_fields', 'vmax_in_scan',
-                                    'rk_exact_stage_fields'])
+@pytest.mark.parametrize('option', ['vmax_in_scan'])
 def test_unported_options_raise(option):
     stacks, cfg, bounds, y, alive, params = _small_segment()
     with pytest.raises(NotImplementedError, match=option):

@@ -9,6 +9,9 @@
   normal / randint samplers, and the fused draw_fourier, CUDA C++ for
   sm_90a (csrc/rng.cu; its device functions, csrc/threefry.cuh, are
   shared with K3).
+- ``compact`` (K4): the launch's compactions (the stable partition order
+  with its row gathers and maps, and the survivor stitch), CUDA C++ for
+  sm_90a (csrc/compact.cu).
 - ``cape_pi`` (K6): potential intensity per column, CUDA C++ for sm_90a
   (csrc/cape_pi.cu).
 
@@ -20,7 +23,7 @@ path never does (it is only done on purpose, to compare a kernel with its
 twin).
 """
 
-NAMES = ('integrator', 'vmax', 'seeding', 'threefry', 'cape_pi')
+NAMES = ('integrator', 'vmax', 'seeding', 'threefry', 'compact', 'cape_pi')
 LAUNCHES = dict.fromkeys(NAMES, 0)
 PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
 

@@ -1,0 +1,187 @@
+"""K4 wrapper: build csrc/compact.cu with nvcc (kernels/build.py), bind it
+with ctypes and launch it on PyTorch's current stream.
+
+The kernels replace the JAX package's XLA-fused compactions (the
+stable-partition order and the row takes and scatters around it); see the
+note at the top of the source.  The dispatch lives in ops/compact.py,
+whose plain twins (partition_take_plain, stitch_survivors_plain) CPU
+tensors take.  Nothing here reads a device value back to the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from tropical_cyclone_risk_tpu_torch import kernels
+from tropical_cyclone_risk_tpu_torch.kernels import build as kbuild
+from tropical_cyclone_risk_tpu_torch.ops.compact import (Partition,
+                                                         TRACK_FIELDS as FIELDS)
+
+TILE = 1024              # csrc/compact.cu kTile: slots per block
+MAX_ROWS = 16            # csrc/compact.cu kMaxRows
+MAX_SEGS = 16            # csrc/compact.cu kMaxSegs
+
+
+def build() -> dict:
+    """Build (or find) the kernel library; see kernels/build.py."""
+    return kbuild.library('compact')
+
+
+@functools.cache
+def _entries():
+    lib = ctypes.CDLL(str(build()['path']))
+    out = []
+    for name in ('tc_k4_partition', 'tc_k4_stitch'):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out.append(fn)
+    return out
+
+
+def _need(name, t, dev, dtype, shape=None):
+    if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f'{name}: need a contiguous {dtype} tensor on {dev}, '
+                         f'got {t.dtype} on {t.device}')
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f'{name}: shape {tuple(t.shape)} != {tuple(shape)}')
+
+
+def _device(t):
+    dev = t.device
+    if dev.type != 'cuda':
+        raise ValueError(f'compaction kernel needs CUDA tensors, got {dev}')
+    return dev
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def partition_cuda(mask, w: int, rows, acc=None, slot_rank=False,
+                   a_prev=None, inv_len=None):
+    """Launch K4's count and partition kernels for one compaction.  Returns
+    a Partition equal to partition_take_plain's bit for bit."""
+    launch, part = launcher('partition', mask, w, rows, acc, slot_rank,
+                            a_prev, inv_len)
+    launch()
+    return part
+
+
+def stitch_cuda(order, tms, segs, keep, slot_rank):
+    """Launch K4's survivor stitch.  Returns (tracks, keep_full) equal to
+    ops.compact.stitch_survivors_plain's bit for bit."""
+    launch, out = launcher('stitch', order, tms, segs, keep, slot_rank)
+    launch()
+    return out
+
+
+def launcher(kind: str, *args):
+    """(launch, result): a function that launches K4's ``kind``
+    ('partition': the count and partition kernels, or 'stitch') on these
+    inputs, writing the tensors of ``result``, the Partition or the
+    stitch's (tracks, keep_full).  The checks, the outputs and the
+    parameter block are made here, once, so that repeated launches time
+    the kernels alone."""
+    prep, entry, n_kernels = {'partition': (_partition, 0, 2),
+                              'stitch': (_stitch, 1, 1)}[kind]
+    dev = _device(args[0])
+    ip, result = prep(dev, *args)
+    fn = _entries()[entry]
+
+    def launch():
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(ip.ctypes.data, stream)
+        if err != 0:
+            raise RuntimeError(f'compaction kernel ({kind}) launch failed: '
+                               f'CUDA error {err}')
+        kernels.LAUNCHES['compact'] += n_kernels
+    return launch, result
+
+
+def _partition(dev, mask, w, rows, acc, slot_rank, a_prev, inv_len):
+    n = mask.shape[0]
+    _need('mask', mask, dev, torch.bool, (n,))
+    if len(rows) > MAX_ROWS:
+        raise ValueError(f'{len(rows)} row tensors > {MAX_ROWS}')
+    for i, r in enumerate(rows):
+        _need(f'row {i}', r, dev, r.dtype)
+        if r.dim() < 1 or r.shape[0] != n:
+            raise ValueError(f'row {i}: leading size {tuple(r.shape)} != {n}')
+    if acc is not None:
+        _need('acc', acc, dev, torch.int64, (1,))
+    if a_prev is not None:
+        _need('a_prev', a_prev, dev, torch.int64, (n,))
+    k = min(int(w), n)
+    i64 = dict(dtype=torch.int64, device=dev)
+    order = torch.empty((k,), **i64)
+    overflow = torch.empty((1,), **i64)
+    outs = tuple(torch.empty((k,) + tuple(r.shape[1:]), dtype=r.dtype,
+                             device=dev) for r in rows)
+    rank = torch.empty((n,), **i64) if slot_rank else None
+    a_out = inv = sel = zero = None
+    if inv_len is not None:
+        a_out = torch.empty((k,), **i64)
+        # inv and selected share one buffer, zeroed by the count kernel
+        zero = torch.empty((9 * inv_len,), dtype=torch.uint8, device=dev)
+        inv = zero[:8 * inv_len].view(torch.int64)
+        sel = zero[8 * inv_len:].view(torch.bool)
+    n_tiles = max(1, -(-n // TILE))
+    counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    ip = [n, int(w), n_tiles] + [_ptr(t) for t in (
+        mask, counts, order, overflow, acc, rank, a_prev, a_out, inv, sel,
+        zero)] + [0 if zero is None else zero.numel(), len(rows)]
+    for r, o in zip(rows, outs):
+        ip += [r.data_ptr(), o.data_ptr(),
+               math.prod(r.shape[1:]) * r.element_size()]
+    return (np.array(ip, np.int64),
+            Partition(order, overflow, outs, rank, a_out, inv, sel))
+
+
+def _stitch(dev, order, tms, segs, keep, slot_rank):
+    k = order.shape[0]
+    _need('order', order, dev, torch.int64, (k,))
+    if not 1 <= len(tms) <= MAX_SEGS or len(segs) != len(tms) - 1:
+        raise ValueError(f'{len(tms)} segments and {len(segs)} maps')
+    m = keep.shape[0]
+    _need('keep', keep, dev, torch.bool, (m,))
+    scalar, wnd = FIELDS[:-1], FIELDS[-1]
+    T = sum(tm[scalar[0]].shape[0] for tm in tms)
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {f: torch.empty((k, T), **f32) for f in scalar}
+    out[wnd] = torch.empty((k, T, 4), **f32)
+    keep_full = keep
+    if slot_rank is not None:
+        n = slot_rank.shape[0]
+        _need('slot_rank', slot_rank, dev, torch.int64, (n,))
+        keep_full = torch.empty((n,), dtype=torch.bool, device=dev)
+    ip = [k, T, 0 if slot_rank is None else slot_rank.shape[0], len(tms),
+          order.data_ptr(), *(out[f].data_ptr() for f in FIELDS),
+          _ptr(slot_rank), keep.data_ptr(),
+          0 if slot_rank is None else keep_full.data_ptr()]
+    edge = 0
+    for i, tm in enumerate(tms):
+        T_s, w_s = tm[scalar[0]].shape
+        for f in scalar:
+            _need(f'segment {i} {f}', tm[f], dev, torch.float32, (T_s, w_s))
+        _need(f'segment {i} {wnd}', tm[wnd], dev, torch.float32,
+              (T_s, w_s, 4))
+        _need(f'segment {i} alive', tm['alive'], dev, torch.bool, (T_s, w_s))
+        if tm[wnd].data_ptr() % 16:
+            raise ValueError(f'segment {i} {wnd}: not 16-byte aligned')
+        inv = sel = None
+        if i > 0:
+            inv, sel = segs[i - 1]['inv'], segs[i - 1]['selected']
+            _need(f'segment {i} inv', inv, dev, torch.int64, (m,))
+            _need(f'segment {i} selected', sel, dev, torch.bool, (m,))
+        ip += [edge, w_s, *(tm[f].data_ptr() for f in scalar),
+               tm[wnd].data_ptr(), tm['alive'].data_ptr(), _ptr(inv),
+               _ptr(sel)]
+        edge += T_s
+    return np.array(ip, np.int64), (out, keep_full)

@@ -153,13 +153,32 @@ def sample_fields(stacks: F.GatherStacks, lon, lat, plane) -> FieldSample:
     return FieldSample(cell[:, :nw], cell[:, nw:], geo[:, 0], bathy)
 
 
+SECONDS_PER_MONTH = 30.44 * 86400.0     # mean month, plane-interp time axis
+
+
 def sample_fields_at_time(stacks: F.GatherStacks, cfg: Namelist, lon, lat,
                           plane, t) -> FieldSample:
-    """Field sample at a track time.  Plane-to-plane time interpolation
-    (cfg.time_interp_fields) is not ported yet."""
-    if cfg.time_interp_fields:
-        raise NotImplementedError('time_interp_fields is not ported yet')
-    return sample_fields(stacks, lon, lat, plane)
+    """Field sample at track time t (seconds, a float),
+    with linear time interpolation between monthly planes when
+    cfg.time_interp_fields: genesis sits on the seed month's plane p and
+    the sample blends toward p+1 (the last plane holds) as the track ages,
+    tau = clip(t / SECONDS_PER_MONTH, 0, 1) as a true division."""
+    if not cfg.time_interp_fields:
+        return sample_fields(stacks, lon, lat, plane)
+    n_planes = stacks.cell4.shape[0]
+    t = torch.full((), t, dtype=torch.float32, device=lon.device)
+    tau = torch.clamp(interp.true_div(t, SECONDS_PER_MONTH), 0.0, 1.0)
+    p1 = torch.clamp_max(plane + 1, n_planes - 1)
+    s0 = sample_fields(stacks, lon, lat, plane)
+    if stacks.geo_in_cell:
+        s1 = sample_fields(stacks, lon, lat, p1)
+    else:
+        # land/bathy are plane-independent: only the cell row is re-read
+        cell = interp.bilinear_packed(stacks.cell4, stacks.grid, lon, lat,
+                                      p1)
+        nw = stacks.n_wind_ch
+        s1 = FieldSample(cell[:, :nw], cell[:, nw:], s0.land, s0.bathy)
+    return FieldSample(*(a + tau * (b - a) for a, b in zip(s0, s1)))
 
 
 def bam_velocity(cfg: Namelist, lat, v, wnds_raw):
@@ -208,6 +227,22 @@ def rhs_given_winds(cfg: Namelist, y: State, params: SeedParams,
     return State(dlon, dlat, dvdt, dmdt), wnds
 
 
+def rhs_from_sample(cfg: Namelist, t: float, y: State, params: SeedParams,
+                    smp: FieldSample) -> Tuple[State, torch.Tensor]:
+    """Coupled tendency with the winds colored at time t (the exact
+    per-stage form; the default integrator colors once per step)."""
+    wnds = color_winds(cfg, smp.wind_stats, params.fourier, t)
+    return rhs_given_winds(cfg, y, params, smp, wnds)
+
+
+def rhs(stacks: F.GatherStacks, cfg: Namelist, t: float, y: State,
+        params: SeedParams) -> Tuple[State, torch.Tensor]:
+    """Full coupled tendency: gather at y's position and track time t, then
+    the dynamics.  Returns (dy/dt as a State, polar-zeroed winds)."""
+    smp = sample_fields_at_time(stacks, cfg, y.lon, y.lat, params.plane, t)
+    return rhs_from_sample(cfg, t, y, params, smp)
+
+
 def _cbrt(x):
     """Real cube root (torch has none): |x|^(1/3) in float64, rounded to
     x's type, with x's sign."""
@@ -247,7 +282,7 @@ def init_m_dvdt0(pack: F.FieldPack, cfg: Namelist, lon, lat, v,
     alpha, _ = ocean_alpha(cfg, env_c, land_c, bathy_c, u_T, v)
     gamma = EPSILON + alpha * KAPPA
 
-    numer = 2.0 * params.h_bl / cfg.Ck * dvdt + v * v
+    numer = interp.true_div(2.0 * params.h_bl, cfg.Ck) * dvdt + v * v
     denom = alpha * BETA * (vpot5 * vpot5) + gamma * (v * v)
     return torch.clamp(_cbrt(numer / denom), 0.0, 1.0)
 

@@ -241,30 +241,25 @@ def seg_edges_widths(sched, m: int, T: int):
             [m] + [w for _, w in sched])
 
 
-def _scatter(m: int, idx, values, fill):
-    """A length-m tensor holding `values` at the unique indices `idx` and
-    `fill` elsewhere (jnp's .at[idx].set)."""
-    out = torch.full((m,), fill, dtype=values.dtype, device=values.device)
-    return out.index_put_((idx,), values)
-
-
 class LaunchInputs(NamedTuple):
     """The integration inputs of one launch, on the compacted m axis."""
     prop: seeding.SeedProposal      # full-width [n] proposals
-    order: Optional[torch.Tensor]   # [m] integrate compaction (None: m == n)
+    slot_rank: Optional[torch.Tensor]   # [n] rank on the m axis, -1 if cut
     overflow: torch.Tensor          # [1] integrable slots beyond m
     stacks: fields_mod.GatherStacks
     state: fast.State
     params: fast.SeedParams
     alive0: torch.Tensor            # [m] step-0 alive mask
+    month: torch.Tensor             # [m] the proposals' months
+    basin_idx: torch.Tensor         # [m]
 
 
 def launch_inputs(key: rng.Key, pack: FieldPack, cfg: Namelist,
                   basin_id: str, n: int, plane_offset: int) -> LaunchInputs:
     """Propose n seeds and compact the integrable ones slot-stably to the
-    first m = launch_width(cfg, n) positions.  The Fourier flow is drawn at
-    full batch width and gathered, so survivor tracks are identical to an
-    uncapped launch."""
+    first m = launch_width(cfg, n) positions (one partition_take with every
+    per-seed row).  The Fourier flow is drawn at full batch width and
+    gathered, so survivor tracks are identical to an uncapped launch."""
     simulator.check_supported(cfg)
     dev = pack.device
     k_seed, k_fourier = rng.split(key)
@@ -273,25 +268,26 @@ def launch_inputs(key: rng.Key, pack: FieldPack, cfg: Namelist,
     fs = fourier.draw_fourier(k_fourier, (n, cfg.n_wind_levels),
                               cfg.T_fourier_s, dev)
     m = launch_width(cfg, n)
-    order = None
+    rows = (prop.plane, prop.h_bl, prop.lon, prop.lat, prop.v_init,
+            prop.m_init, prop.integrate, prop.month, prop.basin_idx, fs.A,
+            fs.B)
+    slot_rank = None
     overflow = torch.zeros((1,), dtype=torch.int64, device=dev)
-    g = lambda a: a
     if m < n:
-        order = compact_ops.stable_partition_order(prop.integrate, m)
-        overflow = torch.clamp_min(prop.integrate.sum() - m, 0)[None]
-        g = lambda a: a[order]
-        fs = fourier.take_leading(fs, order)
-    params = fast.SeedParams(plane=g(prop.plane), h_bl=g(prop.h_bl),
-                             fourier=fs)
-    state = fast.State(g(prop.lon), g(prop.lat), g(prop.v_init),
-                       g(prop.m_init))
+        part = compact_ops.partition_take(prop.integrate, m, rows,
+                                          slot_rank=True)
+        rows, overflow, slot_rank = part.rows, part.overflow, part.slot_rank
+    plane, h_bl, lon, lat, v, m_init, integrate, month, basin_idx, A, B = rows
+    params = fast.SeedParams(plane=plane, h_bl=h_bl,
+                             fourier=fs._replace(A=A, B=B))
+    state = fast.State(lon, lat, v, m_init)
     if cfg.m_init_mode == 'dvdt0':
         state = state._replace(m=fast.init_m_dvdt0(
             pack, cfg, state.lon, state.lat, state.v, params))
     stacks = fields_mod.build_stacks(pack)
-    alive0 = simulator.genesis_alive(stacks, cfg, state, params,
-                                     g(prop.integrate))
-    return LaunchInputs(prop, order, overflow, stacks, state, params, alive0)
+    alive0 = simulator.genesis_alive(stacks, cfg, state, params, integrate)
+    return LaunchInputs(prop, slot_rank, overflow, stacks, state, params,
+                        alive0, month, basin_idx)
 
 
 def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
@@ -303,14 +299,13 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
     each boundary (frozen-state segments compose exactly); with no schedule
     it is one segment.
 
-    Returns {'seed': full-width [n] metadata, 'trk': compacted [m] track
+    Returns {'seed': full-width [n] metadata, 'slot_rank': the integrate
+    compaction's [n] ranks (None when m == n), 'trk': compacted [m] track
     metadata, 'tm': segment 0's time-major buffers, 'overflow': [2]
     (integrate cap, boundaries)}, plus 'tms'/'segs' for the later segments
     of a segmented launch."""
     li = launch_inputs(key, pack, cfg, basin_id, n, plane_offset)
-    prop, order, stacks = li.prop, li.order, li.stacks
-    g = (lambda a: a) if order is None else (lambda a: a[order])
-    dev = pack.device
+    prop, stacks = li.prop, li.stacks
     m = li.alive0.shape[0]
     dt_out = float(cfg.output_interval_s)
     edges, widths = seg_edges_widths(seg_schedule(cfg, m), m,
@@ -320,21 +315,24 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
     raws = []        # per segment: time-major dict on its own axis
     orders = []      # per boundary: gather map axis k-1 -> axis k
     a_idxs = []      # per later segment: composed map seg axis -> m axis
+    segs = []        # per later segment: its inverse map and selection
     bnd_states = []  # per segment: carry state AT its end boundary
     over2 = torch.zeros_like(li.overflow)   # alive storms beyond a boundary
     state_k, params_k, alive_k, a_idx = li.state, li.params, li.alive0, None
     for k, w in enumerate(widths):
         if k > 0:
-            order_k = compact_ops.stable_partition_order(alive_k, w)
-            over2 = over2 + torch.clamp_min(alive_k.sum() - w, 0)
-            params_k = fast.SeedParams(
-                plane=params_k.plane[order_k], h_bl=params_k.h_bl[order_k],
-                fourier=fourier.take_leading(params_k.fourier, order_k))
-            state_k = fast.State(*(x[order_k] for x in state_k))
-            alive_k = alive_k[order_k]
-            orders.append(order_k)
-            a_idx = order_k if a_idx is None else a_idx[order_k]
+            fs = params_k.fourier
+            part = compact_ops.partition_take(
+                alive_k, w, (params_k.plane, params_k.h_bl, fs.A, fs.B,
+                             *state_k, alive_k),
+                acc=over2, a_prev=a_idx, inv_len=m)
+            plane, h_bl, A, B, lon, lat, v, m_k, alive_k = part.rows
+            params_k = fast.SeedParams(plane, h_bl, fs._replace(A=A, B=B))
+            state_k = fast.State(lon, lat, v, m_k)
+            over2, a_idx = part.overflow, part.a_idx
+            orders.append(part.order)
             a_idxs.append(a_idx)
+            segs.append({'inv': part.inv, 'selected': part.selected})
         outs_k, (state_k, alive_k) = simulator.integrate_segment(
             stacks, cfg, bounds, state_k, alive_k, params_k, edges[k],
             edges[k + 1] - edges[k])
@@ -354,7 +352,8 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
                        >= cfg.seed_v_threshold_ms).any(dim=0)
     reached = reach(raws[0])
     for ai, r in zip(a_idxs, raws[1:]):
-        reached = reached | _scatter(m, ai, reach(r), False)
+        reached = reached | compact_ops.scatter_fill(m, ai, reach(r),
+                                                     False)
     is_tc = reached & (v_2d >= cfg.seed_v_2d_threshold_ms) \
         & raws[0]['alive'][0]
 
@@ -376,27 +375,23 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
             r['lon'], r['lat'], dt_out, r['v'], r['wnds'], r['alive'], ls_k,
             cfg, pos_before=pos_before, pos_after=pos_after)
         peak = peak_k if k == 0 else torch.maximum(
-            peak, _scatter(m, a_idxs[k - 1], peak_k, -math.inf))
+            peak, compact_ops.scatter_fill(m, a_idxs[k - 1], peak_k,
+                                           -math.inf))
     keep = is_tc & (peak >= cfg.seed_vmax_threshold_ms)
 
-    keep_full = keep if order is None else _scatter(n, order, keep, False)
     body = {
-        'seed': {'keep': keep_full, 'counted': prop.counted,
-                 'month': prop.month, 'basin_idx': prop.basin_idx,
-                 'dropped': prop.dropped},
-        'trk': {'keep': keep, 'month': g(prop.month),
-                'basin_idx': g(prop.basin_idx)},
+        'seed': {'counted': prop.counted, 'month': prop.month,
+                 'basin_idx': prop.basin_idx, 'dropped': prop.dropped},
+        'slot_rank': li.slot_rank,
+        'trk': {'keep': keep, 'month': li.month,
+                'basin_idx': li.basin_idx},
         'tm': raws[0],
         'overflow': torch.cat([li.overflow, over2]),
     }
     if len(raws) > 1:
         body['tms'] = tuple(raws[1:])
         # per later segment: column of each m-axis slot in that segment
-        body['segs'] = tuple(
-            {'inv': _scatter(m, ai, torch.arange(w, device=dev), 0),
-             'selected': _scatter(m, ai, torch.ones(w, dtype=torch.bool,
-                                                    device=dev), False)}
-            for ai, w in zip(a_idxs, widths[1:]))
+        body['segs'] = tuple(segs)
     return body
 
 
@@ -426,38 +421,17 @@ def compact_survivors(body: dict, m: int, k_max: int, n_basins: int = 0):
     overflow, boundary overflow, dropped slots, provably usable survivors,
     which on one device is the survivor count), 'spm_upto' (seeds counted
     up to the k_max-th survivor's slot) and 'spm_all' (the whole batch)."""
-    seed, trk, tm = body['seed'], body['trk'], body['tm']
+    seed, trk = body['seed'], body['trk']
     keep = trk['keep']
-    order = compact_ops.stable_partition_order(keep, k_max)
-    g = lambda a: a[order]
-    # pick survivor columns of the time-major buffers, then put time second
-    gt = lambda a: a[:, order].transpose(0, 1)
-    alive_g = gt(tm['alive'])
-    if 'tms' in body:
-        # a stitched segmented launch: each survivor's row continues with
-        # its column in every later segment it rode; storms absent from a
-        # segment read its column 0, masked dead below
-        gbs = []
-        for tm_k, seg_k in zip(body['tms'], body['segs']):
-            gb = lambda a, b=g(seg_k['inv']): a[:, b].transpose(0, 1)
-            alive_g = torch.cat([alive_g, g(seg_k['selected'])[:, None]
-                                 & gb(tm_k['alive'])], dim=1)
-            gbs.append((tm_k, gb))
-        col = lambda k: torch.cat([gt(tm[k])] + [gb(tm_k[k])
-                                                 for tm_k, gb in gbs], dim=1)
-    else:
-        col = lambda k: gt(tm[k])
-    mask = lambda x: torch.where(alive_g if x.dim() == alive_g.dim()
-                                 else alive_g[..., None], x, math.nan)
-    tracks = {
-        'lon': mask(col('lon')), 'lat': mask(col('lat')),
-        'v': mask(col('v')), 'm': mask(col('m')),
-        'vmax': mask(col('vmax')), 'wnds': mask(col('wnds')),
-        'month': g(trk['month']), 'basin_idx': g(trk['basin_idx']),
-        'valid': g(keep),
-    }
-    meta = {k: seed[k] for k in ('keep', 'counted', 'basin_idx', 'month',
-                                 'dropped')}
+    part = compact_ops.partition_take(keep, k_max, (trk['month'],
+                                                    trk['basin_idx'], keep))
+    tracks, keep_full = compact_ops.stitch_survivors(
+        part.order, (body['tm'],) + body.get('tms', ()), body.get('segs', ()),
+        keep, body['slot_rank'])
+    tracks.update(zip(('month', 'basin_idx', 'valid'), part.rows))
+    meta = {'keep': keep_full}
+    meta.update((k, seed[k]) for k in ('counted', 'basin_idx', 'month',
+                                       'dropped'))
     meta['overflow'] = body['overflow']
     if n_basins:
         n_keep = meta['keep'].sum()

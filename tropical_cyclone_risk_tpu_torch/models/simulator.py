@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from tropical_cyclone_risk_tpu_torch.config import Namelist
@@ -40,15 +41,24 @@ class RawTracks(NamedTuple):
 
 def check_supported(cfg: Namelist) -> None:
     """Raise for the integration options this port does not implement."""
-    unsupported = {
-        'time_interp_fields': cfg.time_interp_fields,
-        'rk_exact_stage_fields': cfg.rk_exact_stage_fields,
-        'rk_substeps > 1': int(cfg.rk_substeps) > 1,
-        'vmax_in_scan': cfg.vmax_in_scan,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f'not ported yet: {", ".join(bad)}')
+    if cfg.vmax_in_scan:
+        raise NotImplementedError('not ported yet: vmax_in_scan')
+
+
+def analytic_fourier(cfg: Namelist) -> bool:
+    """Whether F(t) is evaluated analytically at each RK stage or substep
+    time (rk_exact_stage_fields, rk_substeps > 1) instead of streamed from
+    the per-step grid (fourier_grid)."""
+    return bool(cfg.rk_exact_stage_fields) or int(cfg.rk_substeps) > 1
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _step_time(k: int, dt_out: float) -> float:
+    """Track time of output sample k, float32(k) * dt_out in float32."""
+    return float(np.float32(k) * np.float32(dt_out))
 
 
 def _events_alive(cfg: Namelist, bounds, y: fast.State):
@@ -57,26 +67,33 @@ def _events_alive(cfg: Namelist, bounds, y: fast.State):
     return in_b & (torch.abs(y.lat) > 2.0) & (y.v > 4.0)
 
 
-def _rk4_step(rhs_fn, y: fast.State, dt: float):
-    """Classical RK4; returns (y1, winds of the first stage)."""
-    k1, wnds = rhs_fn(y)
+def _rk4_step(rhs_fn, t: float, y: fast.State, dt: float):
+    """Classical RK4 from time t (stage times in float32, as the JAX
+    package adds them); returns (y1, winds of the first stage)."""
+    k1, wnds = rhs_fn(t, y)
     add = lambda a, ka, h: fast.State(*(x + h * dx for x, dx in zip(a, ka)))
-    k2, _ = rhs_fn(add(y, k1, dt / 2))
-    k3, _ = rhs_fn(add(y, k2, dt / 2))
-    k4, _ = rhs_fn(add(y, k3, dt))
+    t_half = _f32(t + _f32(dt / 2))
+    k2, _ = rhs_fn(t_half, add(y, k1, dt / 2))
+    k3, _ = rhs_fn(t_half, add(y, k2, dt / 2))
+    k4, _ = rhs_fn(_f32(t + _f32(dt)), add(y, k3, dt))
     y1 = fast.State(*(x + dt / 6 * (a + 2 * b + 2 * c + d)
                       for x, a, b, c, d in zip(y, k1, k2, k3, k4)))
     return y1, wnds
 
 
-def _rk4_step_frozen_fields(stacks, cfg, params, y: fast.State, dt, f_t):
+def _rk4_step_frozen_fields(stacks, cfg, params, t: float, y: fast.State,
+                            dt, f_t=None):
     """RK4 step with one field gather and one wind coloring at the step
-    start; f_t is the step's Fourier sample F(t) [N, W]."""
-    smp = fast.sample_fields(stacks, y.lon, y.lat, params.plane)
+    start; f_t is the step's Fourier sample F(t) [N, W], evaluated
+    analytically when None."""
+    smp = fast.sample_fields_at_time(stacks, cfg, y.lon, y.lat,
+                                     params.plane, t)
     drv = fast.derive_sample(cfg, smp)
+    if f_t is None:
+        f_t = params.fourier.evaluate(t)
     wnds = fast.color_winds_given_f(cfg, smp.wind_stats, f_t)
-    return _rk4_step(lambda yy: fast.rhs_given_winds(cfg, yy, params, smp,
-                                                     wnds, drv), y, dt)
+    return _rk4_step(lambda tt, yy: fast.rhs_given_winds(
+        cfg, yy, params, smp, wnds, drv), t, y, dt)
 
 
 def _advance(cfg, bounds, y, y_next, alive):
@@ -85,21 +102,24 @@ def _advance(cfg, bounds, y, y_next, alive):
     return y1, alive & _events_alive(cfg, bounds, y1)
 
 
-def _integrate_blocks(stacks, cfg, bounds, y, alive, params, f_all,
+def _integrate_blocks(stacks, cfg, bounds, y, alive, params, f_all, k0: int,
                       n_blocks: int, stride: int, dt: float):
-    """Strided steps: one field gather at each block's start position,
-    reused for the block's `stride` steps; the Fourier flow, wind coloring
-    and ODEs stay per step.  Records the colored winds."""
+    """Strided steps: one field gather at each block's start position and
+    time, reused for the block's `stride` steps; the Fourier flow, wind
+    coloring and ODEs stay per step.  Records the colored winds."""
     outs = []
     for b in range(n_blocks):
-        smp = fast.sample_fields(stacks, y.lon, y.lat, params.plane)
+        t0 = _step_time(k0 + b * stride, dt)
+        smp = fast.sample_fields_at_time(stacks, cfg, y.lon, y.lat,
+                                         params.plane, t0)
         drv = fast.derive_sample(cfg, smp)
         for j in range(stride):
             wnds = fast.color_winds_given_f(cfg, smp.wind_stats,
                                             f_all[b * stride + j])
             y_next, _ = _rk4_step(
-                lambda yy, w=wnds: fast.rhs_given_winds(cfg, yy, params, smp,
-                                                        w, drv), y, dt)
+                lambda tt, yy, w=wnds: fast.rhs_given_winds(
+                    cfg, yy, params, smp, w, drv),
+                _f32(t0 + j * dt), y, dt)
             outs.append((y.lon, y.lat, y.v, y.m, wnds, alive))
             y, alive = _advance(cfg, bounds, y, y_next, alive)
     return outs, (y, alive)
@@ -107,9 +127,10 @@ def _integrate_blocks(stacks, cfg, bounds, y, alive, params, f_all,
 
 def segment_plan(cfg: Namelist, n_steps: int) -> Tuple[int, int]:
     """(stride, n_blocks): the strided blocks of a segment; the remaining
-    n_steps - n_blocks*stride steps gather at every step."""
+    n_steps - n_blocks*stride steps gather at every step.  No blocks when
+    F(t) is analytic (exact stage fields, substeps)."""
     stride = max(1, int(cfg.field_sample_stride))
-    if stride > 1 and n_steps >= stride:
+    if stride > 1 and n_steps >= stride and not analytic_fourier(cfg):
         return stride, n_steps // stride
     return stride, 0
 
@@ -130,20 +151,41 @@ def integrate_segment_plain(stacks: GatherStacks, cfg: Namelist, bounds,
     Returns ((lon, lat, v, m, wnds, alive) time-major, (y_end, alive_end)),
     the carry being the state AT sample k0+n_steps.  The strided blocks
     record the colored winds, the per-step remainder the polar-zeroed
-    winds of the first RK stage, as the JAX package does."""
+    winds of the first RK stage of substep 0, as the JAX package does.
+    With rk_substeps > 1 each output step runs that many RK4 substeps
+    (dead storms frozen per substep, the events checked once per output
+    step); with rk_exact_stage_fields every RK stage gathers and colors
+    at its own position and time."""
     check_supported(cfg)
     if y0.lon.is_cuda:
         kernels.PLAIN_ON_CUDA['integrator'] += 1
-    dt = float(cfg.output_interval_s)
+    dt_out = float(cfg.output_interval_s)
+    sub = max(1, int(cfg.rk_substeps))
+    dt = dt_out / sub
     stride, n_blocks = segment_plan(cfg, n_steps)
-    f_all = fourier_grid(cfg, params, k0, n_steps)
+    f_all = (None if analytic_fourier(cfg)
+             else fourier_grid(cfg, params, k0, n_steps))
     outs, (y, alive) = _integrate_blocks(stacks, cfg, bounds, y0, alive0,
-                                         params, f_all, n_blocks, stride, dt)
+                                         params, f_all, k0, n_blocks, stride,
+                                         dt_out)
     for j in range(n_blocks * stride, n_steps):
-        y_next, wnds = _rk4_step_frozen_fields(stacks, cfg, params, y, dt,
-                                               f_all[j])
-        outs.append((y.lon, y.lat, y.v, y.m, wnds, alive))
-        y, alive = _advance(cfg, bounds, y, y_next, alive)
+        t = _step_time(k0 + j, dt_out)
+        y1, wnds0 = y, None
+        for s in range(sub):
+            ts = _f32(t + _f32(s * dt))
+            if cfg.rk_exact_stage_fields:
+                y_next, wnds = _rk4_step(lambda tt, yy: fast.rhs(
+                    stacks, cfg, tt, yy, params), ts, y1, dt)
+            else:
+                y_next, wnds = _rk4_step_frozen_fields(
+                    stacks, cfg, params, ts, y1, dt,
+                    None if f_all is None else f_all[j])
+            if s == 0:
+                wnds0 = wnds
+            y1 = fast.State(*(torch.where(alive, a, b)
+                              for a, b in zip(y_next, y1)))
+        outs.append((y.lon, y.lat, y.v, y.m, wnds0, alive))
+        y, alive = y1, alive & _events_alive(cfg, bounds, y1)
     return tuple(torch.stack(ch) for ch in zip(*outs)), (y, alive)
 
 
@@ -151,15 +193,19 @@ def integrate_segment(stacks: GatherStacks, cfg: Namelist, bounds,
                       y0: fast.State, alive0: torch.Tensor,
                       params: fast.SeedParams, k0: int, n_steps: int):
     """integrate_segment_plain on CPU tensors; on any other device the CUDA
-    integrator kernel, which raises on what it does not take."""
+    integrator kernel, which raises on what it does not take.  The kernel
+    reads F(t) from the per-step grid, or evaluates it from the storm's
+    Fourier rows where the mode needs it at other times."""
     if y0.lon.device.type == 'cpu':
         return integrate_segment_plain(stacks, cfg, bounds, y0, alive0,
                                        params, k0, n_steps)
     check_supported(cfg)
     stride, n_blocks = segment_plan(cfg, n_steps)
+    f_all = (None if analytic_fourier(cfg)
+             else fourier_grid(cfg, params, k0, n_steps))
     return integrator.integrate_segment_cuda(
-        stacks, cfg, bounds, y0, alive0, params.plane, params.h_bl,
-        fourier_grid(cfg, params, k0, n_steps), stride, n_blocks)
+        stacks, cfg, bounds, y0, alive0, params, k0, n_steps, f_all, stride,
+        n_blocks)
 
 
 def genesis_alive(stacks: GatherStacks, cfg: Namelist, y0: fast.State,

@@ -14,14 +14,16 @@ import torch
 
 from tropical_cyclone_risk_tpu_torch import rng
 from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
+from tropical_cyclone_risk_tpu_torch.ops import interp
 
 N_FOURIER = 15     # number of sine components (track/bam_track.py:112)
 
 
 def _omega(T_s: float, device) -> torch.Tensor:
-    """w_n = 2 pi n / T in float32, rounded as the JAX package rounds it."""
+    """w_n = 2 pi n / T in float32, rounded as the JAX package rounds it
+    (a true division on every device, see interp.true_div)."""
     n = torch.arange(1, N_FOURIER + 1, dtype=torch.float32, device=device)
-    return 2.0 * math.pi * n / float(np.float32(T_s))
+    return interp.true_div(2.0 * math.pi * n, float(np.float32(T_s)))
 
 
 class FourierSeries(NamedTuple):
@@ -43,11 +45,6 @@ class FourierSeries(NamedTuple):
         b = self.B.reshape(-1, N_FOURIER)
         out = torch.sin(phase) @ a.T + torch.cos(phase) @ b.T
         return out.reshape((t.shape[0],) + tuple(lead))
-
-
-def take_leading(fs: FourierSeries, order: torch.Tensor) -> FourierSeries:
-    """Gather coefficient rows along the leading (seed) axis."""
-    return fs._replace(A=fs.A[order], B=fs.B[order])
 
 
 def _amplitudes(device) -> torch.Tensor:

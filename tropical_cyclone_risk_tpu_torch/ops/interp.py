@@ -52,8 +52,10 @@ def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` for a constant ``c``, rounded as one float division on
     every device (as the JAX package and the CUDA kernels divide): torch's
     CUDA kernel computes ``tensor / python_scalar`` as a multiply by the
-    reciprocal, which can differ in the last bit."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    reciprocal, which can differ in the last bit.  The divisor is a 0-d
+    tensor filled on x's device (no host-to-device copy, so no
+    synchronisation)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def _cell_and_weight(x, x0: float, dx: float, n: int):
