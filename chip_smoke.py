@@ -1,6 +1,7 @@
 """Drive the PyTorch port's main paths once on one CUDA GPU and check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernel-times ROOT    (see kernel_times)
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -8,13 +9,18 @@ Phases (any failure raises, and the script exits non-zero):
 2. build     - build the CUDA integrator (K1), seeding (K3), compaction
                (K4), threefry (K5) and CAPE-PI (K6) kernels with nvcc, one
                process each, all started together, while the Triton vmax
-               kernel (K2) is JIT-compiled; print the build times and
-               nvcc's register and stack report.
+               kernel (K2) is JIT-compiled; print the build times, nvcc's
+               register, stack and spill report and the SASS local-memory
+               instructions of each kernel; K1's default instance must have
+               no stack frame and no spills, and K1's sin and cos path must
+               equal CUDA's sinf and cosf on every float32 it takes.
 3. K1, K2    - one 131072-seed launch on the 181x360 one-degree pack with
                every integration segment run through K1 and through the
                plain PyTorch twin on the same inputs, and every vmax pass
                through K2 and its twin; agreement within the stated
-               tolerances; times on the first segment at full width.
+               tolerances; K1's time alone on every segment (and its sum
+               per launch) beside its bound and its twin, K2's on the
+               first segment.
 4. K3, K5    - propose_seeds at 131072 slots through K3 and through its
                plain twin on the card, without retry caps, with the
                auto-tuned caps and with caps that overflow (slots drop),
@@ -27,13 +33,16 @@ Phases (any failure raises, and the script exits non-zero):
                compact_survivors' partition and survivor stitch at k_max 64
                and at k_max = m through K4 and through the plain twins on
                the same inputs, and the edge cases: all bit-exact; times of
-               the integrate compaction (beside torch.sort's stable order)
+               each of the launch's ten partitions and their sum (beside
+               torch.sort's stable order, and torch.sort with one
+               index_select per row tensor), of the integrate compaction
                and of the stitch, with their bounds.
    modes     - _omega on the card equals the CPU's bit for bit; for each of
                the default path, time_interp_fields, rk_exact_stage_fields
-               and rk_substeps=2 one 131072-seed launch with K1 held
-               against its twin on the first and the last segment; K1's
-               time per mode.
+               and rk_substeps=2 (and time_interp_fields with each of the
+               last two) one 131072-seed launch with K1 held against its
+               twin on the first and the last segment; K1's time alone per
+               mode.
 5. workspace - write one year of a one-degree ERA5-shaped raw workspace on
                the 28 ERA5 pressure levels (utils/synthetic_era5.py).
 6. K6        - gen_thermo over that workspace with cape_pi captured: all
@@ -68,6 +77,7 @@ bound; the last line is {"ok": true, "device": {...}}.  Builds go to
 build/.  Every time printed stands beside the card's name and power limit.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -116,6 +126,9 @@ OVERFLOW_CAPS = (1 / 64,) * 15
 # the kernels a simulation (run_downscaling) launches
 SIMULATION_KERNELS = ('integrator', 'vmax', 'seeding', 'threefry', 'compact')
 WS_YEAR = 2016      # the workspace: one year at one degree
+# repetitions of each K1 segment and K4 call when timed alone
+K1_REPS = 20
+K4_REPS = 20
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
 # HBM bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -138,6 +151,42 @@ def cuda_ms(fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def host_ms(fn, reps):
+    """Median host milliseconds to issue fn() over reps runs: the
+    wrapper's Python and its launches, the device left to run behind them
+    (the median, since the host's cores are shared)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(ts) * 1e3
+
+
+@contextlib.contextmanager
+def captured(mod, name, check=None):
+    """Within the block, mod.name is a wrapper that appends (args, kw, out,
+    check(out, *args, **kw) or None) of each call to the list it yields;
+    a check runs as the call is made, before later work can touch its
+    inputs."""
+    fn, calls = getattr(mod, name), []
+
+    def capture(*args, **kw):
+        out = fn(*args, **kw)
+        calls.append((args, kw, out,
+                      None if check is None else check(out, *args, **kw)))
+        return out
+
+    setattr(mod, name, capture)
+    try:
+        yield calls
+    finally:
+        setattr(mod, name, fn)
 
 
 def bound(n_bytes, n_ops):
@@ -209,6 +258,24 @@ def k1_bound(args, out):
          + nbytes(y0.lon, y0.lat, y0.v, y0.m, alive0, params.plane,
                   params.h_bl) + nbytes(*outs, *end_y, end_alive))
     return bound(b, m * (360 * n_steps + 150 * gathers))
+
+
+def k1_launcher(args, entry=None):
+    """A function that runs K1 on the arguments of one
+    simulator.integrate_segment call, with the F(t) grid that its
+    dispatcher builds: the launch function of kernels/integrator.py
+    launcher (the kernel alone), or, given an entry such as
+    integrator.integrate_segment_cuda, a call of it (the wrapper)."""
+    from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    from tropical_cyclone_risk_tpu_torch.models import simulator
+    stacks, cfg, bounds, y0, alive0, params, k0, n_steps = args
+    stride, n_blocks = simulator.segment_plan(cfg, n_steps)
+    f_all = (None if simulator.analytic_fourier(cfg)
+             else simulator.fourier_grid(cfg, params, k0, n_steps))
+    full = args + (f_all, stride, n_blocks)
+    if entry is None:
+        return integrator.launcher(*full)[0]
+    return lambda: entry(*full)
 
 
 def k2_bound(args, kw, out):
@@ -498,9 +565,67 @@ def stitch_bound(order, tms, segs, out):
     return bound(reads + nbytes(*out[0].values(), out[1]), 4 * k * T)
 
 
+def launch_setup(dev):
+    """The slice's launch inputs: the namelist at N_SEEDS seeds for two
+    years, the 24-plane 181x360 synthetic pack, its first year, and the
+    namelist auto-tuned on it (integrate cap, re-compaction schedule)."""
+    from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.config import Namelist
+    from tropical_cyclone_risk_tpu_torch.models import fields, pipeline
+    cfg = Namelist(seed_batch=N_SEEDS, start_year=2016, end_year=2017)
+    pack24 = fields.synthetic_pack(cfg, n_planes=24, nlat=181, nlon=360,
+                                   seed=0, device=dev)
+    pack_y = fields.slice_pack_year(pack24, cfg, 0)
+    cfg_t = pipeline.auto_integrate_cap(rng.fold_in(rng.key(0),
+                                                    cfg.start_year),
+                                        pack24, cfg, BASIN)
+    return cfg, pack24, pack_y, cfg_t
+
+
+def launch_calls(key, pack_y, cfg_t, plane0, k_maxes=(64,), check=False):
+    """One full-width launch: launch_body, then compact_survivors at each
+    k_max of k_maxes, with simulator.integrate_segment and K4's two
+    dispatchers captured; with check, each K4 call is repeated through its
+    plain twin as it is made (its record's check: the fields that differ).
+    Returns (K1 calls, partition calls, stitch calls, the number of
+    partitions in launch_body)."""
+    from tropical_cyclone_risk_tpu_torch.models import pipeline, simulator
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+
+    def twin(plain):
+        return (lambda out, *a, **kw: same_parts(out, plain(*a, **kw))) \
+            if check else None
+
+    m = pipeline.launch_width(cfg_t, N_SEEDS)
+    with captured(simulator, 'integrate_segment') as segs, \
+            captured(compact_ops, 'partition_take',
+                     twin(compact_ops.partition_take_plain)) as parts, \
+            captured(compact_ops, 'stitch_survivors',
+                     twin(compact_ops.stitch_survivors_plain)) as stitches:
+        body = pipeline.launch_body(key, pack_y, cfg_t, BASIN, N_SEEDS,
+                                    plane0)
+        n_launch = len(parts)
+        for k_max in k_maxes:
+            pipeline.compact_survivors(body, m, k_max,
+                                       len(cfg_t.basin_ids_sorted()))
+    torch.cuda.synchronize()
+    return segs, parts, stitches, n_launch
+
+
+def mode_calls(key, pack_y, cfg, plane0):
+    """The K1 calls of one full-width launch (_simulate_batch at k_max 64)
+    on cfg, captured."""
+    from tropical_cyclone_risk_tpu_torch.models import pipeline, simulator
+    with captured(simulator, 'integrate_segment') as calls:
+        pipeline._simulate_batch(key, pack_y, cfg, BASIN, N_SEEDS, 64,
+                                 plane0)
+    torch.cuda.synchronize()
+    return calls
+
+
 def check_k4(key, pack_y, cfg_t, plane0, card):
     """Phase K4: one full-width launch (the auto-tuned cfg_t) with both K4
-    dispatchers wrapped, so that every compaction of the launch (the
+    dispatchers captured, so that every compaction of the launch (the
     integrate compaction, every boundary) and compact_survivors' partition
     and stitch at k_max 64 and at k_max = m are repeated through the plain
     twins on the same inputs: all bit-exact; then the edge cases, and the
@@ -509,41 +634,16 @@ def check_k4(key, pack_y, cfg_t, plane0, card):
     from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
     from tropical_cyclone_risk_tpu_torch.models import pipeline
     from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
-    part_k, stitch_k = compact_ops.partition_take, compact_ops.stitch_survivors
-    calls = []
-
-    def part_checked(mask, w, rows=(), *a, **kw):
-        out = part_k(mask, w, rows, *a, **kw)
-        calls.append(('partition', (mask, w, rows) + a, kw, out, same_parts(
-            out, compact_ops.partition_take_plain(mask, w, rows, *a, **kw))))
-        return out
-
-    def stitch_checked(*a):
-        out = stitch_k(*a)
-        calls.append(('stitch', a, {}, out, same_parts(
-            out, compact_ops.stitch_survivors_plain(*a))))
-        return out
-
-    compact_ops.partition_take = part_checked
-    compact_ops.stitch_survivors = stitch_checked
     m = pipeline.launch_width(cfg_t, N_SEEDS)
-    n_basins = len(cfg_t.basin_ids_sorted())
-    try:
-        body = pipeline.launch_body(key, pack_y, cfg_t, BASIN, N_SEEDS,
-                                    plane0)
-        n_launch = len(calls)
-        for k_max in (64, m):
-            pipeline.compact_survivors(body, m, k_max, n_basins)
-    finally:
-        compact_ops.partition_take = part_k
-        compact_ops.stitch_survivors = stitch_k
-    torch.cuda.synchronize()
-    bad = [(i, kind, b) for i, (kind, _, _, _, b) in enumerate(calls) if b]
-    sizes = [(c[1][0].shape[0], c[1][1]) for c in calls
-             if c[0] == 'partition']
-    log(f'[K4] {len(calls)} K4 calls ({n_launch} in the launch, the rest '
-        f'compact_survivors at k_max 64 and {m}): partitions (n, w) {sizes}; '
-        f'not bit-exact: {bad or "none"}')
+    _, parts_all, stitches, n_launch = launch_calls(key, pack_y, cfg_t,
+                                                    plane0, (64, m), True)
+    bad = [(kind, i, c[3]) for kind, calls in (('partition', parts_all),
+                                               ('stitch', stitches))
+           for i, c in enumerate(calls) if c[3]]
+    sizes = [(c[0][0].shape[0], c[0][1]) for c in parts_all]
+    log(f'[K4] {len(parts_all) + len(stitches)} K4 calls ({n_launch} in the '
+        f'launch, the rest compact_survivors at k_max 64 and {m}): '
+        f'partitions (n, w) {sizes}; not bit-exact: {bad or "none"}')
     if bad or n_launch != (m < N_SEEDS) + len(pipeline.seg_schedule(cfg_t,
                                                                       m)):
         raise AssertionError(f'K4 differs from its twin: {bad}')
@@ -551,43 +651,90 @@ def check_k4(key, pack_y, cfg_t, plane0, card):
     log(f'[K4] {n_edge} edge cases (n 1, 1024, 4097, {N_SEEDS}; masks none, '
         f'all, sparse; w below, at, above the count and >= n): bit-exact')
 
-    _, (mask, w, rows), kw, out, _ = calls[0]
-    launch, _ = k4.launcher('partition', mask, w, rows, kw.get('acc'),
-                            kw.get('slot_rank', False), kw.get('a_prev'),
-                            kw.get('inv_len'))
-    ms = cuda_ms(launch, 50)
-    ms_call = cuda_ms(lambda: part_k(mask, w, rows, **kw), 50)
-    ms_order = cuda_ms(k4.launcher('partition', mask, w, (), None, False,
-                                   None, None)[0], 50)
+    # the launch's partitions: launch_body's and compact_survivors' at
+    # k_max 64; each timed as K4's kernels alone, torch.sort's order
+    # alone, and torch.sort with one index_select per row tensor, in
+    # device time (torch.profiler), since a small call's launches take
+    # longer to issue from the host than to run
+    parts = parts_all[:n_launch + 1]
+    rows_k4 = []
+    for (mask, w, rows), kw, out, _ in parts:
+        launch, _ = k4.launcher('partition', mask, w, rows, kw.get('acc'),
+                                kw.get('slot_rank', False), kw.get('a_prev'),
+                                kw.get('inv_len'))
+        rows_k4.append({
+            'n': mask.shape[0], 'w': w, 'rows': len(rows),
+            'ms': device_ms(launch, K4_REPS),
+            'library_ms': device_ms(lambda: sort_order(mask, w), K4_REPS),
+            'sort_take_ms': device_ms(lambda: sort_take(mask, w, rows),
+                                      K4_REPS),
+            'bound_ms': partition_bound(mask, out, kw.get('a_prev'))[0]})
+    launch_k4 = {k: sum(r[k] for r in rows_k4)
+                 for k in ('ms', 'library_ms', 'sort_take_ms', 'bound_ms')}
+    log(f'[K4] {card}: the launch\'s {len(rows_k4)} partitions (n, w, row '
+        f'tensors: device ms of the kernels / torch.sort / sort + '
+        f'index_select / bound ms) ' +
+        '; '.join(f'{r["n"]}->{r["w"]} x{r["rows"]}: {r["ms"]:.4f} / '
+                  f'{r["library_ms"]:.4f} / {r["sort_take_ms"]:.4f} / '
+                  f'{r["bound_ms"]:.5f}' for r in rows_k4))
+    log(f'[K4] {card}: per launch, device time: kernels '
+        f'{launch_k4["ms"]:.4f} ms, torch.sort {launch_k4["library_ms"]:.4f} '
+        f'ms, sort + index_select {launch_k4["sort_take_ms"]:.4f} ms, bound '
+        f'{launch_k4["bound_ms"]:.5f} ms')
+
+    # the integrate compaction (the launch's first partition): K4 through
+    # its dispatcher, its order alone, the plain twin
+    (mask, w, rows), kw, out, _ = parts[0]
+    first = rows_k4[0]
+    ms_call = cuda_ms(lambda: compact_ops.partition_take(mask, w, rows, **kw),
+                      50)
+    ms_order = device_ms(k4.launcher('partition', mask, w, (), None, False,
+                                     None, None)[0], K4_REPS)
     ms_plain = cuda_ms(lambda: compact_ops.partition_take_plain(
         mask, w, rows, **kw), 20)
-    ms_lib = cuda_ms(lambda: torch.sort((~mask).to(torch.uint8),
-                                        stable=True).indices[:w], 50)
     b4, by4 = partition_bound(mask, out, kw.get('a_prev'))
-    sargs, sout = next((c[1], c[3]) for c in calls if c[0] == 'stitch')
+    sargs, _, sout, _ = stitches[0]
     ms_st = cuda_ms(k4.launcher('stitch', *sargs)[0], 50)
-    ms_st_call = cuda_ms(lambda: stitch_k(*sargs), 50)
+    ms_st_call = cuda_ms(lambda: compact_ops.stitch_survivors(*sargs), 50)
     ms_st_plain = cuda_ms(lambda: compact_ops.stitch_survivors_plain(*sargs),
                           20)
     b4s, by4s = stitch_bound(sargs[0], sargs[1], sargs[2], sout)
     log(f'[K4] {card}: integrate compaction {N_SEEDS} -> {w} with '
-        f'{len(rows)} row tensors: kernels {ms:.4f} ms ({ms_call:.4f} ms '
-        f'through the dispatcher; the order alone {ms_order:.4f} ms), plain '
-        f'twin {ms_plain:.4f} ms, torch.sort {ms_lib:.4f} ms, bound '
-        f'{b4:.5f} ms ({by4}); survivor stitch '
-        f'{tuple(sout[0]["lon"].shape)} over {len(sargs[1])} segments: '
-        f'kernel {ms_st:.4f} ms ({ms_st_call:.4f} ms through the '
-        f'dispatcher), plain twin {ms_st_plain:.4f} ms, bound {b4s:.5f} ms '
-        f'({by4s})')
+        f'{len(rows)} row tensors: kernels {first["ms"]:.4f} ms '
+        f'({ms_call:.4f} ms through the dispatcher; the order alone '
+        f'{ms_order:.4f} ms), plain twin {ms_plain:.4f} ms, torch.sort '
+        f'{first["library_ms"]:.4f} ms, torch.sort + index_select '
+        f'{first["sort_take_ms"]:.4f} ms, bound {b4:.5f} ms ({by4}); '
+        f'survivor stitch {tuple(sout[0]["lon"].shape)} over '
+        f'{len(sargs[1])} segments: kernel {ms_st:.4f} ms ({ms_st_call:.4f} '
+        f'ms through the dispatcher), plain twin {ms_st_plain:.4f} ms, bound '
+        f'{b4s:.5f} ms ({by4s})')
     return {'name': 'compact', 'route': 'cuda',
             'source': 'tropical_cyclone_risk_tpu_torch/csrc/compact.cu',
             'replaces': 'tropical_cyclone_risk_tpu/ops/compact.py:30',
-            'launches': None, 'max_abs_err': 0.0, 'ms': ms,
+            'launches': None, 'max_abs_err': 0.0, 'ms': first['ms'],
             'plain_ms': ms_plain, 'bound_ms': b4, 'bound_by': by4,
-            'library_ms': ms_lib, 'dispatch_ms': ms_call,
-            'order_ms': ms_order, 'stitch_ms': ms_st,
+            'library_ms': first['library_ms'], 'per': 'integrate compaction',
+            'sort_take_ms': first['sort_take_ms'], 'dispatch_ms': ms_call,
+            'order_ms': ms_order, 'launch_partitions': len(rows_k4),
+            'launch_ms': launch_k4['ms'],
+            'launch_library_ms': launch_k4['library_ms'],
+            'launch_sort_take_ms': launch_k4['sort_take_ms'],
+            'launch_bound_ms': launch_k4['bound_ms'], 'stitch_ms': ms_st,
             'stitch_dispatch_ms': ms_st_call, 'stitch_plain_ms': ms_st_plain,
             'stitch_bound_ms': b4s}
+
+
+def sort_order(mask, w):
+    """K4's one-call yardstick: torch.sort's stable order, True first."""
+    return torch.sort((~mask).to(torch.uint8), stable=True).indices[:w]
+
+
+def sort_take(mask, w, rows):
+    """The same work as a K4 partition's order and row gathers in library
+    calls: torch.sort and one index_select per row tensor."""
+    order = sort_order(mask, w)
+    return [r.index_select(0, order) for r in rows]
 
 
 # the integration modes of the modes phase on the auto-tuned namelist; the
@@ -606,9 +753,10 @@ def check_modes(key, pack_y, cfg_t, plane0, card):
     """Phase modes: _omega on the card equals _omega on the CPU bit for
     bit; for the default path and each mode one full-width launch with K1
     held against its twin on the first and the last segment (K1_TOL,
-    K1_ALIVE_AGREE), and K1's time on the first segment, through its
-    dispatcher.  Returns the largest error found."""
-    from tropical_cyclone_risk_tpu_torch.models import pipeline, simulator
+    K1_ALIVE_AGREE), and K1's time on the first segment, the kernel
+    alone.  Returns (the largest error found, {mode: K1's time on
+    segment 0, the kernel alone})."""
+    from tropical_cyclone_risk_tpu_torch.models import simulator
     from tropical_cyclone_risk_tpu_torch.ops import fourier
     w_card = fourier._omega(cfg_t.T_fourier_s, pack_y.device).cpu()
     w_cpu = fourier._omega(cfg_t.T_fourier_s, 'cpu')
@@ -616,26 +764,11 @@ def check_modes(key, pack_y, cfg_t, plane0, card):
         f'{torch.equal(w_card, w_cpu)}')
     if not torch.equal(w_card, w_cpu):
         raise AssertionError(f'_omega differs: {w_card} vs {w_cpu}')
-    k1_kernel = simulator.integrate_segment
-    worst = 0.0
+    worst, modes_ms = 0.0, {}
     for name, kw in MODES.items():
-        cfg = cfg_t.replace(**kw)
-        calls = []
-
-        def k1_captured(*args):
-            out = k1_kernel(*args)
-            calls.append((args, out))
-            return out
-
-        simulator.integrate_segment = k1_captured
-        try:
-            pipeline._simulate_batch(key, pack_y, cfg, BASIN, N_SEEDS, 64,
-                                     plane0)
-        finally:
-            simulator.integrate_segment = k1_kernel
-        torch.cuda.synchronize()
+        calls = mode_calls(key, pack_y, cfg_t.replace(**kw), plane0)
         res = []
-        for args, out in (calls[0], calls[-1]):
+        for args, _, out, _ in (calls[0], calls[-1]):
             agree, err, _ = compare_k1(
                 out, simulator.integrate_segment_plain(*args))
             res.append((args[7], args[3].lon.shape[0], agree, err))
@@ -645,13 +778,13 @@ def check_modes(key, pack_y, cfg_t, plane0, card):
                 raise AssertionError(f'K1 under {name}: alive agreement '
                                      f'{agree}, errors {err}')
         args0 = calls[0][0]
-        ms = cuda_ms(lambda: k1_kernel(*args0), 3)
+        ms = modes_ms[name] = cuda_ms(k1_launcher(args0), 5)
         log(f'[modes] {name}: {len(calls)} segments; K1 against its twin on '
             f'the first and last (steps, storms, alive agreement, max abs '
             f'err) {res}; {card}: K1 segment 0 ({args0[7]} steps x '
-            f'{args0[3].lon.shape[0]} storms) {ms:.3f} ms')
+            f'{args0[3].lon.shape[0]} storms) {ms:.4f} ms, the kernel alone')
         del calls, args0
-    return worst
+    return worst, modes_ms
 
 
 def profile_launches(run, reps, path):
@@ -723,8 +856,11 @@ def card_line():
 
 def build_all(dev):
     """nvcc for K1, K3, K4, K5 and K6 in five threads (five processes at
-    once) while the Triton K2 JIT-compiles here; logs the build seconds by
-    kernel."""
+    once) while the Triton K2 JIT-compiles here; logs the build seconds,
+    each kernel's registers, stack frame, spills and SASS local-memory
+    instructions; requires K1's default instance to have neither a stack
+    frame nor spills, and K1's sin and cos to equal CUDA's sinf and
+    cosf."""
     from tropical_cyclone_risk_tpu_torch.kernels import cape_pi as k6
     from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
@@ -762,15 +898,125 @@ def build_all(dev):
         raise errors[0]
     import triton
     for name, (info, secs) in builds.items():
-        for line in info['log'].splitlines():
-            if any(w in line for w in ('registers', 'spill', 'stack frame')):
-                log(f'[build] {name} nvcc: {line.strip()}')
+        sass = sass_local_memory(info['path'])
+        for fn, rep in ptxas_report(info['log']).items():
+            log(f'[build] {name} {fn}: {rep}; SASS local loads/stores '
+                f'{sass.get(fn, "not read")}')
         log(f'[build] {name} nvcc {secs:.1f} s')
     log(f'[build] vmax triton {triton.__version__} JIT {t_k2:.1f} s '
         f'(concurrent with nvcc)')
+    report, clean = k1_frame(builds['integrator'][0])
+    if clean is None:
+        log(f'[build] K1 {K1_DEFAULT_INSTANCE}: stack frame and spills not '
+            f'checked ({report})')
+    elif not clean:
+        raise AssertionError(f'K1 {K1_DEFAULT_INSTANCE}: {report}')
+    n_trig = 0
+    for lo, count in TRIG_CHECK_RANGES:
+        bad, first = integrator.trig_check(lo, count, dev)
+        n_trig += count
+        if bad:
+            raise AssertionError(f'K1 sincos_rad differs from sinf or cosf '
+                                 f'on {bad} inputs, first 0x{first:08x}')
+    log(f'[build] K1 sin and cos path equals CUDA\'s sinf and cosf on all '
+        f'{n_trig} float32 inputs with |x| < 105615, +-inf and NaN')
+
+
+# the K1 instance of the default path, and the float32 bit patterns on
+# which its sin and cos path must equal CUDA's sinf and cosf: |x| < 105615
+# of both signs, the infinities and every NaN
+K1_DEFAULT_INSTANCE = 'integrate_segment_kernel<0,0>'
+TRIG_CHECK_RANGES = ((0x00000000, 0x47ce4780), (0x80000000, 0x47ce4780),
+                    (0x7f800000, 0x00800000), (0xff800000, 0x00800000))
+
+
+def k1_frame(info):
+    """(report, clean) of K1's default instance in the built library
+    (kernels/build.py's info): clean when it has no stack frame and no
+    spills, by nvcc's -Xptxas -v log, or, where the library was already
+    built (an empty log), by cuobjdump -res-usage (STACK and LOCAL bytes);
+    clean is None, with the reason as the report, where neither reads."""
+    if info['log']:
+        rep = ptxas_report(info['log']).get(K1_DEFAULT_INSTANCE)
+        if rep is None:
+            return 'no ptxas report', False
+        return rep, (' 0 bytes stack frame' in rep
+                     and ' 0 bytes spill stores' in rep)
+    text = cuobjdump('-res-usage', info['path'])
+    if text is None:
+        return 'a cached build, and no cuobjdump to read it', None
+    import re
+    for name, stack, local in re.findall(
+            r'Function ([\w$]+):\s+REG:\d+ STACK:(\d+) SHARED:\d+ '
+            r'LOCAL:(\d+)', text):
+        if kernel_label(name) == K1_DEFAULT_INSTANCE:
+            return (f'cuobjdump -res-usage of a cached build: STACK {stack}, '
+                    f'LOCAL {local}'), stack == local == '0'
+    return 'no cuobjdump -res-usage entry', False
+
+
+def kernel_label(mangled):
+    """A short name for a mangled kernel name: its identifier ending in
+    _kernel with its bool template arguments (<0,0>), or the name."""
+    import re
+    found = re.search(r'([a-z][a-z_]*_kernel)((?:ILb[01]E)?(?:Lb[01]E)*)',
+                      mangled)
+    if found is None:
+        return mangled
+    args = re.findall(r'Lb([01])', found.group(2))
+    return found.group(1) + (f'<{",".join(args)}>' if args else '')
+
+
+def ptxas_report(text):
+    """{kernel: 'N registers, S bytes stack frame, ...'} from nvcc's
+    -Xptxas -v output (empty when the library was already built)."""
+    import re
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$]+)", line)
+        if m:
+            cur = kernel_label(m.group(1))
+            continue
+        if cur is None:
+            continue
+        if 'stack frame' in line:
+            out[cur] = (out.get(cur, '') + ' ' + line.strip()).strip()
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            out[cur] = f'{m.group(1)} registers, ' + out.get(cur, '')
+    return out
+
+
+def cuobjdump(flag, lib_path):
+    """cuobjdump's output for one flag on a built library, or None when
+    cuobjdump is not found."""
+    import os
+    tool = os.path.join(os.environ.get('CUDA_HOME') or '/usr/local/cuda',
+                        'bin', 'cuobjdump')
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, flag, str(lib_path)], capture_output=True,
+                          text=True).stdout
+
+
+def sass_local_memory(lib_path):
+    """{kernel: 'LDL n, STL n'} counted in cuobjdump -sass of a built
+    library; empty when cuobjdump is not found."""
+    import re
+    text = cuobjdump('-sass', lib_path)
+    if text is None:
+        return {}
+    out = {}
+    for part in re.split(r'\n\s*Function : ', text)[1:]:
+        name = kernel_label(part.split('\n', 1)[0].strip())
+        out[name] = (f'LDL {len(re.findall(r"LDL", part))}, '
+                     f'STL {len(re.findall(r"STL", part))}')
+    return out
 
 
 def main():
+    """The phases of the module's docstring; exits non-zero on a failure."""
     # ---- 1. device --------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device; this script measures '
@@ -801,52 +1047,33 @@ def main():
     # one full launch at the slice's shapes, with both kernel dispatchers
     # wrapped so that every segment's K1 call and every K2 call (with its
     # boundary rows) is repeated through the plain twin on the same inputs
-    cfg = Namelist(seed_batch=N_SEEDS, start_year=2016, end_year=2017)
-    pack24 = fields.synthetic_pack(cfg, n_planes=24, nlat=181, nlon=360,
-                                   seed=0, device=dev)
-    pack_y = fields.slice_pack_year(pack24, cfg, 0)
-    key = rng.key(0)
     t0 = time.perf_counter()
-    cfg_t = pipeline.auto_integrate_cap(rng.fold_in(key, cfg.start_year),
-                                        pack24, cfg, BASIN)
+    cfg, pack24, pack_y, cfg_t = launch_setup(dev)
     torch.cuda.synchronize()
-    log(f'[K1] auto-tune {time.perf_counter() - t0:.2f} s: integrate_cap '
-        f'{cfg_t.integrate_cap} schedule {cfg_t.recompact_schedule}')
-    k1_kernel = simulator.integrate_segment
-    k2_kernel = diagnostics.axi_to_max_wind_raw
-    k1_calls, k2_calls = [], []
-
-    def k1_checked(*args):
-        out = k1_kernel(*args)
-        k1_calls.append((args, out, compare_k1(
-            out, simulator.integrate_segment_plain(*args))))
-        return out
-
-    def k2_checked(*args, **kw):
-        out = k2_kernel(*args, **kw)
-        k2_calls.append(((args, kw), out, compare_k2(
-            out, diagnostics.axi_to_max_wind_raw_plain(*args, **kw),
-            args[5])))
-        return out
-
-    simulator.integrate_segment = k1_checked
-    diagnostics.axi_to_max_wind_raw = k2_checked
-    try:
+    log(f'[K1] pack and auto-tune {time.perf_counter() - t0:.2f} s: '
+        f'integrate_cap {cfg_t.integrate_cap} schedule '
+        f'{cfg_t.recompact_schedule}')
+    key = rng.key(0)
+    with captured(simulator, 'integrate_segment',
+                  lambda out, *a: compare_k1(
+                      out, simulator.integrate_segment_plain(*a))
+                  ) as k1_calls, \
+            captured(diagnostics, 'axi_to_max_wind_raw',
+                     lambda out, *a, **kw: compare_k2(
+                         out, diagnostics.axi_to_max_wind_raw_plain(*a, **kw),
+                         a[5])) as k2_calls:
         pipeline.launch_body(rng.fold_in(key, 1), pack_y, cfg_t, BASIN,
                              N_SEEDS, cfg.start_month - 1)
-    finally:
-        simulator.integrate_segment = k1_kernel
-        diagnostics.axi_to_max_wind_raw = k2_kernel
     torch.cuda.synchronize()
 
-    agree = min(c[0] for _, _, c in k1_calls)
-    k1_err = {nm: max(c[1][nm] for _, _, c in k1_calls) for nm in K1_TOL}
-    exact = min(c[2] for _, _, c in k1_calls)
-    args0, out0 = k1_calls[0][0], k1_calls[0][1]
+    agree = min(c[0] for *_, c in k1_calls)
+    k1_err = {nm: max(c[1][nm] for *_, c in k1_calls) for nm in K1_TOL}
+    exact = min(c[2] for *_, c in k1_calls)
+    args0 = k1_calls[0][0]
     n1, m = args0[7], args0[3].lon.shape[0]
     log(f'[K1] {len(k1_calls)} segments, steps '
-        f'{[a[7] for a, _, _ in k1_calls]}, widths '
-        f'{[a[3].lon.shape[0] for a, _, _ in k1_calls]}: storms with '
+        f'{[c[0][7] for c in k1_calls]}, widths '
+        f'{[c[0][3].lon.shape[0] for c in k1_calls]}: storms with '
         f'identical alive history >= {agree:.6f}; bit-exact lon samples >= '
         f'{exact:.6f}; max abs err {k1_err}')
     if agree < K1_ALIVE_AGREE:
@@ -854,28 +1081,47 @@ def main():
     for nm, tol in K1_TOL.items():
         if not k1_err[nm] <= tol:
             raise AssertionError(f'K1 {nm} err {k1_err[nm]} > {tol}')
-    ms_k1 = cuda_ms(lambda: k1_kernel(*args0), 5)
-    ms_k1_plain = cuda_ms(lambda: simulator.integrate_segment_plain(*args0),
-                          1)
-    k1_bound_ms, k1_by = k1_bound(args0, out0)
-    log(f'[K1] {card}: segment 0, {n1} steps x {m} storms: kernel '
-        f'{ms_k1:.3f} ms, plain twin {ms_k1_plain:.3f} ms, bound '
-        f'{k1_bound_ms:.4f} ms ({k1_by})')
+    # the kernel alone on every segment, beside its bound and its twin
+    k1_segs = []
+    for s, (args, _, out, _) in enumerate(k1_calls):
+        ms = cuda_ms(k1_launcher(args), K1_REPS)
+        plain = cuda_ms(lambda: simulator.integrate_segment_plain(*args), 1)
+        b, by = k1_bound(args, out)
+        seg = {'steps': args[7], 'width': args[3].lon.shape[0], 'ms': ms,
+               'us_per_step': 1e3 * ms / args[7], 'bound_ms': b,
+               'bound_by': by, 'plain_ms': plain}
+        k1_segs.append(seg)
+        log(f'[K1] {card}: segment {s}, {seg["steps"]} steps x '
+            f'{seg["width"]} storms: kernel {ms:.4f} ms '
+            f'({seg["us_per_step"]:.2f} us per step), bound {b:.5f} ms '
+            f'({by}), plain twin {plain:.1f} ms')
+    ms_k1, ms_k1_plain, k1_bound_ms = (
+        sum(sg[k] for sg in k1_segs) for k in ('ms', 'plain_ms', 'bound_ms'))
+    k1_by = max(k1_segs, key=lambda sg: sg['bound_ms'])['bound_by']
+    ms_k1_call = cuda_ms(lambda: simulator.integrate_segment(*args0),
+                         K1_REPS)
+    log(f'[K1] {card}: per launch ({len(k1_segs)} segments, '
+        f'{sum(sg["steps"] for sg in k1_segs)} steps): kernel '
+        f'{ms_k1:.4f} ms, bound {k1_bound_ms:.5f} ms '
+        f'({100 * k1_bound_ms / ms_k1:.1f}% of it), plain twin '
+        f'{ms_k1_plain:.1f} ms; segment 0 through the dispatcher '
+        f'{ms_k1_call:.4f} ms')
 
-    k2_err = max(c[0] for _, _, c in k2_calls)
+    k2_err = max(c[0] for *_, c in k2_calls)
     log(f'[K2] {len(k2_calls)} segments: max abs err {k2_err:.3e}; '
-        f'finite peaks identical {all(c[1] for _, _, c in k2_calls)}')
-    if not (k2_err <= K2_TOL and all(c[1] for _, _, c in k2_calls)):
+        f'finite peaks identical {all(c[1] for *_, c in k2_calls)}')
+    if not (k2_err <= K2_TOL and all(c[1] for *_, c in k2_calls)):
         raise AssertionError(f'K2 max abs err {k2_err} > {K2_TOL}')
-    (v_args, v_kw), v_out = k2_calls[0][0], k2_calls[0][1]
-    ms_k2 = cuda_ms(lambda: k2_kernel(*v_args, **v_kw), 20)
+    v_args, v_kw, v_out, _ = k2_calls[0]
+    ms_k2 = cuda_ms(lambda: diagnostics.axi_to_max_wind_raw(*v_args, **v_kw),
+                    20)
     ms_k2_plain = cuda_ms(
         lambda: diagnostics.axi_to_max_wind_raw_plain(*v_args, **v_kw), 5)
     k2_bound_ms, k2_by = k2_bound(v_args, v_kw, v_out)
     log(f'[K2] {card}: segment 0, [{n1}, {m}]: kernel {ms_k2:.3f} ms, '
         f'plain twin {ms_k2_plain:.3f} ms, bound {k2_bound_ms:.4f} ms '
         f'({k2_by})')
-    del k1_calls, k2_calls, args0, out0, v_args, v_kw, v_out
+    del k1_calls, k2_calls, args0, v_args, v_kw, v_out
 
     # ---- 4. K3 and K5 against their plain twins --------------------------
     k35 = check_k3_k5(pack_y, cfg_t, card)
@@ -885,7 +1131,8 @@ def main():
     k4_entry = check_k4(rng.key(99), pack_y, cfg_t, plane0, card)
 
     # ---- modes: K1 under the integration modes ----------------------------
-    modes_err = check_modes(rng.key(97), pack_y, cfg_t, plane0, card)
+    modes_err, modes_ms = check_modes(rng.key(97), pack_y, cfg_t, plane0,
+                                      card)
 
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
         # ---- 5. workspace -------------------------------------------------
@@ -901,22 +1148,11 @@ def main():
         # gen_thermo into a side directory with cape_pi captured, so K6
         # sees exactly the main path's inputs
         cfg_ws = load_namelist_py(nl)
-        k6_kernel = pi_ops.cape_pi
-        k6_calls = []
-
-        def k6_captured(*args, **kw):
-            out = k6_kernel(*args, **kw)
-            k6_calls.append((args, kw, out))
-            return out
-
-        pi_ops.cape_pi = k6_captured
-        try:
+        with captured(pi_ops, 'cape_pi') as k6_calls:
             thermo_driver.gen_thermo(
                 cfg_ws.replace(output_directory=f'{tmp}/k6'), device=dev)
-        finally:
-            pi_ops.cape_pi = k6_kernel
         torch.cuda.synchronize()
-        (k6_args, k6_kw, k6_out), = k6_calls
+        (k6_args, k6_kw, k6_out, _), = k6_calls
         k6_ref = pi_ops.cape_pi_plain(*k6_args, **k6_kw)
         torch.cuda.synchronize()
         k6_err = float((k6_out - k6_ref).abs().max())
@@ -947,7 +1183,7 @@ def main():
                 and bool(torch.isfinite(k6_out).all())):
             raise AssertionError(f'K6 err {k6_err} (tol {K6_TOL}), CPU '
                                  f'share {k6_cpu_share}, max {k6_cpu_err}')
-        ms_k6 = cuda_ms(lambda: k6_kernel(*k6_args, **k6_kw), 20)
+        ms_k6 = cuda_ms(lambda: pi_ops.cape_pi(*k6_args, **k6_kw), 20)
         ms_k6_plain = cuda_ms(
             lambda: pi_ops.cape_pi_plain(*k6_args, **k6_kw), 2)
         k6_bound_ms, k6_by = k6_bound(k6_args, k6_out)
@@ -1133,7 +1369,9 @@ def main():
          'max_abs_err': max(k1_err.values()), 'ms': ms_k1,
          'plain_ms': ms_k1_plain, 'bound_ms': k1_bound_ms,
          'bound_by': k1_by, 'library_ms': None,
-         'modes_max_abs_err': modes_err},
+         'per': 'launch (every segment, the kernel alone)',
+         'segment0_dispatch_ms': ms_k1_call, 'segments': k1_segs,
+         'modes_max_abs_err': modes_err, 'modes_ms': modes_ms},
         {'name': 'vmax', 'route': 'triton',
          'source': src + 'kernels/vmax.py',
          'replaces': 'tropical_cyclone_risk_tpu/models/diagnostics.py:193',
@@ -1242,5 +1480,100 @@ def check_small_launch(dev, Namelist, fields, pipeline, rng):
                              'CPU twins')
 
 
+def device_ms(fn, reps, names=None):
+    """Milliseconds of device time per fn() in the kernels whose names
+    contain one of `names` (None: every kernel), from torch.profiler over
+    reps runs (so the host's dispatch between launches is not counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    avg = prof.key_averages()
+    attr = ('self_device_time_total'
+            if hasattr(avg[0], 'self_device_time_total')
+            else 'self_cuda_time_total')
+    total = sum(getattr(e, attr) for e in avg
+                if names is None and e.device_type.name == 'CUDA'
+                or names is not None and any(n in e.key for n in names))
+    if total > 0:
+        return total / 1e3 / reps
+    raise AssertionError(f'torch.profiler recorded no device time in '
+                         f'{names or "any kernel"}')
+
+
+def kernel_times(root):
+    """--kernel-times ROOT: with the port imported from the tree at ROOT,
+    K1 on every segment and K4 on every partition of one full-width launch
+    (launch_calls, as the K4 phase makes it) and K1 on the first segment
+    of each integration mode (mode_calls, as the modes phase), each
+    through its wrapper (integrator.integrate_segment_cuda,
+    ops.compact.partition_take, which the port has had since those kernels
+    were written): the device time of its kernels under torch.profiler,
+    the CUDA-event time per call, and the host time to issue a call (for
+    K4 also split into the launcher's preparation and the launch); prints
+    one JSON line.  Run on two trees, a parent commit and its
+    change, in one chip call, it compares the two on one card."""
+    import concurrent.futures
+    import os
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device')
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import tropical_cyclone_risk_tpu_torch as pkg
+    if not pkg.__file__.startswith(root + os.sep):
+        raise SystemExit(f'the port was imported from {pkg.__file__}')
+    from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
+    from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(b) for b in (integrator.build, k4.build)]:
+            f.result()
+    cfg, _, pack_y, cfg_t = launch_setup(torch.device('cuda', 0))
+    plane0 = cfg.start_month - 1
+    segs, parts, _, _ = launch_calls(rng.key(99), pack_y, cfg_t, plane0)
+    modes = {name: mode_calls(rng.key(97), pack_y, cfg_t.replace(**kw),
+                              plane0)[0][0]
+             for name, kw in MODES.items()}
+
+    def timed(call, reps, names):
+        return {'device_ms': device_ms(call, reps, names),
+                'event_ms': cuda_ms(call, reps),
+                'host_ms': host_ms(call, reps)}
+
+    k1 = [{'steps': args[7], 'width': args[3].lon.shape[0],
+           **timed(k1_launcher(args, integrator.integrate_segment_cuda),
+                   K1_REPS, ('integrate_segment_kernel',))}
+          for args, *_ in segs]
+    k1_modes = {name: device_ms(k1_launcher(
+        args, integrator.integrate_segment_cuda), 5,
+        ('integrate_segment_kernel',)) for name, args in modes.items()}
+    # K4's host time split: the launcher's checks, outputs and parameter
+    # block (Python), and the launch (ctypes and the kernel launches)
+    k4_rows = []
+    for args, kw, *_ in parts:
+        largs = ('partition', *args, kw.get('acc'), kw.get('slot_rank', False),
+                 kw.get('a_prev'), kw.get('inv_len'))
+        k4_rows.append({
+            'n': args[0].shape[0], 'w': args[1],
+            **timed(lambda: compact_ops.partition_take(*args, **kw), K4_REPS,
+                    ('count_kernel', 'partition_kernel', 'gather_kernel')),
+            'prep_host_ms': host_ms(lambda: k4.launcher(*largs), K4_REPS),
+            'launch_host_ms': host_ms(k4.launcher(*largs)[0], K4_REPS)})
+    res = {'kernel_times': root, 'card': card_line(), 'k1': k1, 'k4': k4_rows,
+           'k1_modes_segment0_device_ms': k1_modes}
+    for name, rows in (('k1', k1), ('k4', k4_rows)):
+        for key in rows[0]:
+            if key.endswith('_ms'):
+                res[f'{name}_{key}'] = sum(r[key] for r in rows)
+    print(json.dumps(res))
+
+
 if __name__ == '__main__':
+    if len(sys.argv) == 3 and sys.argv[1] == '--kernel-times':
+        sys.exit(kernel_times(sys.argv[2]))
     sys.exit(main())

@@ -1,0 +1,209 @@
+"""The host side of K1's and K4's launches, which runs on the CPU: K4's
+gather plan (word sizes, words per row, block offsets, and a grid that
+writes every output byte exactly once from the row the order picks), K1's
+launch geometry (every segment width spread over the SMs, blocks within
+the kernel's __launch_bounds__) and its steering-order flag against
+fast.deep_layer_indices.  The constants the wrappers share with the CUDA
+sources are read back from csrc/.  The kernels themselves run only on the
+card (chip_smoke.py holds them against their twins)."""
+
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from tropical_cyclone_risk_tpu_torch.config import Namelist
+from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
+from tropical_cyclone_risk_tpu_torch.kernels import integrator
+from tropical_cyclone_risk_tpu_torch.models import fast
+
+CSRC = Path(k4.__file__).resolve().parents[1] / 'csrc'
+H100_SMS = 132
+
+
+def _constant(source, name):
+    found = re.search(rf'constexpr int {name} = (\d+);',
+                      (CSRC / source).read_text())
+    return int(found.group(1))
+
+
+def test_wrapper_constants_match_the_sources():
+    assert integrator.MAX_THREADS == _constant('integrator.cu', 'kMaxThreads')
+    assert integrator.MAX_SUB == _constant('integrator.cu', 'kMaxSub')
+    assert k4.GATHER_BLOCK_WORDS == (_constant('compact.cu', 'kGatherThreads')
+                                     * _constant('compact.cu', 'kUnroll'))
+    assert k4.MAX_ROWS == _constant('compact.cu', 'kMaxRows')
+    assert k4.TILE == (_constant('compact.cu', 'kThreads')
+                       * _constant('compact.cu', 'kPer'))
+
+
+def _launch_rows(n):
+    """The integrate compaction's 11 row tensors (plane, h_bl, lon, lat,
+    v, m, integrate, month, basin_idx, A, B) on the CPU."""
+    f32 = [torch.zeros(n) for _ in range(5)]
+    return ([torch.zeros(n, dtype=torch.int64)] + f32
+            + [torch.zeros(n, dtype=torch.bool),
+               torch.zeros(n, dtype=torch.int32),
+               torch.zeros(n, dtype=torch.int64),
+               torch.zeros(n, 4, 15), torch.zeros(n, 4, 15)])
+
+
+def _simulate_gather(plan, n_blocks, rows, k, seed):
+    """The gather kernel's grid on byte arrays: each block finds its
+    tensor as csrc/compact.cu gather_kernel does, each of its threads
+    copies its kUnroll words of the picked source rows.  Returns, per
+    tensor, the destination bytes and how often each was written, with the
+    source bytes and the order used."""
+    threads = 256
+    unroll = k4.GATHER_BLOCK_WORDS // threads
+    firsts = np.array([p[3] for p in plan])
+    owner = np.array([max(i for i in range(len(plan)) if firsts[i] <= b)
+                      for b in range(n_blocks)], dtype=np.int64)
+    r = np.random.default_rng(seed)
+    out = []
+    for t, ((word, wpr, words, first), (_, _, row_bytes)) in enumerate(
+            zip(plan, rows)):
+        n = k + 3
+        src = r.integers(0, 256, n * row_bytes, dtype=np.uint8)
+        order = r.permutation(n)[:k]
+        dst = np.zeros(k * row_bytes, np.uint8)
+        hits = np.zeros(k * row_bytes, np.int64)
+        blocks = np.nonzero(owner == t)[0]
+        e = ((blocks[:, None, None] - first) * k4.GATHER_BLOCK_WORDS
+             + np.arange(unroll)[None, :, None] * threads
+             + np.arange(threads)[None, None, :]).reshape(-1)
+        e = e[e < words]
+        row, col = e // wpr, e % wpr
+        for b in range(word):
+            d = e * word + b
+            dst[d] = src[order[row] * row_bytes + col * word + b]
+            np.add.at(hits, d, 1)
+        out.append((dst, hits, src, order))
+    return out
+
+
+@pytest.mark.parametrize('k', [1, 777, 40960])
+def test_gather_plan_covers_the_launch_rows(k):
+    """The launch's rows at their real pointers: 16-byte words for the
+    Fourier rows, 8 and 4 for the scalars, 1 for the mask; blocks numbered
+    on tensor after tensor; every output byte written once, from its row."""
+    n = k + 3
+    rows = _launch_rows(n)
+    outs = [torch.empty((k,) + tuple(x.shape[1:]), dtype=x.dtype) for x in rows]
+    ptrs = [(x.data_ptr(), o.data_ptr(),
+             int(np.prod(x.shape[1:], dtype=np.int64)) * x.element_size())
+            for x, o in zip(rows, outs)]
+    plan, n_blocks = k4.gather_plan(ptrs, k)
+    assert [p[0] for p in plan] == [8, 4, 4, 4, 4, 4, 1, 4, 8, 16, 16]
+    assert [p[1] for p in plan] == [1] * 9 + [15, 15]
+    first = 0
+    for (word, wpr, words, f), (_, _, row_bytes) in zip(plan, ptrs):
+        assert f == first and words == k * wpr and wpr * word == row_bytes
+        first += -(-words // k4.GATHER_BLOCK_WORDS)
+    assert n_blocks == first
+    if k == 40960:
+        assert n_blocks >= 4 * H100_SMS       # the grid fills the card
+    for dst, hits, src, order in _simulate_gather(plan, n_blocks, ptrs, k,
+                                                  seed=k):
+        row_bytes = dst.size // k
+        want = src.reshape(-1, row_bytes)[order].reshape(-1)
+        np.testing.assert_array_equal(hits, 1)
+        np.testing.assert_array_equal(dst, want)
+
+
+@pytest.mark.parametrize('row_bytes', [1, 3, 240])
+@pytest.mark.parametrize('misalign', [0, 1, 2, 4, 8])
+def test_gather_plan_odd_sizes_and_alignments(row_bytes, misalign):
+    """Odd row sizes and pointers off the 16-byte grid: the word is the
+    widest that divides both pointers and the row size; a tensor with no
+    rows to gather takes no block; every byte is written once."""
+    k = 1500
+    base = 1 << 20
+    rows = [(base + misalign, base + 4096, row_bytes),
+            (base, base + 8192 + misalign, 240),
+            (base, base, 0)]
+    plan, n_blocks = k4.gather_plan(rows, k)
+    for (word, wpr, words, _), (src, dst, nb) in zip(plan, rows):
+        widest = max(b for b in k4.WORD_BYTES if (src | dst | nb) % b == 0)
+        assert word == widest and wpr == nb // word and words == k * wpr
+    assert plan[2][2] == 0 and plan[2][3] == n_blocks
+    sims = _simulate_gather(plan, n_blocks, rows, k, seed=row_bytes)
+    for dst, hits, src, order in sims[:2]:
+        rb = dst.size // k
+        np.testing.assert_array_equal(hits, 1)
+        np.testing.assert_array_equal(dst,
+                                      src.reshape(-1, rb)[order].reshape(-1))
+
+
+def test_gather_plan_refuses_too_many_words():
+    with pytest.raises(ValueError, match='2\\*\\*31'):
+        k4.gather_plan([(0, 0, (1 << 16) + 1)], 1 << 15)
+
+
+@pytest.mark.parametrize('n_sm', [H100_SMS, 114])
+def test_k1_launch_geometry_fills_the_sms(n_sm):
+    """Every width from 1 to 131072: at least min(width, SMs) blocks (so
+    as many busy SMs), whole warps of at most kMaxThreads threads, each
+    block's storms within its threads, no empty block."""
+    for width in range(1, 131073):
+        per, threads, blocks = integrator.launch_geometry(width, n_sm)
+        assert blocks >= min(width, n_sm), width
+        assert threads % 32 == 0 and 32 <= threads <= integrator.MAX_THREADS
+        assert 1 <= per <= threads
+        assert blocks * per >= width > (blocks - 1) * per, width
+        if per >= 32:
+            assert per % 32 == 0, width
+    assert integrator.launch_geometry(40960, H100_SMS) == (64, 64, 640)
+    assert integrator.launch_geometry(100, H100_SMS) == (1, 32, 100)
+
+
+def _stacks():
+    grid = SimpleNamespace(lon0=0.0, dlon=1.0, lat0=-90.0, dlat=1.0,
+                           nlon=360, nlat=181)
+    return SimpleNamespace(grid=grid, cell4=torch.zeros(12, 1, 1, 84))
+
+
+@pytest.mark.parametrize('levels', [(250, 850), (850, 250)])
+def test_k1_steering_order(levels):
+    """The kernel's flag selects the deep-layer shear components that
+    fast.deep_layer_indices names, for both orders of steering_levels, and
+    goes into the parameter block beside the launch geometry."""
+    cfg = Namelist(steering_levels=levels)
+    swap = integrator.steering_swap(cfg)
+    assert swap == (levels[0] == 850)
+    w = np.random.default_rng(3).standard_normal((5, 4)).astype(np.float32)
+    iu2, iv2, iu8, iv8 = fast.deep_layer_indices(cfg)
+    # csrc/integrator.cu make_flow: (u2, v2, u8, v8) by the flag
+    u2, v2 = (w[:, 2], w[:, 3]) if swap else (w[:, 0], w[:, 1])
+    u8, v8 = (w[:, 0], w[:, 1]) if swap else (w[:, 2], w[:, 3])
+    np.testing.assert_array_equal(u2 - u8, w[:, iu2] - w[:, iu8])
+    np.testing.assert_array_equal(v2 - v8, w[:, iv2] - w[:, iv8])
+    geometry = integrator.launch_geometry(4097, H100_SMS)
+    fp, ip = integrator._params(_stacks(), cfg, (0.0, -60.0, 360.0, 60.0),
+                                4097, 60, 3, 20, 0, 1.0, False, geometry)
+    assert ip[4] == swap and tuple(ip[-3:]) == geometry
+    assert fp.dtype == np.float32 and ip.dtype == np.int32
+
+
+def test_k1_steering_order_refuses_other_levels():
+    with pytest.raises(NotImplementedError, match='two steering levels'):
+        integrator.steering_swap(Namelist(steering_levels=(250, 500, 850)))
+    with pytest.raises(ValueError, match='250 and 850'):
+        integrator.steering_swap(Namelist(steering_levels=(500, 850)))
+
+
+def test_k1_fourier_phases_within_the_fast_trig_range():
+    """The kernel evaluates F(t)'s sin and cos on CUDA's fast path, which
+    is sinf and cosf only below FAST_TRIG_LIMIT rad: the namelist's period
+    keeps a launch's phases far below it; a period too short for the
+    track time is refused."""
+    cfg = Namelist()
+    geometry = integrator.launch_geometry(4096, H100_SMS)
+    args = (_stacks(), cfg, (0.0, -60.0, 360.0, 60.0), 4096, 61, 3, 0, 300)
+    integrator._params(*args, cfg.T_fourier_s, True, geometry)
+    with pytest.raises(NotImplementedError, match='phases'):
+        integrator._params(*args, 60.0, True, geometry)
+    integrator._params(*args, 60.0, False, geometry)   # F(t) streamed

@@ -11,16 +11,23 @@
 // Its plain PyTorch twins are ops/compact.py partition_take_plain and
 // stitch_survivors_plain.
 //
-// Three kernels:
+// Four kernels, at most three per partition:
 //   count_kernel     per-tile true counts of the mask (and, in the spare
 //                    threads, the zero fill of the inverse-map buffer);
 //   partition_kernel one block per tile: the tiles before it and the total
 //                    from count_kernel's output, a block scan of the tile,
 //                    then each slot's rank (True: count before it; False:
 //                    total + slot - inclusive count) and, for ranks < w, the
-//                    order, every row of every row tensor, the composed map
-//                    and its inverse; each slot's rank (-1 past w) on
-//                    request; the overflow max(count - w, 0) on the device;
+//                    order, the composed map and its inverse; each slot's
+//                    rank (-1 past w) on request; the overflow
+//                    max(count - w, 0) on the device;
+//   gather_kernel    the row copies, as a pass over the destination: one
+//                    launch over every output row tensor, each block on one
+//                    tensor, each thread kUnroll words of it, a word being
+//                    16, 8, 4, 2 or 1 bytes by the alignment of the tensor's
+//                    pointers and row size (kernels/compact.py gather_plan);
+//                    a thread reads order[row] and copies one word of that
+//                    source row to the next word of the dense output;
 //   stitch_kernel    one thread per (survivor, output step): the segment
 //                    holding the step, the survivor's column there (its own
 //                    slot, or the segment's inverse map), the six track
@@ -29,12 +36,20 @@
 //
 // What bounds it on this card: bytes.  Each input (mask, rows, time-major
 // buffers) is read once and each output written once; the arithmetic is a
-// few integer operations per slot.  The design reads the mask and writes
-// the rank coalesced, copies each gathered row with the widest aligned
-// load its size allows (a [4, 15] Fourier row as 15 16-byte loads), and
-// never synchronises with the host: the overflow stays on the device, as
-// the twin's does.  Everything is integer or a copy, so the results equal
-// the twin's bit for bit.
+// few integer operations per slot.  The first form copied each gathered
+// row inside partition_kernel, one thread per slot walking every row
+// tensor in turn: 40 blocks at n = 40960 on 132 SMs, few loads in flight,
+// and ~0.05 ms whatever n.  The gather pass instead walks the destination:
+// writes are coalesced, consecutive threads read consecutive words of a
+// source row (a [4, 15] Fourier row is 15 16-byte words of 15 threads),
+// each thread issues its kUnroll loads before its stores, and the grid is
+// sized by the words to move (at n = 40960 with the launch's 11 row
+// tensors ~1500 blocks of 256 threads, 16 KB of 16-byte loads in flight
+// per block), so every SM holds tens of KB of loads in flight at every n.
+// Separate kernels keep the order logic's tiles (1024 slots, one block
+// each) apart from the copy's grid.  Nothing synchronises with the host:
+// the overflow stays on the device, as the twin's does.  Everything is
+// integer or a copy, so the results equal the twin's bit for bit.
 //
 // Each C entry returns cudaGetLastError() after its launches; the wrapper
 // (kernels/compact.py) raises if it is not cudaSuccess.
@@ -50,20 +65,32 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPer = 4;                    // slots per thread
 constexpr int kTile = kThreads * kPer;     // slots per block
 constexpr int kMaxRows = 16;
+constexpr int kGatherThreads = 256;
+constexpr int kUnroll = 4;                 // words per gather thread
 constexpr int kMaxSegs = 16;
 constexpr int kFields = 5;                 // lon, lat, v, m, vmax
 constexpr unsigned kFull = 0xffffffffu;
 
-struct Row {
+// one row tensor of the gather pass, planned by kernels/compact.py
+struct GatherRow {
   const unsigned char* src;
   unsigned char* dst;
-  int64_t bytes;
+  uint32_t words;           // k * words per row
+  uint32_t wpr;             // words per row
+  int word_bytes;           // 16, 8, 4, 2 or 1
+  int first_block;          // this tensor's blocks start here
+};
+
+struct GatherParams {
+  const int64_t* order;
+  int n_rows;
+  GatherRow rows[kMaxRows];
 };
 
 struct PartParams {
   const uint8_t* mask;
   int64_t n, w;
-  int n_tiles, n_rows;
+  int n_tiles;
   const int32_t* counts;
   int64_t* order;
   int64_t* overflow;
@@ -73,7 +100,6 @@ struct PartParams {
   int64_t* a_out;           // may be null
   int64_t* inv;             // may be null
   uint8_t* sel;             // may be null
-  Row rows[kMaxRows];
 };
 
 struct Seg {
@@ -135,26 +161,6 @@ count_kernel(const uint8_t* __restrict__ mask, int64_t n, int n_tiles,
   }
 }
 
-// copy row `from` of src to row `to` of dst, with the widest aligned word
-__device__ __forceinline__ void copy_row(const Row& r, int64_t from,
-                                         int64_t to) {
-  const unsigned char* s = r.src + from * r.bytes;
-  unsigned char* d = r.dst + to * r.bytes;
-  const uintptr_t al = (uintptr_t)s | (uintptr_t)d | (uintptr_t)r.bytes;
-  if (al % 16 == 0) {
-    for (int64_t i = 0; i < r.bytes / 16; ++i)
-      reinterpret_cast<uint4*>(d)[i] = __ldg(reinterpret_cast<const uint4*>(s) + i);
-  } else if (al % 8 == 0) {
-    for (int64_t i = 0; i < r.bytes / 8; ++i)
-      reinterpret_cast<uint2*>(d)[i] = __ldg(reinterpret_cast<const uint2*>(s) + i);
-  } else if (al % 4 == 0) {
-    for (int64_t i = 0; i < r.bytes / 4; ++i)
-      reinterpret_cast<uint32_t*>(d)[i] = __ldg(reinterpret_cast<const uint32_t*>(s) + i);
-  } else {
-    for (int64_t i = 0; i < r.bytes; ++i) d[i] = s[i];
-  }
-}
-
 __global__ void __launch_bounds__(kThreads)
 partition_kernel(const __grid_constant__ PartParams p) {
   __shared__ int64_t s_pre[kWarps], s_tot[kWarps];
@@ -211,9 +217,6 @@ partition_kernel(const __grid_constant__ PartParams p) {
     if (p.rank != nullptr) p.rank[s] = in ? rank : -1;
     if (!in) continue;
     p.order[rank] = s;
-#pragma unroll
-    for (int r = 0; r < kMaxRows; ++r)
-      if (r < p.n_rows) copy_row(p.rows[r], s, rank);
     if (p.a_out != nullptr) {
       const int64_t a = p.a_prev != nullptr ? p.a_prev[s] : s;
       p.a_out[rank] = a;
@@ -225,6 +228,49 @@ partition_kernel(const __grid_constant__ PartParams p) {
     int64_t o = total > p.w ? total - p.w : 0;
     if (p.acc != nullptr) o += p.acc[0];
     p.overflow[0] = o;
+  }
+}
+
+// kUnroll words of one row tensor: all loads first, then the stores
+template <typename Word>
+__device__ __forceinline__ void gather_words(const GatherRow& r,
+                                             const int64_t* __restrict__ order,
+                                             uint32_t e0) {
+  const Word* __restrict__ src = reinterpret_cast<const Word*>(r.src);
+  Word* __restrict__ dst = reinterpret_cast<Word*>(r.dst);
+  Word v[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const uint32_t e = e0 + u * kGatherThreads;
+    if (e < r.words) {
+      const uint32_t row = r.wpr == 1 ? e : e / r.wpr;
+      const uint32_t col = e - row * r.wpr;
+      v[u] = __ldg(src + order[row] * r.wpr + col);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const uint32_t e = e0 + u * kGatherThreads;
+    if (e < r.words) dst[e] = v[u];
+  }
+}
+
+__global__ void __launch_bounds__(kGatherThreads)
+gather_kernel(const __grid_constant__ GatherParams p) {
+  // the tensor owning this block: the last one whose blocks start at or
+  // before it (a tensor with no words has no blocks)
+  int r = 0;
+  for (int i = 1; i < p.n_rows; ++i)
+    if (p.rows[i].first_block <= (int)blockIdx.x) r = i;
+  const GatherRow& row = p.rows[r];
+  const uint32_t e0 = (uint32_t)((int)blockIdx.x - row.first_block) *
+                          (kGatherThreads * kUnroll) + threadIdx.x;
+  switch (row.word_bytes) {
+    case 16: gather_words<uint4>(row, p.order, e0); break;
+    case 8: gather_words<uint2>(row, p.order, e0); break;
+    case 4: gather_words<unsigned int>(row, p.order, e0); break;
+    case 2: gather_words<unsigned short>(row, p.order, e0); break;
+    default: gather_words<unsigned char>(row, p.order, e0); break;
   }
 }
 
@@ -264,9 +310,11 @@ stitch_kernel(const __grid_constant__ StitchParams p) {
 }  // namespace
 
 // ip: n, w, n_tiles, mask, counts, order, overflow, acc, rank, a_prev,
-// a_out, inv, sel, zero, zero_bytes, n_rows, then (src, dst, bytes) per row
+// a_out, inv, sel, zero, zero_bytes, n_rows, gather blocks, then per row
+// (src, dst, words, words per row, word bytes, first block)
 extern "C" int tc_k4_partition(const int64_t* ip, void* stream) {
   PartParams p;
+  GatherParams g;
   int q = 0;
   p.n = ip[q++];
   p.w = ip[q++];
@@ -284,12 +332,19 @@ extern "C" int tc_k4_partition(const int64_t* ip, void* stream) {
   p.sel = reinterpret_cast<uint8_t*>(ip[q++]);
   unsigned char* zero = reinterpret_cast<unsigned char*>(ip[q++]);
   const int64_t zero_bytes = ip[q++];
-  p.n_rows = (int)ip[q++];
-  if (p.n_rows > kMaxRows) return (int)cudaErrorInvalidValue;
-  for (int r = 0; r < p.n_rows; ++r) {
-    p.rows[r].src = reinterpret_cast<const unsigned char*>(ip[q++]);
-    p.rows[r].dst = reinterpret_cast<unsigned char*>(ip[q++]);
-    p.rows[r].bytes = ip[q++];
+  g.order = p.order;
+  g.n_rows = (int)ip[q++];
+  const int64_t gather_blocks = ip[q++];
+  if (g.n_rows > kMaxRows || gather_blocks < 0 || gather_blocks > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  for (int r = 0; r < g.n_rows; ++r) {
+    GatherRow& row = g.rows[r];
+    row.src = reinterpret_cast<const unsigned char*>(ip[q++]);
+    row.dst = reinterpret_cast<unsigned char*>(ip[q++]);
+    row.words = (uint32_t)ip[q++];
+    row.wpr = (uint32_t)ip[q++];
+    row.word_bytes = (int)ip[q++];
+    row.first_block = (int)ip[q++];
   }
   cudaStream_t s = (cudaStream_t)stream;
   int64_t zero_blocks = zero != nullptr ? (zero_bytes / 16 + kThreads - 1) / kThreads : 0;
@@ -300,6 +355,9 @@ extern "C" int tc_k4_partition(const int64_t* ip, void* stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   partition_kernel<<<p.n_tiles, kThreads, 0, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || gather_blocks == 0) return (int)err;
+  gather_kernel<<<(unsigned)gather_blocks, kGatherThreads, 0, s>>>(g);
   return (int)cudaGetLastError();
 }
 

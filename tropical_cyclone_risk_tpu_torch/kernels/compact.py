@@ -25,6 +25,9 @@ from tropical_cyclone_risk_tpu_torch.ops.compact import (Partition,
 TILE = 1024              # csrc/compact.cu kTile: slots per block
 MAX_ROWS = 16            # csrc/compact.cu kMaxRows
 MAX_SEGS = 16            # csrc/compact.cu kMaxSegs
+# csrc/compact.cu kGatherThreads * kUnroll: words per gather block
+GATHER_BLOCK_WORDS = 256 * 4
+WORD_BYTES = (16, 8, 4, 2, 1)
 
 
 def build() -> dict:
@@ -65,8 +68,8 @@ def _ptr(t) -> int:
 
 def partition_cuda(mask, w: int, rows, acc=None, slot_rank=False,
                    a_prev=None, inv_len=None):
-    """Launch K4's count and partition kernels for one compaction.  Returns
-    a Partition equal to partition_take_plain's bit for bit."""
+    """Launch K4's count, partition and gather kernels for one compaction.
+    Returns a Partition equal to partition_take_plain's bit for bit."""
     launch, part = launcher('partition', mask, w, rows, acc, slot_rank,
                             a_prev, inv_len)
     launch()
@@ -81,17 +84,39 @@ def stitch_cuda(order, tms, segs, keep, slot_rank):
     return out
 
 
+def gather_plan(rows, k: int):
+    """The gather kernel's plan for k gathered rows of each row tensor,
+    given as (source pointer, destination pointer, bytes per row): per
+    tensor (word bytes, words per row, words, first block), the widest
+    word of WORD_BYTES that divides both pointers and the row size (the
+    lowest set bit, capped), and the tensor's blocks of GATHER_BLOCK_WORDS
+    words, numbered on from the tensor's before it; and the total number
+    of blocks.  It runs on every partition_take, so it stays a few
+    integer operations per tensor."""
+    plan, first = [], 0
+    for src, dst, row_bytes in rows:
+        align = src | dst | row_bytes | WORD_BYTES[0]
+        word = align & -align
+        wpr = row_bytes // word
+        words = k * wpr
+        if words >= 1 << 31:
+            raise ValueError(f'{words} gather words >= 2**31')
+        plan.append((word, wpr, words, first))
+        first += -(-words // GATHER_BLOCK_WORDS)
+    return plan, first
+
+
 def launcher(kind: str, *args):
     """(launch, result): a function that launches K4's ``kind``
-    ('partition': the count and partition kernels, or 'stitch') on these
-    inputs, writing the tensors of ``result``, the Partition or the
-    stitch's (tracks, keep_full).  The checks, the outputs and the
+    ('partition': the count, partition and gather kernels, the last only
+    where there are rows to gather; or 'stitch') on these inputs, writing
+    the tensors of ``result``, the Partition or the stitch's (tracks,
+    keep_full).  The checks, the outputs, the gather plan and the
     parameter block are made here, once, so that repeated launches time
     the kernels alone."""
-    prep, entry, n_kernels = {'partition': (_partition, 0, 2),
-                              'stitch': (_stitch, 1, 1)}[kind]
+    prep, entry = {'partition': (_partition, 0), 'stitch': (_stitch, 1)}[kind]
     dev = _device(args[0])
-    ip, result = prep(dev, *args)
+    ip, result, n_kernels = prep(dev, *args)
     fn = _entries()[entry]
 
     def launch():
@@ -134,14 +159,18 @@ def _partition(dev, mask, w, rows, acc, slot_rank, a_prev, inv_len):
         sel = zero[8 * inv_len:].view(torch.bool)
     n_tiles = max(1, -(-n // TILE))
     counts = torch.empty((n_tiles,), dtype=torch.int32, device=dev)
+    ptrs = [(r.data_ptr(), o.data_ptr(),
+             math.prod(r.shape[1:]) * r.element_size())
+            for r, o in zip(rows, outs)]
+    plan, blocks = gather_plan(ptrs, k)
     ip = [n, int(w), n_tiles] + [_ptr(t) for t in (
         mask, counts, order, overflow, acc, rank, a_prev, a_out, inv, sel,
-        zero)] + [0 if zero is None else zero.numel(), len(rows)]
-    for r, o in zip(rows, outs):
-        ip += [r.data_ptr(), o.data_ptr(),
-               math.prod(r.shape[1:]) * r.element_size()]
+        zero)] + [0 if zero is None else zero.numel(), len(rows), blocks]
+    for (src, dst, _), (word, wpr, words, first) in zip(ptrs, plan):
+        ip += [src, dst, words, wpr, word, first]
     return (np.array(ip, np.int64),
-            Partition(order, overflow, outs, rank, a_out, inv, sel))
+            Partition(order, overflow, outs, rank, a_out, inv, sel),
+            2 + (blocks > 0))
 
 
 def _stitch(dev, order, tms, segs, keep, slot_rank):
@@ -184,4 +213,4 @@ def _stitch(dev, order, tms, segs, keep, slot_rank):
                tm[wnd].data_ptr(), tm['alive'].data_ptr(), _ptr(inv),
                _ptr(sel)]
         edge += T_s
-    return np.array(ip, np.int64), (out, keep_full)
+    return np.array(ip, np.int64), (out, keep_full), 1

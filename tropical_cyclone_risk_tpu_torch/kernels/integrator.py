@@ -5,7 +5,9 @@ The kernel replaces the JAX package's XLA-fused segment loop; see the note
 at the top of the source.  Its plain twin is models/simulator.py
 integrate_segment_plain.  The default path streams F(t) from the per-step
 grid; under rk_exact_stage_fields or rk_substeps > 1 the kernel evaluates
-F(t) from the storms' Fourier rows with w_n from ops/fourier._omega.
+F(t) from the storms' Fourier rows with w_n from ops/fourier._omega.  The
+launch's shape follows the segment's width and the card's SM count
+(launch_geometry).
 """
 
 from __future__ import annotations
@@ -24,6 +26,12 @@ from tropical_cyclone_risk_tpu_torch.ops import fourier
 
 N_POINTERS = 22          # device pointers of tc_integrate_segment
 MAX_SUB = 8              # csrc/integrator.cu kMaxSub
+MAX_THREADS = 64         # csrc/integrator.cu kMaxThreads (__launch_bounds__)
+# csrc/integrator.cu sincos_rad: CUDA's sinf/cosf fast path below this |x|
+FAST_TRIG_LIMIT = 105615.0
+WARP = 32
+# fast.deep_layer_indices of the two steering orders -> the kernel's flag
+STEERING_SWAP = {(0, 1, 2, 3): 0, (2, 3, 0, 1): 1}
 
 
 def build() -> dict:
@@ -32,11 +40,62 @@ def build() -> dict:
 
 
 @functools.cache
-def _entry():
-    fn = ctypes.CDLL(str(build()['path'])).tc_integrate_segment
-    fn.argtypes = [ctypes.c_void_p] * (2 + N_POINTERS + 1)
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = ctypes.CDLL(str(build()['path']))
+    lib.tc_integrate_segment.argtypes = [ctypes.c_void_p] * (
+        2 + N_POINTERS + 1)
+    lib.tc_integrate_segment.restype = ctypes.c_int
+    lib.tc_k1_trig_check.argtypes = [ctypes.c_uint32, ctypes.c_uint32] + [
+        ctypes.c_void_p] * 3
+    lib.tc_k1_trig_check.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_geometry(width: int, n_sm: int):
+    """(storms per block, threads per block, blocks) for a segment of
+    `width` storms on a card of n_sm SMs: as many storms per block as
+    leaves at least min(width, n_sm) blocks, in whole warps from one warp
+    up, at most MAX_THREADS; below a warp, that many storms in one warp.
+    So every segment spreads over every SM it can fill, and the widest
+    ones take blocks of two warps, which share warps evenly (40960 storms:
+    640 blocks, 9.7 warps per SM; 128-thread blocks left 2 or 3 blocks)."""
+    per = max(1, width // n_sm)
+    if per >= WARP:
+        per = min(MAX_THREADS, per // WARP * WARP)
+    threads = -(-per // WARP) * WARP
+    return per, threads, -(-width // per)
+
+
+def steering_swap(cfg: Namelist) -> int:
+    """The kernel's steering-order flag: 0 for steering_levels (250, 850),
+    1 for (850, 250) (fast.deep_layer_indices (2, 3, 0, 1))."""
+    idx = tuple(fast.deep_layer_indices(cfg))
+    if idx not in STEERING_SWAP:
+        raise NotImplementedError('the integrator kernel takes two '
+                                  f'steering levels, got {idx}')
+    return STEERING_SWAP[idx]
+
+
+def trig_check(lo: int, count: int, device) -> tuple:
+    """(mismatches, smallest mismatching bit pattern or None) of the
+    kernel's sin and cos (sincos_rad) against CUDA's sinf and cosf on the
+    float32 bit patterns lo .. lo + count - 1 (csrc/integrator.cu
+    tc_k1_trig_check)."""
+    bad = torch.zeros((1,), dtype=torch.int64, device=device)
+    first = torch.full((1,), -1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _lib().tc_k1_trig_check(lo, count, bad.data_ptr(),
+                                     first.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f'cos check launch failed: CUDA error {err}')
+    n_bad = int(bad.item())
+    return n_bad, (int(first.item()) & 0xffffffff) if n_bad else None
 
 
 def _f32(x) -> float:
@@ -54,7 +113,7 @@ def _omega(T_s: float, analytic: bool) -> tuple:
 
 def _params(stacks, cfg: Namelist, bounds, m: int, n_steps: int,
             stride: int, n_blocks: int, k0: int, T_s: float,
-            analytic: bool):
+            analytic: bool, geometry):
     """The kernel's scalar parameters, each float the float32 rounding of
     the constant the plain twin uses (see csrc/integrator.cu Params)."""
     g = stacks.grid
@@ -62,18 +121,23 @@ def _params(stacks, cfg: Namelist, bounds, m: int, n_steps: int,
     sub = max(1, int(cfg.rk_substeps))
     dt = dt_out / sub
     lon_min, lat_min, lon_max, lat_max = bounds
+    omega = _omega(T_s, analytic)
+    if max(omega) * (k0 + n_steps) * dt_out >= 0.999 * FAST_TRIG_LIMIT:
+        raise NotImplementedError(f'the integrator kernel takes F(t) phases '
+                                  f'below {FAST_TRIG_LIMIT} rad (T_days too '
+                                  f'short for the track time)')
     fp = [g.lon0, g.dlon, g.lat0, g.dlat,
           lon_min + 1.0, lat_min + 1.0, lon_max - 1.0, lat_max - 1.0,
           0.5 * cfg.Ck, cfg.u_beta, cfg.v_beta, fast.MS_TO_KTS,
           fast.DEG2RAD, fast.RAD_PER_M, 1.0 - 1e-5,
           fast.BETA, fast.EPSILON, fast.KAPPA, dt, dt / 2, dt / 6,
           *cfg.y_alpha, *cfg.m_alpha, *cfg.alpha_min, *cfg.alpha_max,
-          *cfg.steering_coefs, *_omega(T_s, analytic),
+          *cfg.steering_coefs, *omega,
           fast.SECONDS_PER_MONTH, dt_out]
     ip = [g.nlon, g.nlat, stacks.cell4.shape[0], int(cfg.coupled_track),
-          *fast.deep_layer_indices(cfg), stride, n_blocks, n_steps, m,
+          steering_swap(cfg), stride, n_blocks, n_steps, m,
           k0, sub, int(cfg.rk_exact_stage_fields),
-          int(cfg.time_interp_fields), int(analytic)]
+          int(cfg.time_interp_fields), int(analytic), *geometry]
     return (np.array([_f32(x) for x in fp], np.float32),
             np.array(ip, np.int32))
 
@@ -118,6 +182,19 @@ def integrate_segment_cuda(stacks, cfg: Namelist, bounds, y0, alive0,
     F(t) in the kernel from params.fourier (rk_exact_stage_fields,
     rk_substeps > 1).  Returns ((lon, lat, v, m, wnds, alive) time-major,
     (y_end, alive_end)) as models/simulator.py integrate_segment_plain."""
+    launch, result = launcher(stacks, cfg, bounds, y0, alive0, params, k0,
+                              n_steps, f_all, stride, n_blocks)
+    launch()
+    return result
+
+
+def launcher(stacks, cfg: Namelist, bounds, y0, alive0,
+             params: fast.SeedParams, k0: int, n_steps: int, f_all,
+             stride: int, n_blocks: int):
+    """(launch, result): a function that launches K1 on these inputs (as
+    integrate_segment_cuda), writing the tensors of ``result``.  The
+    checks, the outputs, the launch shape and the parameter block are made
+    here, once, so that repeated launches time the kernel alone."""
     m = y0.lon.shape[0]
     fs = params.fourier
     ins = {'cell4': stacks.cell4, 'f_all': f_all, 'A': fs.A, 'B': fs.B,
@@ -133,17 +210,24 @@ def integrate_segment_cuda(stacks, cfg: Namelist, bounds, y0, alive0,
             torch.empty((n_steps, m), dtype=torch.bool, device=dev)]
     end = [torch.empty((m,), **f32) for _ in range(4)]
     end += [torch.empty((m,), dtype=torch.bool, device=dev)]
+    result = tuple(out), (fast.State(*end[:4]), end[4])
     if m == 0:
-        return tuple(out), (fast.State(*end[:4]), end[4])
+        return (lambda: None), result
+    geometry = launch_geometry(m, _sm_count(dev.index))
     fp, ip = _params(stacks, cfg, bounds, m, n_steps, stride, n_blocks, k0,
-                     fs.T_s, f_all is None)
+                     fs.T_s, f_all is None, geometry)
     ptrs = [0 if t is None else t.data_ptr()
             for t in list(ins.values()) + out + end]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _entry()(fp.ctypes.data, ip.ctypes.data, *ptrs, stream)
-    if err != 0:
-        raise RuntimeError(f'integrator kernel launch failed: CUDA error '
-                           f'{err}')
-    kernels.LAUNCHES['integrator'] += 1
-    return tuple(out), (fast.State(*end[:4]), end[4])
+    entry = _lib().tc_integrate_segment
+
+    def launch():
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = entry(fp.ctypes.data, ip.ctypes.data, *ptrs, stream)
+        if err != 0:
+            raise RuntimeError(f'integrator kernel launch failed: CUDA error '
+                               f'{err}')
+        kernels.LAUNCHES['integrator'] += 1
+
+    launch.inputs = ins      # the plane cast lives as long as the launch
+    return launch, result
