@@ -6,21 +6,22 @@
 Phases (any failure raises, and the script exits non-zero):
 
 1. device    - require CUDA; print the card's name and power limit.
-2. build     - build the CUDA integrator (K1), seeding (K3), compaction
-               (K4), threefry (K5) and CAPE-PI (K6) kernels with nvcc, one
-               process each, all started together, while the Triton vmax
-               kernel (K2) is JIT-compiled; print the build times, nvcc's
-               register, stack and spill report and the SASS local-memory
+2. build     - build the CUDA integrator and genesis gate (K1, K7), vmax
+               (K2), seeding (K3), compaction (K4), threefry (K5) and
+               CAPE-PI (K6) kernels with nvcc, one process each, all
+               started together; print the build times, nvcc's register,
+               stack and spill report and the SASS local-memory
                instructions of each kernel; K1's default instance must have
                no stack frame and no spills, and K1's sin and cos path must
                equal CUDA's sinf and cosf on every float32 it takes.
-3. K1, K2    - one 131072-seed launch on the 181x360 one-degree pack with
-               every integration segment run through K1 and through the
-               plain PyTorch twin on the same inputs, and every vmax pass
-               through K2 and its twin; agreement within the stated
-               tolerances; K1's time alone on every segment (and its sum
-               per launch) beside its bound and its twin, K2's on the
-               first segment.
+3. K1, K2,   - one 131072-seed launch on the 181x360 one-degree pack with
+   K7          every integration segment run through K1 and through the
+               plain PyTorch twin on the same inputs, every vmax pass
+               through K2 and its twin, and the genesis gate through K7 and
+               its twin; agreement within the stated tolerances (K7 bit
+               for bit); K1's and K2's times alone on every segment (and
+               their sums per launch) beside their bounds and twins, K7's
+               beside its bound and twin.
 4. K3, K5    - propose_seeds at 131072 slots through K3 and through its
                plain twin on the card, without retry caps, with the
                auto-tuned caps and with caps that overflow (slots drop),
@@ -37,12 +38,13 @@ Phases (any failure raises, and the script exits non-zero):
                torch.sort's stable order, and torch.sort with one
                index_select per row tensor), of the integrate compaction
                and of the stitch, with their bounds.
-   modes     - _omega on the card equals the CPU's bit for bit; for each of
-               the default path, time_interp_fields, rk_exact_stage_fields
-               and rk_substeps=2 (and time_interp_fields with each of the
-               last two) one 131072-seed launch with K1 held against its
-               twin on the first and the last segment; K1's time alone per
-               mode.
+   modes     - _omega and the Fourier amplitudes on the card equal the
+               CPU's bit for bit; for each of the default path,
+               time_interp_fields, rk_exact_stage_fields and rk_substeps=2
+               (and time_interp_fields with each of the last two) one
+               131072-seed launch with K1 held against its twin on the
+               first and the last segment and K7 on the launch; K1's time
+               alone per mode.
 5. workspace - write one year of a one-degree ERA5-shaped raw workspace on
                the 28 ERA5 pressure levels (utils/synthetic_era5.py).
 6. K6        - gen_thermo over that workspace with cape_pi captured: all
@@ -51,15 +53,16 @@ Phases (any failure raises, and the script exits non-zero):
                the twin on the CPU), within the stated tolerances; times.
 7. slice 1   - runtime.run_downscaling(cfg, 'GL', pack, seed=0) at
                seed_batch=131072 for two years on a 24-plane synthetic
-               pack, counters reset just before and read just after; the
-               tracks file is read back and checked; a small launch on the
-               card (K1, K2, K3, K5) agrees with the same launch through
-               the plain twins on the CPU.
+               pack, counters reset just before and read just after, K7
+               held against its twin on every launch; the tracks file is
+               read back and checked; a small launch on the card (K1-K5,
+               K7) agrees with the same launch through the plain twins on
+               the CPU.
 8. dvdt0     - run_downscaling as in 7 for one year with
                m_init_mode='dvdt0', counters reset just before and read
-               just after; the tracks file is read back and checked; the
-               same for one year with time_interp_fields=True and
-               rk_substeps=2.
+               just after, K7 held against its twin on every launch; the
+               tracks file is read back and checked; the same for one year
+               with time_interp_fields=True and rk_substeps=2.
 9. slice 2   - the workspace path: cli.main(['GL', '--namelist', ...,
                '--seed', '0']) on cuda at seed_batch=131072 (land masks,
                wind statistics, thermo, pack builder, simulation), counters
@@ -69,7 +72,8 @@ Phases (any failure raises, and the script exits non-zero):
                of the simulation, from the torch.profiler trace).
 10. times    - launch times, a torch.profiler trace of three launches
                (device kernels per launch, busy share, host time by
-               stage, device time by operator) and the two-year run.
+               stage, the genesis gate's among them, device time by
+               operator) and the two-year run.
 
 The line before the card line is a JSON object with each kernel's route,
 source, launches on the workspace path, error against its twin, times and
@@ -124,10 +128,12 @@ K3_K5_TOL = 0.0
 # slots beyond a round's width are dropped (the twin's semantics)
 OVERFLOW_CAPS = (1 / 64,) * 15
 # the kernels a simulation (run_downscaling) launches
-SIMULATION_KERNELS = ('integrator', 'vmax', 'seeding', 'threefry', 'compact')
+SIMULATION_KERNELS = ('integrator', 'vmax', 'seeding', 'threefry', 'compact',
+                      'genesis')
 WS_YEAR = 2016      # the workspace: one year at one degree
-# repetitions of each K1 segment and K4 call when timed alone
+# repetitions of each K1 segment, K2 and K4 call when timed alone
 K1_REPS = 20
+K2_REPS = 20
 K4_REPS = 20
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
 # HBM bytes/s and float32 operations/s outside the tensor cores
@@ -169,17 +175,18 @@ def host_ms(fn, reps):
 
 
 @contextlib.contextmanager
-def captured(mod, name, check=None):
+def captured(mod, name, check=None, keep=True):
     """Within the block, mod.name is a wrapper that appends (args, kw, out,
-    check(out, *args, **kw) or None) of each call to the list it yields;
-    a check runs as the call is made, before later work can touch its
-    inputs."""
+    check(out, *args, **kw) or None) of each call to the list it yields
+    (without keep, (None, None, None, check)); a check runs as the call is
+    made, before later work can touch its inputs."""
     fn, calls = getattr(mod, name), []
 
     def capture(*args, **kw):
         out = fn(*args, **kw)
-        calls.append((args, kw, out,
-                      None if check is None else check(out, *args, **kw)))
+        res = None if check is None else check(out, *args, **kw)
+        calls.append((args, kw, out, res) if keep else (None, None, None,
+                                                        res))
         return out
 
     setattr(mod, name, capture)
@@ -187,6 +194,37 @@ def captured(mod, name, check=None):
         yield calls
     finally:
         setattr(mod, name, fn)
+
+
+def uncounted(fn, *args, **kw):
+    """fn(*args, **kw) with the launch and twin counters left as they were:
+    a twin run only to compare a kernel with it does not count."""
+    from tropical_cyclone_risk_tpu_torch import kernels
+    saved = dict(kernels.LAUNCHES), dict(kernels.PLAIN_ON_CUDA)
+    try:
+        return fn(*args, **kw)
+    finally:
+        kernels.LAUNCHES.update(saved[0])
+        kernels.PLAIN_ON_CUDA.update(saved[1])
+
+
+def check_k7(out, *args):
+    """(bit-exact, seeds the gate rejected) of one K7 call (out, the keep
+    mask) against its twin on the same inputs, the twin uncounted."""
+    from tropical_cyclone_risk_tpu_torch.models import simulator
+    ref = uncounted(simulator.genesis_alive_plain, *args)
+    return same(out, ref), int(args[4].sum()) - int(out.sum())
+
+
+def k7_results(label, calls):
+    """Log and require K7's checks over the calls of a phase."""
+    bad = [i for i, c in enumerate(calls) if not c[3][0]]
+    log(f'[{label}] K7 against its twin on {len(calls)} launches: masks '
+        f'bit-exact {not bad}; integrable seeds rejected by the gate '
+        f'{[c[3][1] for c in calls][:12]}')
+    if bad or not calls:
+        raise AssertionError(f'{label}: K7 differs from its twin on calls '
+                             f'{bad} of {len(calls)}')
 
 
 def bound(n_bytes, n_ops):
@@ -286,6 +324,40 @@ def k2_bound(args, kw, out):
             for t in (v if isinstance(v, tuple) else (v,))
             if isinstance(t, torch.Tensor)]
     return bound(nbytes(*ins, *out), 40 * args[0].numel())
+
+
+def k2_launcher(args, kw):
+    """The launch function of kernels/vmax.py launcher (the kernel alone)
+    on the arguments of one diagnostics.axi_to_max_wind_raw call."""
+    from tropical_cyclone_risk_tpu_torch.kernels import vmax as k2
+    from tropical_cyclone_risk_tpu_torch.models import diagnostics
+    cfg = args[7] if len(args) > 7 else kw.get('cfg')
+    return k2.launcher(*args[:7], diagnostics._shear_channels(cfg),
+                       kw.get('pos_before'), kw.get('pos_after'))[0]
+
+
+# K7's operations per seed (csrc/integrator.cu genesis_gate_kernel): the
+# 21-channel blend, the 4x4 Cholesky, F(0)'s 56 adds, the coloring, the
+# shear and the compare, a square root or division as one
+OPS_PER_GATE = 260
+
+
+def k7_bound(args, out):
+    """K7's bound on one call.  Bytes: one 336-byte corner-packed row per
+    distinct (plane, cell) the seeds sample (what this run's data reads of
+    the cell stack), and lon, lat, the int32 plane, B, the integrate mask
+    and the keep mask once each.  Operations: OPS_PER_GATE per seed."""
+    from tropical_cyclone_risk_tpu_torch.ops import interp
+    stacks, _, y0, params, integrate = args
+    g = stacks.grid
+    ix, _ = interp._cell_and_weight(y0.lon, g.lon0, g.dlon, g.nlon)
+    iy, _ = interp._cell_and_weight(y0.lat, g.lat0, g.dlat, g.nlat)
+    plane = params.plane.to(torch.int64).clamp(0, stacks.cell4.shape[0] - 1)
+    cells = int(torch.unique((plane * g.nlat + iy) * g.nlon + ix).numel())
+    m = y0.lon.shape[0]
+    b = (cells * stacks.cell4.shape[-1] * 4 + 4 * m
+         + nbytes(y0.lon, y0.lat, params.fourier.B, integrate, out))
+    return bound(b, OPS_PER_GATE * m)
 
 
 def k6_bound(args, out):
@@ -612,15 +684,18 @@ def launch_calls(key, pack_y, cfg_t, plane0, k_maxes=(64,), check=False):
     return segs, parts, stitches, n_launch
 
 
-def mode_calls(key, pack_y, cfg, plane0):
+def mode_calls(key, pack_y, cfg, plane0, gate=False):
     """The K1 calls of one full-width launch (_simulate_batch at k_max 64)
-    on cfg, captured."""
+    on cfg, captured; with gate, also (K1 calls, K7 calls), each K7 call
+    checked against its twin as it is made (check_k7)."""
     from tropical_cyclone_risk_tpu_torch.models import pipeline, simulator
-    with captured(simulator, 'integrate_segment') as calls:
+    with captured(simulator, 'integrate_segment') as calls, \
+            (captured(simulator, 'genesis_alive', check_k7, keep=False)
+             if gate else contextlib.nullcontext([])) as gates:
         pipeline._simulate_batch(key, pack_y, cfg, BASIN, N_SEEDS, 64,
                                  plane0)
     torch.cuda.synchronize()
-    return calls
+    return (calls, gates) if gate else calls
 
 
 def check_k4(key, pack_y, cfg_t, plane0, card):
@@ -750,10 +825,12 @@ MODES = {'default': {},
 
 
 def check_modes(key, pack_y, cfg_t, plane0, card):
-    """Phase modes: _omega on the card equals _omega on the CPU bit for
-    bit; for the default path and each mode one full-width launch with K1
-    held against its twin on the first and the last segment (K1_TOL,
-    K1_ALIVE_AGREE), and K1's time on the first segment, the kernel
+    """Phase modes: _omega and the Fourier amplitudes that K5 and its twin
+    draw with on the card equal the CPU's bit for bit (and the amplitudes'
+    formula evaluated on the card is logged beside them); for the default
+    path and each mode one full-width launch with K1 held against its twin
+    on the first and the last segment (K1_TOL, K1_ALIVE_AGREE), K7 against
+    its twin on the launch, and K1's time on the first segment, the kernel
     alone.  Returns (the largest error found, {mode: K1's time on
     segment 0, the kernel alone})."""
     from tropical_cyclone_risk_tpu_torch.models import simulator
@@ -764,9 +841,21 @@ def check_modes(key, pack_y, cfg_t, plane0, card):
         f'{torch.equal(w_card, w_cpu)}')
     if not torch.equal(w_card, w_cpu):
         raise AssertionError(f'_omega differs: {w_card} vs {w_cpu}')
+    a_used = fourier._amplitudes(pack_y.device).cpu()
+    a_formula = fourier.amplitudes_formula(pack_y.device).cpu()
+    a_cpu = fourier._amplitudes('cpu')
+    log(f'[modes] Fourier amplitudes K5 and its twin draw with on the card '
+        f'equal the CPU\'s bit for bit: {torch.equal(a_used, a_cpu)}; the '
+        f'formula evaluated on the card (pow, sum, sqrt there) would: '
+        f'{torch.equal(a_formula, a_cpu)} (max abs '
+        f'{float((a_formula - a_cpu).abs().max()):.3e})')
+    if not torch.equal(a_used, a_cpu):
+        raise AssertionError(f'amplitudes differ: {a_used} vs {a_cpu}')
     worst, modes_ms = 0.0, {}
     for name, kw in MODES.items():
-        calls = mode_calls(key, pack_y, cfg_t.replace(**kw), plane0)
+        calls, gates = mode_calls(key, pack_y, cfg_t.replace(**kw), plane0,
+                                  gate=True)
+        k7_results(f'modes {name}', gates)
         res = []
         for args, _, out, _ in (calls[0], calls[-1]):
             agree, err, _ = compare_k1(
@@ -855,12 +944,11 @@ def card_line():
 
 
 def build_all(dev):
-    """nvcc for K1, K3, K4, K5 and K6 in five threads (five processes at
-    once) while the Triton K2 JIT-compiles here; logs the build seconds,
-    each kernel's registers, stack frame, spills and SASS local-memory
-    instructions; requires K1's default instance to have neither a stack
-    frame nor spills, and K1's sin and cos to equal CUDA's sinf and
-    cosf."""
+    """nvcc for K1 with K7, K2, K3, K4, K5 and K6 in six threads (six
+    processes at once); logs the build seconds, each kernel's registers,
+    stack frame, spills and SASS local-memory instructions; requires K1's
+    default instance to have neither a stack frame nor spills, and K1's
+    sin and cos to equal CUDA's sinf and cosf."""
     from tropical_cyclone_risk_tpu_torch.kernels import cape_pi as k6
     from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
@@ -878,33 +966,21 @@ def build_all(dev):
 
     threads = [threading.Thread(target=nvcc, args=a)
                for a in (('integrator', integrator.build),
+                         ('vmax', vmax_kernel.build),
                          ('seeding', k3.build), ('compact', k4.build),
                          ('threefry', k5.build), ('cape_pi', k6.build))]
     for t in threads:
         t.start()
-    t0 = time.perf_counter()
-    T_tiny, N_tiny = 4, 300
-    tiny = [torch.rand((T_tiny, N_tiny), device=dev) for _ in range(3)]
-    vmax_kernel.axi_to_max_wind_raw_triton(
-        *tiny[:2], 3600.0, tiny[2] * 30,
-        torch.rand((T_tiny, N_tiny, 4), device=dev),
-        torch.ones((T_tiny, N_tiny), dtype=torch.bool, device=dev),
-        torch.full((N_tiny,), T_tiny - 1, device=dev), (0, 1, 2, 3))
-    torch.cuda.synchronize()
-    t_k2 = time.perf_counter() - t0
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    import triton
     for name, (info, secs) in builds.items():
         sass = sass_local_memory(info['path'])
         for fn, rep in ptxas_report(info['log']).items():
             log(f'[build] {name} {fn}: {rep}; SASS local loads/stores '
                 f'{sass.get(fn, "not read")}')
         log(f'[build] {name} nvcc {secs:.1f} s')
-    log(f'[build] vmax triton {triton.__version__} JIT {t_k2:.1f} s '
-        f'(concurrent with nvcc)')
     report, clean = k1_frame(builds['integrator'][0])
     if clean is None:
         log(f'[build] K1 {K1_DEFAULT_INSTANCE}: stack frame and spills not '
@@ -1025,6 +1101,8 @@ def main():
     from tropical_cyclone_risk_tpu_torch.config import (Namelist,
                                                         load_namelist_py)
     from tropical_cyclone_risk_tpu_torch.io import netcdf
+    from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    from tropical_cyclone_risk_tpu_torch.kernels import vmax as vmax_kernel
     from tropical_cyclone_risk_tpu_torch.models import (diagnostics, fields,
                                                         pack_builder,
                                                         pipeline, simulator)
@@ -1043,10 +1121,11 @@ def main():
     # ---- 2. build ---------------------------------------------------------
     build_all(dev)
 
-    # ---- 3. K1 and K2 against their plain twins --------------------------
-    # one full launch at the slice's shapes, with both kernel dispatchers
-    # wrapped so that every segment's K1 call and every K2 call (with its
-    # boundary rows) is repeated through the plain twin on the same inputs
+    # ---- 3. K1, K2 and K7 against their plain twins ----------------------
+    # one full launch at the slice's shapes, with the kernel dispatchers
+    # wrapped so that every segment's K1 call, every K2 call (with its
+    # boundary rows) and the K7 call are repeated through the plain twin on
+    # the same inputs
     t0 = time.perf_counter()
     cfg, pack24, pack_y, cfg_t = launch_setup(dev)
     torch.cuda.synchronize()
@@ -1061,7 +1140,8 @@ def main():
             captured(diagnostics, 'axi_to_max_wind_raw',
                      lambda out, *a, **kw: compare_k2(
                          out, diagnostics.axi_to_max_wind_raw_plain(*a, **kw),
-                         a[5])) as k2_calls:
+                         a[5])) as k2_calls, \
+            captured(simulator, 'genesis_alive', check_k7) as k7_calls:
         pipeline.launch_body(rng.fold_in(key, 1), pack_y, cfg_t, BASIN,
                              N_SEEDS, cfg.start_month - 1)
     torch.cuda.synchronize()
@@ -1108,20 +1188,59 @@ def main():
         f'{ms_k1_call:.4f} ms')
 
     k2_err = max(c[0] for *_, c in k2_calls)
-    log(f'[K2] {len(k2_calls)} segments: max abs err {k2_err:.3e}; '
-        f'finite peaks identical {all(c[1] for *_, c in k2_calls)}')
-    if not (k2_err <= K2_TOL and all(c[1] for *_, c in k2_calls)):
+    log(f'[K2] {len(k2_calls)} segments, [T, N] '
+        f'{[tuple(c[0][0].shape) for c in k2_calls]}: max abs err '
+        f'{k2_err:.3e} (per segment '
+        f'{[float(f"{c[3][0]:.3e}") for c in k2_calls]}); finite peaks '
+        f'identical {all(c[3][1] for c in k2_calls)}')
+    if not (k2_err <= K2_TOL and all(c[3][1] for c in k2_calls)):
         raise AssertionError(f'K2 max abs err {k2_err} > {K2_TOL}')
-    v_args, v_kw, v_out, _ = k2_calls[0]
-    ms_k2 = cuda_ms(lambda: diagnostics.axi_to_max_wind_raw(*v_args, **v_kw),
-                    20)
-    ms_k2_plain = cuda_ms(
-        lambda: diagnostics.axi_to_max_wind_raw_plain(*v_args, **v_kw), 5)
-    k2_bound_ms, k2_by = k2_bound(v_args, v_kw, v_out)
-    log(f'[K2] {card}: segment 0, [{n1}, {m}]: kernel {ms_k2:.3f} ms, '
-        f'plain twin {ms_k2_plain:.3f} ms, bound {k2_bound_ms:.4f} ms '
-        f'({k2_by})')
-    del k1_calls, k2_calls, args0, v_args, v_kw, v_out
+    # the kernel alone on every segment (device time under torch.profiler,
+    # and CUDA-event time), beside its bound and its twin
+    k2_segs = []
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for s, (args, kw, out, _) in enumerate(k2_calls):
+        launch = k2_launcher(args, kw)
+        T_k, N_k = args[0].shape
+        b, by = k2_bound(args, kw, out)
+        seg = {'steps': T_k, 'width': N_k,
+               'geometry': vmax_kernel.launch_geometry(T_k, N_k, n_sm),
+               'ms': device_ms(launch, K2_REPS, ('vmax_kernel',)),
+               'event_ms': cuda_ms(launch, K2_REPS),
+               'plain_ms': cuda_ms(lambda: diagnostics.
+                                   axi_to_max_wind_raw_plain(*args, **kw), 3),
+               'bound_ms': b, 'bound_by': by}
+        k2_segs.append(seg)
+        log(f'[K2] {card}: segment {s}, [{T_k}, {N_k}] (threads, storm '
+            f'blocks, rows per chunk, chunks {seg["geometry"]}): kernel '
+            f'{seg["ms"]:.4f} ms device ({seg["event_ms"]:.4f} ms event), '
+            f'bound {b:.5f} ms ({by}, {100 * b / seg["ms"]:.0f}% of it), '
+            f'plain twin {seg["plain_ms"]:.3f} ms')
+    ms_k2, ms_k2_plain, k2_bound_ms = (
+        sum(sg[k] for sg in k2_segs) for k in ('ms', 'plain_ms', 'bound_ms'))
+    k2_by = max(k2_segs, key=lambda sg: sg['bound_ms'])['bound_by']
+    v_args, v_kw, _, _ = k2_calls[0]
+    ms_k2_call = cuda_ms(
+        lambda: diagnostics.axi_to_max_wind_raw(*v_args, **v_kw), K2_REPS)
+    log(f'[K2] {card}: per launch ({len(k2_segs)} segments): kernel '
+        f'{ms_k2:.4f} ms device, bound {k2_bound_ms:.5f} ms '
+        f'({100 * k2_bound_ms / ms_k2:.1f}% of it), plain twin '
+        f'{ms_k2_plain:.3f} ms; segment 0 through the dispatcher '
+        f'{ms_k2_call:.4f} ms')
+
+    k7_results('K7', k7_calls)
+    g_args, _, g_out, _ = k7_calls[0]
+    launch7 = integrator.gate_launcher(*g_args)[0]
+    ms_k7 = device_ms(launch7, 20, ('genesis_gate_kernel',))
+    ms_k7_event = cuda_ms(launch7, 20)
+    ms_k7_call = cuda_ms(lambda: simulator.genesis_alive(*g_args), 20)
+    ms_k7_plain = cuda_ms(lambda: simulator.genesis_alive_plain(*g_args), 5)
+    k7_bound_ms, k7_by = k7_bound(g_args, g_out)
+    log(f'[K7] {card}: genesis gate over {g_out.shape[0]} seeds: kernel '
+        f'{ms_k7:.4f} ms device ({ms_k7_event:.4f} ms event, '
+        f'{ms_k7_call:.4f} ms through the dispatcher), plain twin '
+        f'{ms_k7_plain:.3f} ms, bound {k7_bound_ms:.5f} ms ({k7_by})')
+    del k1_calls, k2_calls, k7_calls, args0, v_args, v_kw, g_args, g_out
 
     # ---- 4. K3 and K5 against their plain twins --------------------------
     k35 = check_k3_k5(pack_y, cfg_t, card)
@@ -1197,13 +1316,17 @@ def main():
         torch.cuda.synchronize()
         kernels.reset_counts()
         t0 = time.perf_counter()
-        fn = runtime.run_downscaling(cfg_run, BASIN, pack24, seed=0,
-                                     device=dev)
+        with captured(simulator, 'genesis_alive', check_k7,
+                      keep=False) as k7_runs:
+            fn = runtime.run_downscaling(cfg_run, BASIN, pack24, seed=0,
+                                         device=dev)
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
-        log(f'[slice 1] run_downscaling 2 years in {t_run:.2f} s')
+        log(f'[slice 1] run_downscaling 2 years in {t_run:.2f} s (with K7 '
+            f'checked on every launch)')
         check_counts('slice 1', dict(kernels.LAUNCHES),
                      dict(kernels.PLAIN_ON_CUDA), SIMULATION_KERNELS)
+        k7_results('slice 1', k7_runs)
         ds = netcdf.read(fn)
         n_trk, peaks = check_tracks(ds, cfg)
         if n_trk != 2 * cfg.tracks_per_year:
@@ -1220,12 +1343,15 @@ def main():
         torch.cuda.synchronize()
         kernels.reset_counts()
         t0 = time.perf_counter()
-        fn_dv = runtime.run_downscaling(cfg_dv, BASIN, pack24, seed=2,
-                                        device=dev)
+        with captured(simulator, 'genesis_alive', check_k7,
+                      keep=False) as k7_runs:
+            fn_dv = runtime.run_downscaling(cfg_dv, BASIN, pack24, seed=2,
+                                            device=dev)
         torch.cuda.synchronize()
         t_dv = time.perf_counter() - t0
         check_counts('dvdt0', dict(kernels.LAUNCHES),
                      dict(kernels.PLAIN_ON_CUDA), SIMULATION_KERNELS)
+        k7_results('dvdt0', k7_runs)
         ds_dv = netcdf.read(fn_dv)
         n_dv, peaks_dv = check_tracks(ds_dv, cfg_dv)
         m0 = ds_dv.variables['m_trks'].data[:, 0]
@@ -1240,12 +1366,15 @@ def main():
         torch.cuda.synchronize()
         kernels.reset_counts()
         t0 = time.perf_counter()
-        fn_md = runtime.run_downscaling(cfg_md, BASIN, pack24, seed=3,
-                                        device=dev)
+        with captured(simulator, 'genesis_alive', check_k7,
+                      keep=False) as k7_runs:
+            fn_md = runtime.run_downscaling(cfg_md, BASIN, pack24, seed=3,
+                                            device=dev)
         torch.cuda.synchronize()
         t_md = time.perf_counter() - t0
         check_counts('modes', dict(kernels.LAUNCHES),
                      dict(kernels.PLAIN_ON_CUDA), SIMULATION_KERNELS)
+        k7_results('modes run', k7_runs)
         n_md, peaks_md = check_tracks(netcdf.read(fn_md), cfg_md)
         log(f'[modes] run_downscaling one year with time_interp_fields and '
             f'rk_substeps=2 in {t_md:.2f} s: {n_md} tracks, peak v '
@@ -1326,6 +1455,10 @@ def main():
                 f'{nm} {h:.3f} / {d:.3f}' for nm, (h, d) in stage_ms.items()))
         log('[times] device ms per launch by operator: ' + '; '.join(
             f'{nm} {ms:.4f} ({calls:.0f}x)' for ms, nm, calls in top))
+        g_host, g_span = stage_ms.get('genesis_alive', (None, None))
+        log(f'[times] {card}: the genesis_alive stage (K7): {g_host:.3f} ms '
+            f'on the host and {g_span:.3f} ms device span per launch, under '
+            f'the profiler; {per_launch:.0f} device kernels per launch')
 
     dts = []
     for i in range(6):
@@ -1372,19 +1505,30 @@ def main():
          'per': 'launch (every segment, the kernel alone)',
          'segment0_dispatch_ms': ms_k1_call, 'segments': k1_segs,
          'modes_max_abs_err': modes_err, 'modes_ms': modes_ms},
-        {'name': 'vmax', 'route': 'triton',
-         'source': src + 'kernels/vmax.py',
+        {'name': 'vmax', 'route': 'cuda', 'source': src + 'csrc/vmax.cu',
          'replaces': 'tropical_cyclone_risk_tpu/models/diagnostics.py:193',
          'launches': launches['vmax'], 'max_abs_err': k2_err, 'ms': ms_k2,
          'plain_ms': ms_k2_plain, 'bound_ms': k2_bound_ms,
-         'bound_by': k2_by, 'library_ms': None},
+         'bound_by': k2_by, 'library_ms': None,
+         'per': 'launch (every segment, the kernel alone, device time)',
+         'segment0_dispatch_ms': ms_k2_call, 'segments': k2_segs},
         *k35, k4_entry,
         {'name': 'cape_pi', 'route': 'cuda',
          'source': src + 'csrc/cape_pi.cu',
          'replaces': 'tropical_cyclone_risk_tpu/ops/pi.py:92',
          'launches': launches['cape_pi'], 'max_abs_err': k6_err,
          'ms': ms_k6, 'plain_ms': ms_k6_plain, 'bound_ms': k6_bound_ms,
-         'bound_by': k6_by, 'library_ms': None}]}))
+         'bound_by': k6_by, 'library_ms': None},
+        {'name': 'genesis', 'route': 'cuda',
+         'source': src + 'csrc/integrator.cu',
+         'replaces': 'tropical_cyclone_risk_tpu/models/simulator.py:295',
+         'launches': launches['genesis'], 'max_abs_err': 0.0, 'ms': ms_k7,
+         'plain_ms': ms_k7_plain, 'bound_ms': k7_bound_ms,
+         'bound_by': k7_by, 'library_ms': None,
+         'per': 'one launch\'s gate (the kernel alone, device time)',
+         'event_ms': ms_k7_event, 'dispatch_ms': ms_k7_call,
+         'stage_host_ms': g_host, 'stage_device_span_ms': g_span,
+         'device_kernels_per_launch': per_launch}]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -1507,16 +1651,20 @@ def device_ms(fn, reps, names=None):
 
 def kernel_times(root):
     """--kernel-times ROOT: with the port imported from the tree at ROOT,
-    K1 on every segment and K4 on every partition of one full-width launch
-    (launch_calls, as the K4 phase makes it) and K1 on the first segment
-    of each integration mode (mode_calls, as the modes phase), each
-    through its wrapper (integrator.integrate_segment_cuda,
-    ops.compact.partition_take, which the port has had since those kernels
-    were written): the device time of its kernels under torch.profiler,
-    the CUDA-event time per call, and the host time to issue a call (for
-    K4 also split into the launcher's preparation and the launch); prints
-    one JSON line.  Run on two trees, a parent commit and its
-    change, in one chip call, it compares the two on one card."""
+    K1 and K2 on every segment and K4 on every partition of one full-width
+    launch (launch_calls, as the K4 phase makes it) and K1 on the first
+    segment of each integration mode (mode_calls, as the modes phase),
+    each through its wrapper or dispatcher (integrator.integrate_segment_cuda,
+    diagnostics.axi_to_max_wind_raw, ops.compact.partition_take, which the
+    port has had since those kernels were written): the device time of its
+    kernels under torch.profiler, the CUDA-event time per call, and the
+    host time to make a call (for K4 also split into the launcher's
+    preparation and the launch); the wall time of five launches
+    (_simulate_batch at k_max 64, after one more); and a torch.profiler
+    trace of three launches (profile_launches: device kernels per launch, busy share, host
+    and device-span ms per stage, the genesis gate's among them); prints
+    one JSON line.  Run on two trees, a parent commit and its change, in
+    one chip call, it compares the two on one card."""
     import concurrent.futures
     import os
     if not torch.cuda.is_available():
@@ -1529,13 +1677,15 @@ def kernel_times(root):
     from tropical_cyclone_risk_tpu_torch import rng
     from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    from tropical_cyclone_risk_tpu_torch.models import diagnostics, pipeline
     from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         for f in [pool.submit(b) for b in (integrator.build, k4.build)]:
             f.result()
     cfg, _, pack_y, cfg_t = launch_setup(torch.device('cuda', 0))
     plane0 = cfg.start_month - 1
-    segs, parts, _, _ = launch_calls(rng.key(99), pack_y, cfg_t, plane0)
+    with captured(diagnostics, 'axi_to_max_wind_raw') as k2_calls:
+        segs, parts, _, _ = launch_calls(rng.key(99), pack_y, cfg_t, plane0)
     modes = {name: mode_calls(rng.key(97), pack_y, cfg_t.replace(**kw),
                               plane0)[0][0]
              for name, kw in MODES.items()}
@@ -1549,6 +1699,10 @@ def kernel_times(root):
            **timed(k1_launcher(args, integrator.integrate_segment_cuda),
                    K1_REPS, ('integrate_segment_kernel',))}
           for args, *_ in segs]
+    k2 = [{'steps': args[0].shape[0], 'width': args[0].shape[1],
+           **timed(lambda: diagnostics.axi_to_max_wind_raw(*args, **kw),
+                   K2_REPS, ('vmax_kernel',))}
+          for args, kw, *_ in k2_calls]
     k1_modes = {name: device_ms(k1_launcher(
         args, integrator.integrate_segment_cuda), 5,
         ('integrate_segment_kernel',)) for name, args in modes.items()}
@@ -1564,9 +1718,27 @@ def kernel_times(root):
                     ('count_kernel', 'partition_kernel', 'gather_kernel')),
             'prep_host_ms': host_ms(lambda: k4.launcher(*largs), K4_REPS),
             'launch_host_ms': host_ms(k4.launcher(*largs)[0], K4_REPS)})
-    res = {'kernel_times': root, 'card': card_line(), 'k1': k1, 'k4': k4_rows,
-           'k1_modes_segment0_device_ms': k1_modes}
-    for name, rows in (('k1', k1), ('k4', k4_rows)):
+    launch_ms = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline._simulate_batch(rng.key(100 + i), pack_y, cfg_t, BASIN,
+                                 N_SEEDS, 64, plane0)
+        torch.cuda.synchronize()
+        launch_ms.append((time.perf_counter() - t0) * 1e3)
+    with tempfile.TemporaryDirectory(prefix='kernel_times_') as tmp:
+        per_launch, share, traced_ms, stage_ms, _ = profile_launches(
+            lambda: pipeline._simulate_batch(rng.key(98), pack_y, cfg_t,
+                                             BASIN, N_SEEDS, 64, plane0),
+            3, f'{tmp}/launches.json')
+    res = {'kernel_times': root, 'card': card_line(), 'k1': k1, 'k2': k2,
+           'k4': k4_rows, 'k1_modes_segment0_device_ms': k1_modes,
+           'launch_ms': launch_ms[1:],
+           'launch_ms_median': statistics.median(launch_ms[1:]),
+           'profile': {'device_kernels_per_launch': per_launch,
+                       'busy_share': share, 'traced_ms_per_launch': traced_ms,
+                       'stage_host_and_span_ms': stage_ms}}
+    for name, rows in (('k1', k1), ('k2', k2), ('k4', k4_rows)):
         for key in rows[0]:
             if key.endswith('_ms'):
                 res[f'{name}_{key}'] = sum(r[key] for r in rows)

@@ -48,7 +48,10 @@ def _imports(path: Path):
 def test_every_module_imports_with_jax_blocked():
     """...and with the JAX package blocked too."""
     assert len(MODULES) >= 30
-    assert 'tropical_cyclone_risk_tpu_torch.kernels.compact' in MODULES
+    assert {'tropical_cyclone_risk_tpu_torch.kernels.compact',
+            'tropical_cyclone_risk_tpu_torch.kernels.vmax',
+            'tropical_cyclone_risk_tpu_torch.kernels.integrator'} <= set(
+                MODULES)
     code = ("import sys, importlib\n"
             f"for b in {BLOCKED!r}: sys.modules[b] = None\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
@@ -57,6 +60,16 @@ def test_every_module_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize('source', sorted(p.stem for p in
+                                          (PKG / 'csrc').glob('*.cu')))
+def test_every_cuda_source_has_a_wrapper(source):
+    """Each csrc/*.cu is built by one kernel wrapper (kernels/build.py
+    library), so chip_smoke.py's build phase and the main path reach it."""
+    wrappers = [p for p in (PKG / 'kernels').glob('*.py')
+                if f"library('{source}')" in p.read_text()]
+    assert len(wrappers) == 1, (source, wrappers)
 
 
 @pytest.mark.parametrize('path', sorted(PKG.rglob('*.py')) +
@@ -133,7 +146,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             6, None, 3, 0)
     t = torch.zeros(4, 8)
     with pytest.raises(ValueError, match='CUDA'):
-        vmax.axi_to_max_wind_raw_triton(
+        vmax.axi_to_max_wind_raw_cuda(
             t, t, 3600.0, t, torch.zeros(4, 8, 4),
             torch.ones(4, 8, dtype=torch.bool),
             torch.zeros(8, dtype=torch.int64), (0, 1, 2, 3))

@@ -220,3 +220,19 @@ def test_cape_pi_kernel_params_are_the_twins_constants(tables):
     assert tuple(fp[21:]) == tuple(np.float32([g.lon0, g.dlon, g.lat0,
                                                g.dlat]))
     assert ip.tolist() == [g.nlon, g.nlat, 28, 1000]
+
+
+@pytest.mark.parametrize('c', [1.0, -2.5, 3.0e7, 1.0e-3, 7.0 / 3.0])
+def test_rdiv_is_one_float_division(c):
+    """thermo.rdiv(c, x) rounds as one float32 division c / x, bit for bit,
+    over values spread across the exponent range (both signs, subnormal
+    results and infinities included)."""
+    r = np.random.default_rng(5)
+    x = f32(np.concatenate([
+        r.uniform(1.0, 2.0, 4000) * 2.0 ** r.integers(-126, 127, 4000),
+        -r.uniform(1.0, 2.0, 1000) * 2.0 ** r.integers(-60, 60, 1000),
+        [1.0, 3.0, 7.0, 1e-45, 3.4e38, np.inf, -np.inf]]))
+    got = tth.rdiv(c, torch.from_numpy(x)).numpy()
+    with np.errstate(over='ignore', under='ignore', divide='ignore'):
+        want = np.float32(c) / x
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

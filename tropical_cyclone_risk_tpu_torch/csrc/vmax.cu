@@ -1,0 +1,267 @@
+// K2: the vmax diagnostic pass for NVIDIA Hopper (sm_90a).
+//
+// Replaces the XLA-fused pass of the JAX package (there is no Pallas kernel
+// to translate): models/diagnostics.py:193 axi_to_max_wind_raw with :83
+// _translation_tm and :69 _vmax_from_inc, called per re-compaction segment
+// of a launch (models/pipeline.py, nine segments on the bench's launch).
+// Its plain PyTorch twin is models/diagnostics.py axi_to_max_wind_raw_plain.
+//
+// Per sample (t, n) of a segment's [T, N] buffers: the centred-chord
+// translation speed on the sphere from the neighbouring rows (the samples
+// pos_before / pos_after across the segment's edges, or the start-edge
+// extrapolation 2 x[0] - x[1] and the end row itself), the linear edge
+// extrapolation at each track's last sample L (rows L and L-1, or
+// pos_before / row 0 at L = 0; L may lie outside the segment), the
+// G-scaled translation plus the shear asymmetry, vmax = v + min(|inc|,
+// v / 2), and each storm's alive-masked lifetime peak.
+//
+// What bounds it on this card: bytes.  Per (step, storm) it reads 29 bytes
+// (lon, lat, v, the four winds, alive) and writes 4 (vmax), against ~40
+// float32 operations (a transcendental as one), far below the card's ~20
+// operations per byte.
+//
+// Design.  A storm's samples depend on each other only through the
+// neighbouring rows and the running peak, so the pass splits T as well as
+// N: a 2-D grid of (blocks of storms) x (chunks of rows), each thread one
+// storm through one chunk, with a one-row halo on each side (the row before
+// the chunk and the row after it, or at the segment's edges the
+// pos_before / pos_after samples or the extrapolations above).  The chunk
+// length follows T, N and the SM count (kernels/vmax.py launch_geometry), so
+// that even the narrow late segments put several blocks on every SM; a
+// storm's rows are then a short serial chain, and the row after the current
+// one is loaded before the current one is computed, so its latency leaves
+// the chain.  The extrapolation at L needs rows L and L-1, which lie in the
+// chunk that holds L or in its halo.  Every load is coalesced across the
+// storm axis; the four winds of a sample are one 16-byte load (the wrapper
+// checks the alignment).
+//
+// The peak is a reduction across the chunks of a storm: each block writes
+// its storms' alive-masked partial peaks to a [chunks, N] scratch, fences,
+// and counts itself done on its storm block's counter; the last block of a
+// storm block to finish reduces the partials in chunk order (NaN
+// propagating, as torch.amax) and writes the peak, then resets the counter.
+// The order is fixed, so the result does not depend on which block
+// finishes last.  With one chunk the block writes the peak directly.
+//
+// Numerics: built without --use_fast_math and with -fmad=false (the zonal
+// chord differences two longitudes near 3 rad, and a contracted product
+// there moves ut by up to 1e-3 m/s); CUDA's accurate sinf / cosf / tanhf
+// (no __sinf: the zonal chord's half-step angles are tiny), IEEE sqrtf and
+// true divisions, in the twin's operation order.  The twin's torch kernels
+// divide by a Python-scalar divisor as a product with its reciprocal on the
+// card, so the two agree to a few ulps, inside the JAX package's own
+// width-dependent vmax noise (atol 1e-4).
+//
+// The C entry returns cudaGetLastError() after the launch; the wrapper
+// (kernels/vmax.py) raises if it is not cudaSuccess.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;     // threads per block (__launch_bounds__)
+constexpr int kMaxChunks = 65535; // gridDim.y
+
+struct Params {
+  int T, N, chunk;
+  int has_before, has_after;
+  int iu2, iv2, iu8, iv8;         // deep-layer shear channels of the winds
+  float dt_s, km2, deg2rad;       // float32 roundings of the twin's values
+};
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
+}
+// torch.sign: 0 for a zero or NaN difference
+__device__ __forceinline__ float sgn(float d) {
+  return d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
+}
+__device__ __forceinline__ float pick(float4 w, int i) {
+  return i == 0 ? w.x : (i == 1 ? w.y : (i == 2 ? w.z : w.w));
+}
+
+// diagnostics._translation_tm and vmax_step for one sample at (lon, lat)
+// with neighbours b (before) and a (after); lon itself is not read
+__device__ __forceinline__ float vmax_at(const Params& p, float lat,
+                                         float b_lon, float b_lat,
+                                         float a_lon, float a_lat, float v,
+                                         float4 w) {
+  const float s = cosf(lat * p.deg2rad) *
+                  fabsf(sinf((b_lon * p.deg2rad - a_lon * p.deg2rad) * 0.5f));
+  const float s2 = s * s;
+  const float hav_lon =
+      p.km2 * (s * (1.0f + s2 * (0.16666666666666666f + s2 * 0.075f)));
+  const float hav_lat =
+      p.km2 * fabsf((b_lat * p.deg2rad - a_lat * p.deg2rad) * 0.5f);
+  const float ut = (0.5f * (sgn(a_lon - b_lon) * hav_lon)) * 1000.0f / p.dt_s;
+  const float vt = (0.5f * (sgn(a_lat - b_lat) * hav_lat)) * 1000.0f / p.dt_s;
+  const float G =
+      nan_min(0.8f + 0.35f * (1.0f + tanhf((lat - 35.0f) / 10.0f)), 1.0f);
+  const float u_shr = pick(w, p.iu2) - pick(w, p.iu8);
+  const float v_shr = pick(w, p.iv2) - pick(w, p.iv8);
+  const float U = G * ut + 0.1f * u_shr * v / 15.0f;
+  const float V = G * vt + 0.1f * v_shr * v / 15.0f;
+  const float mag = sqrtf(U * U + V * V);
+  return v + nan_min(mag, 0.5f * v);
+}
+
+__global__ void __launch_bounds__(kThreads)
+vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
+            const float* __restrict__ lat, const float* __restrict__ tc_v,
+            const float4* __restrict__ wnds,
+            const uint8_t* __restrict__ alive,
+            const int64_t* __restrict__ last,
+            const float* __restrict__ before,
+            const float* __restrict__ after, float* __restrict__ vmax,
+            float* __restrict__ peak, float* __restrict__ partial,
+            unsigned* __restrict__ count) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = n < p.N;
+  const int64_t N = p.N;
+  const int T = p.T;
+  const int t0 = blockIdx.y * p.chunk;
+  const int t1 = min(t0 + p.chunk, T);
+  float acc = -INFINITY;
+  if (valid) {
+    const int64_t L = last[n];
+    float cur_lon = lon[t0 * N + n], cur_lat = lat[t0 * N + n];
+    // the neighbour before row t of a row that is not L; at row 0, pos_before
+    // or the start-edge extrapolation (T >= 2 there, checked by the wrapper)
+    float prev_lon, prev_lat;
+    if (t0 > 0) {
+      prev_lon = lon[(t0 - 1) * N + n];
+      prev_lat = lat[(t0 - 1) * N + n];
+    } else if (p.has_before) {
+      prev_lon = before[n];
+      prev_lat = before[N + n];
+    } else {
+      prev_lon = 2.0f * cur_lon - lon[N + n];
+      prev_lat = 2.0f * cur_lat - lat[N + n];
+    }
+    // the extrapolation base of a track whose last sample is row 0 (read
+    // in the first chunk only)
+    const bool base_before = t0 == 0 && p.has_before;
+    const float base_lon = base_before ? before[n] : cur_lon;
+    const float base_lat = base_before ? before[N + n] : cur_lat;
+    const float end_lon = p.has_after ? after[n] : 0.0f;
+    const float end_lat = p.has_after ? after[N + n] : 0.0f;
+    // the row after t: the next row, or past the segment's end pos_after
+    // or row T-1 itself
+    float nxt_lon = cur_lon, nxt_lat = cur_lat;
+    if (t0 + 1 < T) {
+      nxt_lon = lon[(t0 + 1) * N + n];
+      nxt_lat = lat[(t0 + 1) * N + n];
+    } else if (p.has_after) {
+      nxt_lon = end_lon;
+      nxt_lat = end_lat;
+    }
+    float v = tc_v[t0 * N + n];
+    float4 w = wnds[t0 * N + n];
+    bool live = alive[t0 * N + n] != 0;
+    for (int t = t0; t < t1; ++t) {
+      // row t+1's samples and row t+2's position, loaded ahead
+      float v_n = 0.0f, lon_nn = 0.0f, lat_nn = 0.0f;
+      float4 w_n = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      bool live_n = false;
+      if (t + 1 < t1) {
+        const int64_t o = (int64_t)(t + 1) * N + n;
+        v_n = tc_v[o];
+        w_n = wnds[o];
+        live_n = alive[o] != 0;
+      }
+      if (t + 2 < T && t + 1 < t1) {
+        lon_nn = lon[(int64_t)(t + 2) * N + n];
+        lat_nn = lat[(int64_t)(t + 2) * N + n];
+      }
+
+      float b_lon = prev_lon, b_lat = prev_lat;
+      float a_lon = nxt_lon, a_lat = nxt_lat;
+      if (t == L) {
+        // the last valid sample: next = pos[L] + (pos[L] - pos[L-1])
+        const float P_lon = t == 0 ? base_lon : prev_lon;
+        const float P_lat = t == 0 ? base_lat : prev_lat;
+        b_lon = P_lon;
+        b_lat = P_lat;
+        a_lon = cur_lon + (cur_lon - P_lon);
+        a_lat = cur_lat + (cur_lat - P_lat);
+      }
+      const float vm = vmax_at(p, cur_lat, b_lon, b_lat, a_lon, a_lat, v, w);
+      vmax[(int64_t)t * N + n] = vm;
+      acc = nan_max(acc, live ? vm : -INFINITY);
+
+      prev_lon = cur_lon;
+      prev_lat = cur_lat;
+      cur_lon = nxt_lon;
+      cur_lat = nxt_lat;
+      if (t + 2 < T) {
+        nxt_lon = lon_nn;
+        nxt_lat = lat_nn;
+      } else if (p.has_after) {
+        nxt_lon = end_lon;
+        nxt_lat = end_lat;
+      }           // else row T-1's neighbour after is row T-1 (cur) itself
+      v = v_n;
+      w = w_n;
+      live = live_n;
+    }
+  }
+
+  if (gridDim.y == 1) {
+    if (valid) peak[n] = acc;
+    return;
+  }
+  // the cross-chunk peak: partials, then the last block reduces in order
+  if (valid) partial[(int64_t)blockIdx.y * N + n] = acc;
+  __threadfence();
+  __syncthreads();
+  __shared__ bool s_last;
+  if (threadIdx.x == 0)
+    s_last = atomicAdd(count + blockIdx.x, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  if (valid) {
+    float r = -INFINITY;
+    for (int c = 0; c < (int)gridDim.y; ++c)
+      r = nan_max(r, __ldcg(partial + (int64_t)c * N + n));
+    peak[n] = r;
+  }
+  if (threadIdx.x == 0) count[blockIdx.x] = 0u;
+}
+
+}  // namespace
+
+// ip: T, N, chunk, has_before, has_after, iu2, iv2, iu8, iv8, threads,
+// storm blocks, chunks; fp: dt_s, km2, deg2rad.  partial [chunks, N] and
+// count [storm blocks] (zeroed) are the wrapper's scratch, unread with one
+// chunk.
+extern "C" int tc_vmax(const int* ip, const float* fp, const float* lon,
+                       const float* lat, const float* tc_v, const float* wnds,
+                       const uint8_t* alive, const int64_t* last,
+                       const float* before, const float* after, float* vmax,
+                       float* peak, float* partial, unsigned* count,
+                       void* stream) {
+  Params p;
+  p.T = ip[0]; p.N = ip[1]; p.chunk = ip[2];
+  p.has_before = ip[3]; p.has_after = ip[4];
+  p.iu2 = ip[5]; p.iv2 = ip[6]; p.iu8 = ip[7]; p.iv8 = ip[8];
+  const int threads = ip[9], sblocks = ip[10], chunks = ip[11];
+  p.dt_s = fp[0]; p.km2 = fp[1]; p.deg2rad = fp[2];
+  if (p.T < 1 || p.N < 1 || p.chunk < 1 || threads < 32 ||
+      threads > kThreads || threads % 32 != 0 ||
+      (int64_t)sblocks * threads < p.N || chunks < 1 ||
+      chunks > kMaxChunks || (int64_t)chunks * p.chunk < p.T ||
+      (int64_t)(chunks - 1) * p.chunk >= p.T ||
+      (p.T < 2 && !p.has_before) || (unsigned)p.iu2 > 3u ||
+      (unsigned)p.iv2 > 3u || (unsigned)p.iu8 > 3u || (unsigned)p.iv8 > 3u)
+    return (int)cudaErrorInvalidValue;
+  vmax_kernel<<<dim3(sblocks, chunks), threads, 0, (cudaStream_t)stream>>>(
+      p, lon, lat, tc_v, reinterpret_cast<const float4*>(wnds), alive, last,
+      before, after, vmax, peak, partial, count);
+  return (int)cudaGetLastError();
+}

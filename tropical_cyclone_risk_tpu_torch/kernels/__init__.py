@@ -2,7 +2,8 @@
 
 - ``integrator`` (K1): the fused track integrator, CUDA C++ for sm_90a
   (csrc/integrator.cu).
-- ``vmax`` (K2): the vmax diagnostic pass, a Triton kernel.
+- ``vmax`` (K2): the vmax diagnostic pass, CUDA C++ for sm_90a
+  (csrc/vmax.cu).
 - ``seeding`` (K3): genesis seeding, one thread per slot with lazily drawn
   proposal rounds, CUDA C++ for sm_90a (csrc/seeding.cu).
 - ``threefry`` (K5): the threefry2x32 stream and its bits / uniform /
@@ -14,6 +15,8 @@
   sm_90a (csrc/compact.cu).
 - ``cape_pi`` (K6): potential intensity per column, CUDA C++ for sm_90a
   (csrc/cape_pi.cu).
+- ``genesis`` (K7): the step-0 genesis gate, CUDA C++ for sm_90a, a second
+  kernel of csrc/integrator.cu that reuses K1's gather and coloring.
 
 The CUDA sources are built with nvcc at first use (kernels/build.py) and
 bound with ctypes.  Each wrapper adds one to ``LAUNCHES[name]`` where it
@@ -23,7 +26,8 @@ path never does (it is only done on purpose, to compare a kernel with its
 twin).
 """
 
-NAMES = ('integrator', 'vmax', 'seeding', 'threefry', 'compact', 'cape_pi')
+NAMES = ('integrator', 'vmax', 'seeding', 'threefry', 'compact', 'cape_pi',
+         'genesis')
 LAUNCHES = dict.fromkeys(NAMES, 0)
 PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
 

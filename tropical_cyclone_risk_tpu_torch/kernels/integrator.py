@@ -1,5 +1,6 @@
-"""K1 wrapper: build csrc/integrator.cu with nvcc (kernels/build.py), bind
-it with ctypes and launch it on PyTorch's current stream.
+"""K1 and K7 wrappers: build csrc/integrator.cu with nvcc
+(kernels/build.py), bind it with ctypes and launch its kernels on
+PyTorch's current stream.
 
 The kernel replaces the JAX package's XLA-fused segment loop; see the note
 at the top of the source.  Its plain twin is models/simulator.py
@@ -8,6 +9,10 @@ grid; under rk_exact_stage_fields or rk_substeps > 1 the kernel evaluates
 F(t) from the storms' Fourier rows with w_n from ops/fourier._omega.  The
 launch's shape follows the segment's width and the card's SM count
 (launch_geometry).
+
+K7, the genesis gate (genesis_gate_cuda), is the file's second kernel:
+the step-0 keep mask from K1's gather, Cholesky and coloring at t = 0.
+Its plain twin is models/simulator.py genesis_alive_plain.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ from tropical_cyclone_risk_tpu_torch.ops import fourier
 N_POINTERS = 22          # device pointers of tc_integrate_segment
 MAX_SUB = 8              # csrc/integrator.cu kMaxSub
 MAX_THREADS = 64         # csrc/integrator.cu kMaxThreads (__launch_bounds__)
+GATE_THREADS = 128       # csrc/integrator.cu kGateThreads (K7)
+GATE_POINTERS = 7        # device pointers of tc_genesis_gate
 # csrc/integrator.cu sincos_rad: CUDA's sinf/cosf fast path below this |x|
 FAST_TRIG_LIMIT = 105615.0
 WARP = 32
@@ -48,6 +55,9 @@ def _lib():
     lib.tc_k1_trig_check.argtypes = [ctypes.c_uint32, ctypes.c_uint32] + [
         ctypes.c_void_p] * 3
     lib.tc_k1_trig_check.restype = ctypes.c_int
+    lib.tc_genesis_gate.argtypes = [ctypes.c_void_p] * (
+        2 + GATE_POINTERS + 1)
+    lib.tc_genesis_gate.restype = ctypes.c_int
     return lib
 
 
@@ -143,6 +153,9 @@ def _params(stacks, cfg: Namelist, bounds, m: int, n_steps: int,
 
 
 def _check(stacks, cfg: Namelist, tensors: dict, m: int, n_steps: int):
+    """K1's (and K7's) checks: the options the kernels do not take raise
+    NotImplementedError, tensors that are not on CUDA or not of the
+    kernel's type, layout and shape raise ValueError."""
     if cfg.debug_fixed_position:
         raise NotImplementedError('debug_fixed_position is not in the '
                                   'integrator kernel')
@@ -164,7 +177,7 @@ def _check(stacks, cfg: Namelist, tensors: dict, m: int, n_steps: int):
     for name, t in tensors.items():
         if t is None or (name in ('A', 'B') and tensors['f_all'] is not None):
             continue
-        want = torch.bool if name == 'alive0' else (
+        want = torch.bool if name in ('alive0', 'integrate') else (
             torch.int32 if name == 'plane' else torch.float32)
         if t.device != dev or t.dtype != want or not t.is_contiguous():
             raise ValueError(f'{name}: need a contiguous {want} tensor on '
@@ -231,3 +244,55 @@ def launcher(stacks, cfg: Namelist, bounds, y0, alive0,
 
     launch.inputs = ins      # the plane cast lives as long as the launch
     return launch, result
+
+
+def gate_params(stacks, cfg: Namelist, m: int):
+    """K7's parameter block: K1's layout (_params) for m seeds with no
+    steps, basin bounds of zeros (the gate does not read them) and one
+    thread per seed in GATE_THREADS-wide blocks."""
+    blocks = -(-m // GATE_THREADS)
+    return _params(stacks, cfg, (0.0,) * 4, m, 0, 1, 0, 0, 0.0, False,
+                   (GATE_THREADS, GATE_THREADS, blocks))
+
+
+def genesis_gate_cuda(stacks, cfg: Namelist, y0, params: fast.SeedParams,
+                      integrate_mask):
+    """Launch K7: the step-0 keep mask [m] exactly as models/simulator.py
+    genesis_alive_plain, integrate_mask & the ventilation gate."""
+    launch, keep = gate_launcher(stacks, cfg, y0, params, integrate_mask)
+    launch()
+    return keep
+
+
+def gate_launcher(stacks, cfg: Namelist, y0, params: fast.SeedParams,
+                  integrate_mask):
+    """(launch, keep): a function that launches K7 on these inputs (as
+    genesis_gate_cuda), writing ``keep``; the checks, the output and the
+    parameter block are made here, once.  Raises where K1's launcher
+    raises."""
+    m = y0.lon.shape[0]
+    ins = {'cell4': stacks.cell4, 'f_all': None, 'B': params.fourier.B,
+           'lon0': y0.lon, 'lat0': y0.lat,
+           'plane': params.plane.to(torch.int32).contiguous(),
+           'integrate': integrate_mask}
+    _check(stacks, cfg, ins, m, 0)
+    dev = stacks.cell4.device
+    keep = torch.empty((m,), dtype=torch.bool, device=dev)
+    if m == 0:
+        return (lambda: None), keep
+    fp, ip = gate_params(stacks, cfg, m)
+    ptrs = [t.data_ptr() for t in ins.values() if t is not None]
+    ptrs.append(keep.data_ptr())
+    entry = _lib().tc_genesis_gate
+
+    def launch():
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = entry(fp.ctypes.data, ip.ctypes.data, *ptrs, stream)
+        if err != 0:
+            raise RuntimeError(f'genesis gate kernel launch failed: CUDA '
+                               f'error {err}')
+        kernels.LAUNCHES['genesis'] += 1
+
+    launch.inputs = ins      # the plane cast lives as long as the launch
+    return launch, keep

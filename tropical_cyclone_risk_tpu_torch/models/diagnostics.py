@@ -2,8 +2,8 @@
 tropical_cyclone_risk_tpu/models/diagnostics.py, the standalone vmax pass).
 
 ``axi_to_max_wind_raw`` runs over every launch row.  On a CUDA tensor it
-launches the Triton kernel of kernels/vmax.py; on a CPU tensor it runs
-``axi_to_max_wind_raw_plain``, the same arithmetic in torch ops.
+launches the CUDA kernel of csrc/vmax.cu (kernels/vmax.py); on a CPU tensor
+it runs ``axi_to_max_wind_raw_plain``, the same arithmetic in torch ops.
 """
 
 from __future__ import annotations
@@ -112,11 +112,11 @@ def axi_to_max_wind_raw(lon, lat, dt_track, tc_v, env_wnds, alive,
                         last_step, cfg=None, pos_before=None,
                         pos_after=None):
     """axi_to_max_wind_raw_plain on CPU tensors; on any other device the
-    Triton vmax kernel, which raises on what it does not take."""
+    CUDA vmax kernel, which raises on what it does not take."""
     if lon.device.type == 'cpu':
         return axi_to_max_wind_raw_plain(lon, lat, dt_track, tc_v, env_wnds,
                                          alive, last_step, cfg, pos_before,
                                          pos_after)
-    return vmax_kernel.axi_to_max_wind_raw_triton(
+    return vmax_kernel.axi_to_max_wind_raw_cuda(
         lon, lat, dt_track, tc_v, env_wnds, alive, last_step,
         _shear_channels(cfg), pos_before, pos_after)

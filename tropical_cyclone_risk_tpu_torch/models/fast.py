@@ -290,9 +290,12 @@ def init_m_dvdt0(pack: F.FieldPack, cfg: Namelist, lon, lat, v,
 def ventilation_index_reject(stacks: F.GatherStacks, cfg: Namelist,
                              y0: State, params: SeedParams):
     """Genesis gate: reject when S * chi / v_pot >= 1 at t=0 with v_pot > 0
-    (coupled_fast.py:237-244).  Returns a boolean keep-mask [N]."""
+    (coupled_fast.py:237-244).  Returns a boolean keep-mask [N].  F(0) is
+    the index-ordered sum of the B components (the genesis gate kernel,
+    csrc/integrator.cu genesis_gate_kernel, adds them in that order)."""
     smp = sample_fields(stacks, y0.lon, y0.lat, params.plane)
-    wnds = color_winds(cfg, smp.wind_stats, params.fourier, 0.0)
+    wnds = color_winds_given_f(cfg, smp.wind_stats,
+                               params.fourier.evaluate_at_zero())
     v_pot = torch.where(_is_land(smp.land), 0.0, smp.env[:, F.VPOT])
     vent = shear_magnitude(cfg, wnds) * smp.env[:, F.CHI] / v_pot
     return ~((v_pot > 0) & (vent >= 1.0))

@@ -9,7 +9,9 @@ or v <= 4 m/s, coupled_fast.py:246-256); dead storms freeze in place.
 hand-written integrator kernel (kernels/integrator.py, csrc/integrator.cu),
 which keeps each storm's state in registers across the whole segment; on a
 CPU tensor it runs ``integrate_segment_plain``, the same arithmetic as a
-Python loop of torch ops (``lax.scan`` in the JAX package).
+Python loop of torch ops (``lax.scan`` in the JAX package).  The genesis
+gate ``genesis_alive`` dispatches the same way, to the same file's gate
+kernel or to ``genesis_alive_plain``.
 """
 
 from __future__ import annotations
@@ -208,12 +210,26 @@ def integrate_segment(stacks: GatherStacks, cfg: Namelist, bounds,
         n_blocks)
 
 
-def genesis_alive(stacks: GatherStacks, cfg: Namelist, y0: fast.State,
-                  params: fast.SeedParams, integrate_mask: torch.Tensor):
+def genesis_alive_plain(stacks: GatherStacks, cfg: Namelist,
+                        y0: fast.State, params: fast.SeedParams,
+                        integrate_mask: torch.Tensor):
     """Step-0 alive mask: genesis gates evaluated with the track's own
     Fourier draws (coupled_fast.py:237-244)."""
+    if y0.lon.is_cuda:
+        kernels.PLAIN_ON_CUDA['genesis'] += 1
     return integrate_mask & fast.ventilation_index_reject(stacks, cfg, y0,
                                                           params)
+
+
+def genesis_alive(stacks: GatherStacks, cfg: Namelist, y0: fast.State,
+                  params: fast.SeedParams, integrate_mask: torch.Tensor):
+    """genesis_alive_plain on CPU tensors; on any other device the CUDA
+    genesis gate kernel (K7), which raises where the integrator kernel
+    raises."""
+    if y0.lon.device.type == 'cpu':
+        return genesis_alive_plain(stacks, cfg, y0, params, integrate_mask)
+    return integrator.genesis_gate_cuda(stacks, cfg, y0, params,
+                                        integrate_mask)
 
 
 def integrate_raw(stacks: GatherStacks, cfg: Namelist, basin_id: str,

@@ -6,6 +6,7 @@
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -36,6 +37,17 @@ class FourierSeries(NamedTuple):
         phase = _omega(self.T_s, self.A.device) * float(np.float32(t))
         return self.A @ torch.sin(phase) + self.B @ torch.cos(phase)
 
+    def evaluate_at_zero(self) -> torch.Tensor:
+        """F(0) -> [..., C]: the B components summed in index order, as 14
+        elementwise adds.  At t = 0 the A terms of ``evaluate`` are A * 0 =
+        +-0, which change no finite sum; this order is one a kernel can
+        reproduce bit for bit (a matrix product's summation order is its
+        library's)."""
+        f0 = self.B[..., 0]
+        for n in range(1, N_FOURIER):
+            f0 = f0 + self.B[..., n]
+        return f0
+
     def evaluate_grid(self, t: torch.Tensor) -> torch.Tensor:
         """F on a time grid t [T] -> [T, ..., C] as one matrix product over
         the component axis (a plain product outside any kernel)."""
@@ -47,11 +59,20 @@ class FourierSeries(NamedTuple):
         return out.reshape((t.shape[0],) + tuple(lead))
 
 
-def _amplitudes(device) -> torch.Tensor:
+def amplitudes_formula(device) -> torch.Tensor:
     """[N_FOURIER] amplitudes n^-1.5 with the reference normalization
-    sqrt(2 / sum n^-3)."""
+    sqrt(2 / sum n^-3), evaluated on `device`."""
     n = torch.arange(1, N_FOURIER + 1, dtype=torch.float32, device=device)
     return torch.sqrt(2.0 / torch.sum(n ** -3.0)) * n ** -1.5
+
+
+@functools.cache
+def _amplitudes(device) -> torch.Tensor:
+    """amplitudes_formula as the CPU rounds it, on `device`: built on the
+    CPU and copied once per device (no copy per launch), so every device
+    draws with the CPU's amplitudes; the card's pow and sum round them
+    otherwise (by up to 3.7e-9 on an H100)."""
+    return amplitudes_formula('cpu').to(device)
 
 
 def draw_fourier(key: rng.Key, shape, T_s: float,

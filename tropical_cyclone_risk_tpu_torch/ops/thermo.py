@@ -21,8 +21,10 @@ from tropical_cyclone_risk_tpu_torch.ops.interp import true_div
 
 def rdiv(c: float, x: torch.Tensor) -> torch.Tensor:
     """``c / x`` for a constant ``c``, rounded as one float division (torch
-    computes ``python_scalar / tensor`` as ``reciprocal(x) * c``)."""
-    return torch.tensor(c, dtype=x.dtype, device=x.device) / x
+    computes ``python_scalar / tensor`` as ``reciprocal(x) * c``).  The
+    dividend is a 0-d tensor filled on x's device (no host-to-device copy,
+    so no synchronisation), as in ``true_div``."""
+    return torch.full((), c, dtype=x.dtype, device=x.device) / x
 
 
 def sat_thermo_pog(T, p):
