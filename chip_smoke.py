@@ -11,7 +11,8 @@ Phases (any failure raises, and the script exits non-zero):
                CAPE-PI (K6) kernels with nvcc, one process each, all
                started together; print the build times, nvcc's register,
                stack and spill report and the SASS local-memory
-               instructions of each kernel; K1's default instance must have
+               instructions of each kernel (and K3's and K6's SASS
+               instruction and loop counts); K1's default instance must have
                no stack frame and no spills, and K1's sin and cos path must
                equal CUDA's sinf and cosf on every float32 it takes.
 3. K1, K2,   - one 131072-seed launch on the 181x360 one-degree pack with
@@ -22,13 +23,15 @@ Phases (any failure raises, and the script exits non-zero):
                for bit); K1's and K2's times alone on every segment (and
                their sums per launch) beside their bounds and twins, K7's
                beside its bound and twin.
-4. K3, K5    - propose_seeds at 131072 slots through K3 and through its
-               plain twin on the card, without retry caps, with the
-               auto-tuned caps and with caps that overflow (slots drop),
-               and retry_unresolved_curve; K5's bits / uniform / normal /
-               randint at [16, n] and [n] and its fused draw_fourier at
-               [n, 4, 15] against the plain threefry twins: all bit-exact;
-               times and bounds.
+4. K3, K5    - propose_seeds at 131072 slots through K3 (twice) and
+               through its plain twin on the card, without retry caps,
+               with the auto-tuned caps and with caps that overflow (slots
+               drop), and retry_unresolved_curve (twice); K5's bits /
+               uniform / normal / randint at [16, n] and [n] and its fused
+               draw_fourier at [n, 4, 15] against the plain threefry twins:
+               all bit-exact; one device operation per propose_seeds call
+               under torch.profiler; K3's times alone and through its
+               dispatcher (device, event and host), K5's, and bounds.
    K4        - one 131072-seed launch with every compaction (the integrate
                compaction, every re-compaction boundary) and
                compact_survivors' partition and survivor stitch at k_max 64
@@ -49,8 +52,9 @@ Phases (any failure raises, and the script exits non-zero):
                the 28 ERA5 pressure levels (utils/synthetic_era5.py).
 6. K6        - gen_thermo over that workspace with cape_pi captured: all
                12 x 181 x 360 columns on 28 levels through K6 and through
-               the plain twin on the card (and a sample of columns through
-               the twin on the CPU), within the stated tolerances; times.
+               the plain twin on the card, bit for bit (and a sample of
+               columns through the twin on the CPU, within the stated
+               tolerances); times.
 7. slice 1   - runtime.run_downscaling(cfg, 'GL', pack, seed=0) at
                seed_batch=131072 for two years on a 24-plane synthetic
                pack, counters reset just before and read just after, K7
@@ -417,9 +421,10 @@ def k3_bound(key, pack, cfg, prop):
     (four corners) of the rounds its slots test, the basin-mask cells (all
     basins) and env cells (vpot and rh of the slot's plane) at each slot's
     final position, and its 11 outputs, each once.  Operations: the draws
-    it makes (two per tested round; month two, rejection one, v_init one;
-    with retry caps the final round's position is drawn again) and the
-    values it interpolates.  Returns ((ms, by), tested rounds)."""
+    it needs (two per round of the sequential walk up to the first pass;
+    month two, rejection one, v_init one) and the values it
+    interpolates.  Returns ((ms, by), the rounds the sequential
+    walk tests)."""
     from tropical_cyclone_risk_tpu_torch import rng
     from tropical_cyclone_risk_tpu_torch.models import seeding
     from tropical_cyclone_risk_tpu_torch.ops import interp
@@ -448,10 +453,35 @@ def k3_bound(key, pack, cfg, prop):
                    + B * cells(pack.mask_grid, prop.lon, prop.lat)
                    + 2 * cells(pack.grid, prop.lon, prop.lat, prop.plane)
                    ) + nbytes(*prop)
-    draws = 2 * n_tested + (4 + (2 if cfg.seed_retry_caps else 0)) * n
+    draws = 2 * n_tested + 4 * n
     values = n_tested + (B + 2) * n
     return bound(n_bytes, OPS_PER_DRAW * draws + OPS_PER_VALUE * values), \
         n_tested
+
+
+def k3_times(key, pack, cfg, plane0):
+    """One propose_seeds call (the dispatcher) at N_SEEDS slots: its device
+    time, CUDA-event time and host time per call, and its device
+    operations per call with their names."""
+    from tropical_cyclone_risk_tpu_torch.models import seeding
+
+    def call():
+        return seeding.propose_seeds(key, pack, cfg, BASIN, N_SEEDS, plane0)
+    ops, names = device_ops(call, 10)
+    return {'device_ms': device_ms(call, 20), 'event_ms': cuda_ms(call, 20),
+            'host_ms': host_ms(call, 50), 'device_ops': ops,
+            'device_op_names': names}
+
+
+def k3_alone(key, pack, cfg, plane0):
+    """K3's kernel alone on one kept launcher and arena: device time
+    (torch.profiler) and CUDA-event time per launch."""
+    from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
+    lau = k3.launcher(pack, cfg, BASIN, N_SEEDS, plane0)
+    arena, _ = lau.outputs()
+    launch = lambda: lau(key, arena)
+    return {'ms': device_ms(launch, 20, ('seed_kernel',)),
+            'alone_event_ms': cuda_ms(launch, 20)}
 
 
 def check_k3_k5(pack_y, cfg_t, card):
@@ -460,41 +490,45 @@ def check_k3_k5(pack_y, cfg_t, card):
     JSON entries (launches are filled in from the workspace path)."""
     from tropical_cyclone_risk_tpu_torch import rng
     from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
-    from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
     from tropical_cyclone_risk_tpu_torch.models import seeding
     from tropical_cyclone_risk_tpu_torch.ops import fourier
     from tropical_cyclone_risk_tpu_torch.utils import basins
     dev = pack_y.device
     key = rng.fold_in(rng.key(0), 3)
     plane0 = cfg_t.start_month - 1
-    props, err3 = {}, 0.0
+    props, cfgs, err3 = {}, {}, 0.0
     for name, caps in (('no caps', None),
                        ('auto-tuned caps', cfg_t.seed_retry_caps),
                        ('overflow caps', OVERFLOW_CAPS)):
-        c = cfg_t.replace(seed_retry_caps=caps)
-        out = seeding.propose_seeds(key, pack_y, c, BASIN, N_SEEDS, plane0)
+        c = cfgs[name] = cfg_t.replace(seed_retry_caps=caps)
+        # twice: the kernel leaves its scratch zeroed for the next call
+        outs = [seeding.propose_seeds(key, pack_y, c, BASIN, N_SEEDS, plane0)
+                for _ in range(2)]
         ref = seeding.propose_seeds_plain(key, pack_y, c, BASIN, N_SEEDS,
                                           plane0)
-        bad = [f for f, a, b in zip(out._fields, out, ref) if not same(a, b)]
-        err3 = max([err3] + [max_err(a, b) for a, b in zip(out, ref)])
-        props[name] = out
+        bad = [f'{f} (call {i})' for i, out in enumerate(outs)
+               for f, a, b in zip(out._fields, out, ref) if not same(a, b)]
+        err3 = max([err3] + [max_err(a, b) for out in outs
+                             for a, b in zip(out, ref)])
+        props[name] = out = outs[0]
         log(f'[K3] {name} {caps}: {N_SEEDS} slots, dropped '
             f'{int(out.dropped.sum())} (twin {int(ref.dropped.sum())}), '
-            f'integrable {int(out.integrate.sum())}; fields not bit-exact: '
-            f'{bad or "none"}')
+            f'integrable {int(out.integrate.sum())}; fields not bit-exact '
+            f'in two calls: {bad or "none"}')
         if bad:
             raise AssertionError(f'K3 ({name}) differs from its twin: {bad}')
     if not props['overflow caps'].dropped.sum() > \
             props['no caps'].dropped.sum():
         raise AssertionError('the overflow caps dropped no slot')
-    curve = seeding.retry_unresolved_curve(key, pack_y, cfg_t, BASIN,
-                                           N_SEEDS)
+    curves = [seeding.retry_unresolved_curve(key, pack_y, cfg_t, BASIN,
+                                             N_SEEDS) for _ in range(2)]
     curve_ref = seeding.retry_unresolved_curve_plain(key, pack_y, cfg_t,
                                                      BASIN, N_SEEDS)
-    log(f'[K3] retry_unresolved_curve {curve.tolist()}, twin equal: '
-        f'{np.array_equal(curve, curve_ref)}')
-    if not np.array_equal(curve, curve_ref):
-        raise AssertionError(f'K3 curve {curve} != twin {curve_ref}')
+    same_curve = all(np.array_equal(cv, curve_ref) for cv in curves)
+    log(f'[K3] retry_unresolved_curve {curves[0].tolist()}, twin equal in '
+        f'two calls: {same_curve}')
+    if not same_curve:
+        raise AssertionError(f'K3 curve {curves} != twin {curve_ref}')
 
     b = basins.basin_bounds(cfg_t, BASIN)
     k5key = rng.fold_in(rng.key(0), 5)
@@ -521,20 +555,33 @@ def check_k3_k5(pack_y, cfg_t, card):
     log(f'[K5] bits, uniform, normal, randint at [16, {N_SEEDS}] and '
         f'[{N_SEEDS}], draw_fourier at {tuple(fs.A.shape)}: bit-exact')
 
-    c = cfg_t
+    # K3 through propose_seeds (the main path's dispatcher) and the kernel
+    # alone, with the auto-tuned caps (the main path's), without caps (no
+    # histogram, no last block) and with the overflow caps: one device
+    # operation per call, device time under the profiler
+    c = cfgs['auto-tuned caps']
+    k3t = {}
+    for name in ('auto-tuned caps', 'no caps', 'overflow caps'):
+        k3t[name] = k3_times(key, pack_y, cfgs[name], plane0)
+        k3t[name].update(k3_alone(key, pack_y, cfgs[name], plane0))
+        ops = k3t[name]['device_ops']
+        log(f'[K3] {card}: propose_seeds {N_SEEDS} slots, {name}: kernel '
+            f'alone {k3t[name]["ms"]:.4f} ms device '
+            f'({k3t[name]["alone_event_ms"]:.4f} ms event); through the '
+            f'dispatcher {k3t[name]["device_ms"]:.4f} ms device, '
+            f'{k3t[name]["event_ms"]:.4f} ms event, host '
+            f'{k3t[name]["host_ms"]:.4f} ms per call; device operations '
+            f'per call {ops} ({k3t[name]["device_op_names"]})')
+        if ops != 1:
+            raise AssertionError(f'K3 ({name}): {ops} device operations per '
+                                 f'propose_seeds call, not one')
     main = props['auto-tuned caps']
-    launch = k3.launcher('propose' if c.seed_retry_caps is None
-                         else 'propose_caps', key, pack_y, c, BASIN, N_SEEDS,
-                         plane0, [t.clone() for t in main])
-    ms3 = cuda_ms(launch, 20)
-    ms3_call = cuda_ms(lambda: seeding.propose_seeds(
-        key, pack_y, c, BASIN, N_SEEDS, plane0), 20)
     ms3_plain = cuda_ms(lambda: seeding.propose_seeds_plain(
         key, pack_y, c, BASIN, N_SEEDS, plane0), 3)
     (b3, by3), n_tested = k3_bound(key, pack_y, c, main)
     log(f'[K3] {card}: propose_seeds {N_SEEDS} slots (caps '
-        f'{c.seed_retry_caps}, {n_tested} rounds tested): kernel {ms3:.4f} '
-        f'ms, through the dispatcher {ms3_call:.4f} ms, plain twin '
+        f'{c.seed_retry_caps}, {n_tested} rounds of the sequential walk): '
+        f'kernel {k3t["auto-tuned caps"]["ms"]:.4f} ms device, plain twin '
         f'{ms3_plain:.3f} ms, bound {b3:.5f} ms ({by3})')
     amp = fourier._amplitudes(dev)
     ms5 = cuda_ms(lambda: k5.fourier_cuda(k5key, shape4, amp), 20)
@@ -556,9 +603,11 @@ def check_k3_k5(pack_y, cfg_t, card):
     return [
         {'name': 'seeding', 'route': 'cuda', 'source': src + 'csrc/seeding.cu',
          'replaces': 'tropical_cyclone_risk_tpu/models/seeding.py:95',
-         'launches': None, 'max_abs_err': err3, 'ms': ms3,
-         'plain_ms': ms3_plain, 'bound_ms': b3, 'bound_by': by3,
-         'library_ms': None},
+         'launches': None, 'max_abs_err': err3,
+         'ms': k3t['auto-tuned caps']['ms'], 'plain_ms': ms3_plain,
+         'bound_ms': b3, 'bound_by': by3, 'library_ms': None,
+         'per': 'call, auto-tuned caps (the kernel alone, device time)',
+         'times': k3t},
         {'name': 'threefry', 'route': 'cuda', 'source': src + 'csrc/rng.cu',
          'replaces': 'tropical_cyclone_risk_tpu/ops/fourier.py:84',
          'launches': None, 'max_abs_err': err5, 'ms': ms5,
@@ -980,6 +1029,10 @@ def build_all(dev):
         for fn, rep in ptxas_report(info['log']).items():
             log(f'[build] {name} {fn}: {rep}; SASS local loads/stores '
                 f'{sass.get(fn, "not read")}')
+        if name in ('cape_pi', 'seeding'):
+            for fn, (n_ins, loops) in sass_counts(info['path']).items():
+                log(f'[build] {name} {fn}: {n_ins} SASS instructions, '
+                    f'loops of {loops} instructions')
         log(f'[build] {name} nvcc {secs:.1f} s')
     report, clean = k1_frame(builds['integrator'][0])
     if clean is None:
@@ -1033,13 +1086,13 @@ def k1_frame(info):
 
 def kernel_label(mangled):
     """A short name for a mangled kernel name: its identifier ending in
-    _kernel with its bool template arguments (<0,0>), or the name."""
+    _kernel with its integer and bool template arguments (<0,0>), or the
+    name."""
     import re
-    found = re.search(r'([a-z][a-z_]*_kernel)((?:ILb[01]E)?(?:Lb[01]E)*)',
-                      mangled)
+    found = re.search(r'([a-z][a-z_]*_kernel)(I(?:L[a-z]+\d+E)+E)?', mangled)
     if found is None:
         return mangled
-    args = re.findall(r'Lb([01])', found.group(2))
+    args = re.findall(r'L[a-z]+(\d+)E', found.group(2) or '')
     return found.group(1) + (f'<{",".join(args)}>' if args else '')
 
 
@@ -1088,6 +1141,32 @@ def sass_local_memory(lib_path):
         name = kernel_label(part.split('\n', 1)[0].strip())
         out[name] = (f'LDL {len(re.findall(r"LDL", part))}, '
                      f'STL {len(re.findall(r"STL", part))}')
+    return out
+
+
+def sass_counts(lib_path):
+    """{kernel: (SASS instructions, [instructions in each loop])} of a
+    built library by cuobjdump -sass: a loop is the span from a backward
+    branch's target to the branch (static counts; a loop nested in another
+    is counted in both).  Empty when cuobjdump is not found."""
+    import re
+    text = cuobjdump('-sass', lib_path)
+    if text is None:
+        return {}
+    out = {}
+    for part in re.split(r'\n\s*Function : ', text)[1:]:
+        name = kernel_label(part.split('\n', 1)[0].strip())
+        addrs, loops = [], []
+        for line in part.splitlines():
+            m = re.search(r'/\*([0-9a-f]{4,})\*/\s+(.*)', line)
+            if not m:
+                continue
+            at = int(m.group(1), 16)
+            addrs.append(at)
+            b = re.search(r'\bBRA\b[^;]*?0x([0-9a-f]+)', m.group(2))
+            if b and int(b.group(1), 16) < at:
+                loops.append((at - int(b.group(1), 16)) // 16 + 1)
+        out[name] = (len(addrs), sorted(loops))
     return out
 
 
@@ -1302,11 +1381,17 @@ def main():
                 and bool(torch.isfinite(k6_out).all())):
             raise AssertionError(f'K6 err {k6_err} (tol {K6_TOL}), CPU '
                                  f'share {k6_cpu_share}, max {k6_cpu_err}')
+        if not (k6_err == 0.0 and k6_exact == 1.0):
+            raise AssertionError(f'K6 not bit-exact against its twin: share '
+                                 f'{k6_exact}, max abs err {k6_err}')
+        ms_k6_device = device_ms(lambda: pi_ops.cape_pi(*k6_args, **k6_kw),
+                                 20, ('cape_pi_kernel',))
         ms_k6 = cuda_ms(lambda: pi_ops.cape_pi(*k6_args, **k6_kw), 20)
         ms_k6_plain = cuda_ms(
             lambda: pi_ops.cape_pi_plain(*k6_args, **k6_kw), 2)
         k6_bound_ms, k6_by = k6_bound(k6_args, k6_out)
-        log(f'[K6] {card}: kernel {ms_k6:.3f} ms, plain twin '
+        log(f'[K6] {card}: kernel {ms_k6_device:.4f} ms device, '
+            f'{ms_k6:.4f} ms event through cape_pi, plain twin '
             f'{ms_k6_plain:.3f} ms, bound {k6_bound_ms:.4f} ms ({k6_by})')
         del k6_calls, k6_args, k6_out, k6_ref
 
@@ -1517,8 +1602,10 @@ def main():
          'source': src + 'csrc/cape_pi.cu',
          'replaces': 'tropical_cyclone_risk_tpu/ops/pi.py:92',
          'launches': launches['cape_pi'], 'max_abs_err': k6_err,
-         'ms': ms_k6, 'plain_ms': ms_k6_plain, 'bound_ms': k6_bound_ms,
-         'bound_by': k6_by, 'library_ms': None},
+         'ms': ms_k6_device, 'plain_ms': ms_k6_plain,
+         'bound_ms': k6_bound_ms, 'bound_by': k6_by, 'library_ms': None,
+         'per': '12 months (the kernel alone, device time)',
+         'event_ms': ms_k6},
         {'name': 'genesis', 'route': 'cuda',
          'source': src + 'csrc/integrator.cu',
          'replaces': 'tropical_cyclone_risk_tpu/models/simulator.py:295',
@@ -1624,22 +1711,40 @@ def check_small_launch(dev, Namelist, fields, pipeline, rng):
                              'CPU twins')
 
 
+# profiles taken per measurement before giving up: the card's tracer now
+# and then hands torch.profiler a session with no device activity at all
+PROFILE_TRIES = 3
+
+
+def profiled(fn, reps):
+    """(profile, its key_averages, the device-time attribute) of
+    torch.profiler over reps runs of fn(), after one run to warm up.  A
+    profile that recorded no device time at all is taken again, up to
+    PROFILE_TRIES times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        attr = ('self_device_time_total'
+                if hasattr(avg[0], 'self_device_time_total')
+                else 'self_cuda_time_total')
+        if any(getattr(e, attr) > 0 for e in avg):
+            return prof, avg, attr
+    raise AssertionError(f'torch.profiler recorded no device time in '
+                         f'{PROFILE_TRIES} profiles')
+
+
 def device_ms(fn, reps, names=None):
     """Milliseconds of device time per fn() in the kernels whose names
     contain one of `names` (None: every kernel), from torch.profiler over
     reps runs (so the host's dispatch between launches is not counted)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    avg = prof.key_averages()
-    attr = ('self_device_time_total'
-            if hasattr(avg[0], 'self_device_time_total')
-            else 'self_cuda_time_total')
+    _, avg, attr = profiled(fn, reps)
     total = sum(getattr(e, attr) for e in avg
                 if names is None and e.device_type.name == 'CUDA'
                 or names is not None and any(n in e.key for n in names))
@@ -1647,6 +1752,57 @@ def device_ms(fn, reps, names=None):
         return total / 1e3 / reps
     raise AssertionError(f'torch.profiler recorded no device time in '
                          f'{names or "any kernel"}')
+
+
+def device_ops(fn, reps):
+    """(device operations per fn(), {their short names: count per fn()}):
+    the kernels, memsets and copies on the card in a torch.profiler trace
+    over reps runs."""
+    import collections
+    prof, _, _ = profiled(fn, reps)
+    with tempfile.TemporaryDirectory(prefix='device_ops_') as tmp:
+        prof.export_chrome_trace(f'{tmp}/trace.json')
+        with open(f'{tmp}/trace.json') as f:
+            events = json.load(f)['traceEvents']
+    names = collections.Counter(
+        kernel_label(str(e.get('name')))[:48] for e in events
+        if e.get('ph') == 'X'
+        and e.get('cat') in ('kernel', 'gpu_memset', 'gpu_memcpy'))
+    return (sum(names.values()) / reps,
+            {k: v / reps for k, v in sorted(names.items())})
+
+
+def k6_times(dev):
+    """K6 through ops.pi.cape_pi on the main path's inputs: gen_thermo on
+    the one-year one-degree workspace of utils/synthetic_era5 (written into
+    build/kernel_times_ws on first use, then reused) with cape_pi
+    captured, then that call's device time (its kernels under
+    torch.profiler), CUDA-event time and host time."""
+    import os
+    from tropical_cyclone_risk_tpu_torch.config import load_namelist_py
+    from tropical_cyclone_risk_tpu_torch.ops import pi as pi_ops
+    from tropical_cyclone_risk_tpu_torch.preprocess import thermo_driver
+    from tropical_cyclone_risk_tpu_torch.utils import synthetic_era5
+    ws = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
+                      'kernel_times_ws')
+    nl = f'{ws}/namelist.py'
+    if not os.path.exists(nl):
+        nl = synthetic_era5.make_workspace(ws, WS_YEAR, WS_YEAR, nlat=181,
+                                           nlon=360, seed_batch=N_SEEDS)
+    cfg_ws = load_namelist_py(nl)
+    # gen_thermo's progress goes to stderr: stdout is the JSON line
+    with tempfile.TemporaryDirectory(prefix='k6_times_') as tmp, \
+            captured(pi_ops, 'cape_pi') as calls, \
+            contextlib.redirect_stdout(sys.stderr):
+        thermo_driver.gen_thermo(cfg_ws.replace(output_directory=tmp),
+                                 device=dev)
+    (args, kw, out, _), = calls
+
+    def call():
+        return pi_ops.cape_pi(*args, **kw)
+    return {'columns': out.numel(), 'levels': args[2].shape[0],
+            'device_ms': device_ms(call, 20, ('cape_pi_kernel',)),
+            'event_ms': cuda_ms(call, 20), 'host_ms': host_ms(call, 20)}
 
 
 def kernel_times(root):
@@ -1659,12 +1815,18 @@ def kernel_times(root):
     port has had since those kernels were written): the device time of its
     kernels under torch.profiler, the CUDA-event time per call, and the
     host time to make a call (for K4 also split into the launcher's
-    preparation and the launch); the wall time of five launches
-    (_simulate_batch at k_max 64, after one more); and a torch.profiler
-    trace of three launches (profile_launches: device kernels per launch, busy share, host
-    and device-span ms per stage, the genesis gate's among them); prints
-    one JSON line.  Run on two trees, a parent commit and its change, in
-    one chip call, it compares the two on one card."""
+    preparation and the launch); K3 through models.seeding.propose_seeds
+    at N_SEEDS slots with the auto-tuned caps, none and the overflow caps
+    (k3_times: device, event and host time, device operations per call);
+    K6 through ops.pi.cape_pi on the 12 x 181 x 360 columns and 28
+    levels that gen_thermo gives it on the one-year workspace of
+    utils/synthetic_era5 (written once into build/ and reused), and K6's
+    SASS instruction counts; the wall time of five launches (_simulate_batch at k_max 64,
+    after one more); and a torch.profiler trace of three launches
+    (profile_launches: device kernels per launch, busy share, host and
+    device-span ms per stage, the genesis gate's among them); prints one
+    JSON line.  Run on two trees, a parent commit and its change, in one
+    chip call, it compares the two on one card."""
     import concurrent.futures
     import os
     if not torch.cuda.is_available():
@@ -1675,15 +1837,27 @@ def kernel_times(root):
     if not pkg.__file__.startswith(root + os.sep):
         raise SystemExit(f'the port was imported from {pkg.__file__}')
     from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.kernels import cape_pi
     from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3_kernel
     from tropical_cyclone_risk_tpu_torch.models import diagnostics, pipeline
     from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(b) for b in (integrator.build, k4.build)]:
-            f.result()
-    cfg, _, pack_y, cfg_t = launch_setup(torch.device('cuda', 0))
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        built = [pool.submit(b) for b in (integrator.build, k4.build,
+                                          k3_kernel.build, cape_pi.build)]
+        k6_lib = [f.result() for f in built][-1]['path']
+    dev = torch.device('cuda', 0)
+    cfg, _, pack_y, cfg_t = launch_setup(dev)
     plane0 = cfg.start_month - 1
+    k3 = {name: k3_times(rng.fold_in(rng.key(0), 3), pack_y,
+                         cfg_t.replace(seed_retry_caps=caps), plane0)
+          for name, caps in (('auto-tuned caps', cfg_t.seed_retry_caps),
+                             ('no caps', None),
+                             ('overflow caps', OVERFLOW_CAPS))}
+    k6 = k6_times(dev)
+    k6['sass'] = {fn: {'instructions': n_ins, 'loops': loops}
+                  for fn, (n_ins, loops) in sass_counts(k6_lib).items()}
     with captured(diagnostics, 'axi_to_max_wind_raw') as k2_calls:
         segs, parts, _, _ = launch_calls(rng.key(99), pack_y, cfg_t, plane0)
     modes = {name: mode_calls(rng.key(97), pack_y, cfg_t.replace(**kw),
@@ -1732,7 +1906,8 @@ def kernel_times(root):
                                              BASIN, N_SEEDS, 64, plane0),
             3, f'{tmp}/launches.json')
     res = {'kernel_times': root, 'card': card_line(), 'k1': k1, 'k2': k2,
-           'k4': k4_rows, 'k1_modes_segment0_device_ms': k1_modes,
+           'k3': k3, 'k4': k4_rows, 'k6': k6,
+           'k1_modes_segment0_device_ms': k1_modes,
            'launch_ms': launch_ms[1:],
            'launch_ms_median': statistics.median(launch_ms[1:]),
            'profile': {'device_kernels_per_launch': per_launch,

@@ -357,32 +357,92 @@ def test_propose_seeds_seed_by_seed(packs, caps):
         1000))
 
 
-def _k3_caps_first(first, widths, R):
-    """The retry-compaction result the seeding kernel computes from each
-    slot's full-width first passing round (csrc/seeding.cu seed_caps): from
-    the first round whose unresolved slots #{first >= r} exceed its width
-    on, the slots still active and unresolved past rank widths[r] (slot
-    order) drop out; a dropped slot reads as never passing (R)."""
-    f = first.copy()
-    active = np.ones_like(f, dtype=bool)
-    counts = np.bincount(f, minlength=R + 1)
-    ge = np.cumsum(counts[::-1])[::-1]
+def _k3_first_rounds(passes, n, R):
+    """K3's warp-cooperative first rounds (csrc/seeding.cu first_round) on
+    the twin's mask verdicts passes [R, n]: per group of 32 slots, each
+    lane tests round 0 of its slot; then, while slots are unresolved, the
+    u unresolved slots' next k = min(32 // u, rounds left) rounds go to the
+    lanes (lane i: unresolved slot i // k, round base + i % k) and each
+    slot takes its lowest passing round by lane order.  Returns (first
+    round per slot, R for none; the (slot, round) pairs tested; the
+    passes over the lanes of each group)."""
+    first = np.full(n, R, np.int64)
+    tested, passes_per_warp = [], []
+    for w0 in range(0, n, 32):
+        slots = np.arange(w0, min(w0 + 32, n))
+        tested += [(s, 0) for s in slots]
+        first[slots[passes[0, slots]]] = 0
+        unres = [s for s in slots if not passes[0, s]]
+        base = 1
+        passes_per_warp.append(1)
+        while unres and base < R:
+            passes_per_warp[-1] += 1
+            u = len(unres)
+            k = min(32 // u, R - base)
+            hits = np.zeros(32, bool)
+            for lane in range(32):
+                j = lane // k
+                if j < u:
+                    r = base + lane - j * k
+                    tested.append((unres[j], r))
+                    hits[lane] = passes[r, unres[j]]
+            left = []
+            for j, s in enumerate(unres):
+                group = hits[j * k:(j + 1) * k]
+                if group.any():
+                    first[s] = base + int(group.argmax())
+                else:
+                    left.append(s)
+            unres, base = left, base + k
+    return first, tested, np.array(passes_per_warp)
+
+
+def _k3_overflow_drops(first, widths, R, threads=256):
+    """The last block's rewrite set (csrc/seeding.cu drop_overflow): the
+    blocks' lists of slots that missed round 0 (each block of `threads`
+    slots, in slot order), each of the last block's threads a run of
+    consecutive blocks; from the first retry round r0 whose unresolved
+    slots #{first >= r} exceed its width on, a run's counts of entries
+    with first >= r, exclusively scanned over the runs, start each run's
+    walk, which counts on and drops an entry when for some round r in
+    [r0, min(first, R - 1)] the entries with first >= r up to and
+    including it outnumber widths[r].  Returns the dropped slots' mask and
+    the histogram's #{first >= r}."""
+    n = first.size
+    ge = np.cumsum(np.bincount(first, minlength=R + 1)[::-1])[::-1]
     over = [r for r in range(1, R) if ge[r] > widths[r]]
-    for r in range(over[0] if over else R, R):
-        unresolved = active & (f >= r)
-        rank = np.cumsum(unresolved) - 1
-        active &= ~(unresolved & (rank >= widths[r]))
-    f[~active] = R
-    return f, ge
+    r0 = over[0] if over else R
+    nb = -(-n // threads)
+    lists = [[(s, int(first[s])) for s in range(b * threads,
+                                               min(n, (b + 1) * threads))
+              if first[s] >= 1] for b in range(nb)]
+    per = -(-nb // threads)
+    runs = [sum(lists[t * per:(t + 1) * per], []) for t in range(threads)]
+    counts = np.array([[sum(f >= r for _, f in run) for r in range(R)]
+                       for run in runs])
+    before = np.cumsum(counts, axis=0) - counts
+    dropped = np.zeros(n, bool)
+    for run, c in zip(runs, before):
+        c = c.copy()
+        for s, f in run:
+            for r in range(r0, min(f, R - 1) + 1):
+                c[r] += 1
+                dropped[s] |= c[r] > widths[r]
+    return dropped, ge
 
 
-@pytest.mark.parametrize('caps', [(0.5, 0.25, 0.125) + (1 / 64,) * 12,
+@pytest.mark.parametrize('caps', [None, (0.5, 0.25, 0.125) + (1 / 64,) * 12,
                                   OVERFLOW_CAPS])
 def test_seeding_kernel_design_matches_the_twin(packs, caps):
-    """K3's design on the host: a full-width first passing round per slot
-    plus its histogram, then the successive stable ranks only where a
-    retry round overflows, gives the twin's first round, and with it its
-    dropped slots, exactly; the histogram gives retry_unresolved_curve."""
+    """K3's design emulated on the host, held bit for bit against the
+    twin: the warp-cooperative rounds give each slot the sequential walk's
+    first passing round and position (testing each round of a slot at most
+    once, and ~1.1 rounds per slot); the speculative finish is the twin's
+    full-width result; the last block's counts over the blocks' lists,
+    applied only where a retry round overflows, select exactly the slots
+    the twin's successive stable ranks drop, and rewriting them as slots
+    with no passing round (round 0's position) gives all 11 fields of
+    propose_seeds_plain; the histogram gives retry_unresolved_curve."""
     _, tpack = packs
     cfg = CFG.replace(seed_retry_caps=caps)
     n = 8192 if caps == OVERFLOW_CAPS else 2048
@@ -395,28 +455,73 @@ def test_seeding_kernel_design_matches_the_twin(packs, caps):
     passes = (seeding._mask_lookup(tpack)(lon_r.reshape(-1),
                                           lat_r.reshape(-1))
               .reshape(R, n) >= seeding.MASK_PASS).numpy()
-    full = np.where(passes.any(0), passes.argmax(0), R)
-    first, ge = _k3_caps_first(full, [n] + seeding.retry_widths(cfg, n), R)
-    pt = seeding.propose_seeds(kt, tpack, cfg, 'GL', n, 0)
-    np.testing.assert_array_equal(first == R, pt.dropped.numpy())
+    first, tested, warp_passes = _k3_first_rounds(passes, n, R)
+    assert len(set(tested)) == len(tested)
+    # a group of 32 slots walked one slot per lane waits for its slowest
+    # lane: min(first, R - 1) + 1 rounds (found: 3.9 walked, 2.0 shared)
+    walk = np.minimum(first, R - 1).reshape(-1, 32).max(1) + 1
+    assert warp_passes.mean() < 0.6 * walk.mean()
+    pick = torch.from_numpy(np.where(first < R, first, 0))[None]
+    lon = torch.gather(lon_r, 0, pick)[0]
+    lat = torch.gather(lat_r, 0, pick)[0]
+
+    full = seeding.propose_seeds_plain(kt, tpack, CFG, 'GL', n, 0)
+    np.testing.assert_array_equal(first == R, full.dropped.numpy())
+    assert torch.equal(lon, full.lon) and torch.equal(lat, full.lat)
+    widths = ([n] + seeding.retry_widths(cfg, n) if caps is not None
+              else [n] * R)
+    drop, ge = _k3_overflow_drops(first, widths, R)
+    # the runs' partition does not change the set (16-slot blocks: runs of
+    # many blocks, as the kernel has past 65536 slots)
     np.testing.assert_array_equal(
-        ge[1:], seeding.retry_unresolved_curve(kt, tpack, cfg, 'GL', n))
+        _k3_overflow_drops(first, widths, R, threads=16)[0], drop)
+    no_pass = seeding.propose_seeds_plain(
+        kt, tpack._replace(run_mask=torch.zeros_like(tpack.run_mask)), CFG,
+        'GL', n, 0)
+    got = [torch.where(torch.from_numpy(drop), b_, a) for a, b_ in
+           zip(full, no_pass)]
+    want = seeding.propose_seeds_plain(kt, tpack, cfg, 'GL', n, 0)
+    for name, a, b_ in zip(want._fields, got, want):
+        assert a.dtype == b_.dtype and torch.equal(a, b_), name
+    np.testing.assert_array_equal(
+        ge[1:], seeding.retry_unresolved_curve_plain(kt, tpack, cfg, 'GL',
+                                                     n))
     if caps == OVERFLOW_CAPS:
-        assert (first == R).sum() > (full == R).sum() + 100
+        assert drop.sum() > 100
+    else:
+        assert not drop.any()
+
+
+def _k3_keys(parent):
+    """The stream keys csrc/seeding.cu derive_keys computes, thread t of
+    seven: the threefry block at counter (0, j) of the parent key for
+    split stream j (streams 0-2 and 4-5 by threads 0-2 and 5-6), and for
+    threads 3 and 4 the block at (0, t - 3) of split stream 3."""
+    keys = []
+    for t in range(7):
+        j = t if t < 3 else (3 if t <= 4 else t - 1)
+        k = rng.Key(*rng.threefry2x32(parent, 0, j))
+        if t in (3, 4):
+            k = rng.Key(*rng.threefry2x32(k, 0, t - 3))
+        keys.append(k)
+    return keys
 
 
 def test_seeding_kernel_params_are_the_twins_constants(packs):
-    """K3's parameter block: the split keys, the uniform bounds and the
-    float32 constants of propose_seeds_plain, in csrc/seeding.cu's order."""
+    """K3's parameter block: the uniform bounds and the float32 constants
+    of propose_seeds_plain, in csrc/seeding.cu's order; and the stream
+    keys that the kernel derives from the call's key (no key is in the
+    block) are rng.split's and rng.randint_params'."""
     from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
     _, tpack = packs
     cfg = CFG.replace(seed_retry_caps=OVERFLOW_CAPS)
-    kt = rng.key(21)
-    keys, dp, fp, ip = k3.params(kt, tpack, cfg, 'GL', 2048, 3)
-    k_lon, k_lat0, k_latr, k_month, k_reject, k_vinit = rng.split(kt, 6)
-    assert keys.tolist() == [w for k in (k_lon, k_lat0, k_latr,
-                                         *rng.split(k_month, 2), k_reject,
-                                         k_vinit) for w in k]
+    for seed in (21, 0, 2 ** 32 - 1):
+        kt = rng.key(seed)
+        k_lon, k_lat0, k_latr, k_month, k_reject, k_vinit = rng.split(kt, 6)
+        assert _k3_keys(kt) == [k_lon, k_lat0, k_latr,
+                                *rng.randint_params(k_month, 1, 13)[0],
+                                k_reject, k_vinit]
+    dp, fp, ip = k3.params(tpack, cfg, 'GL', 2048, 3)
     b = basins.basin_bounds(cfg, 'GL')
     assert dp[:2].tolist() == list(rng.uniform_params(b[0], b[2]))
     assert dp[8:].tolist() == list(rng.uniform_params(rng.NORMAL_LO, 1.0))
@@ -429,8 +534,73 @@ def test_seeding_kernel_params_are_the_twins_constants(packs):
     assert fp[13] == np.float32(12.0) and fp[3] == np.float32(35.0)
     assert ip[:2].tolist() == [2048, seeding.N_RETRY_ROUNDS]
     assert ip[11] == 3 - cfg.start_month
+    assert ip[12:14].tolist() == list(rng.randint_params(kt, 1, 13)[1:])
     R = seeding.N_RETRY_ROUNDS
     assert ip[15:15 + R].tolist() == [2048] + seeding.retry_widths(cfg, 2048)
+
+
+@pytest.mark.parametrize('n', [1, 1000, 2048])
+def test_seeding_kernel_arena_holds_the_twins_fields(packs, n):
+    """K3's 11 outputs as views of one arena: the twin's dtypes and
+    shapes, each view aligned to its type, disjoint and covering the
+    arena, and the byte offsets the kernel is given are the views'."""
+    from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
+    _, tpack = packs
+    sizes, offsets = k3.arena_layout(n)
+    arena = torch.empty((sum(sizes),), dtype=torch.uint8)
+    views = k3.arena_views(arena, n)
+    want = seeding.propose_seeds_plain(rng.key(3), tpack, CFG, 'GL', n, 0)
+    spans = []
+    for name, v, w in zip(want._fields, views, want):
+        assert v.dtype == w.dtype and v.shape == w.shape, name
+        at = v.data_ptr() - arena.data_ptr()
+        assert at == offsets[name] and at % v.element_size() == 0, name
+        spans.append((at, at + v.numel() * v.element_size()))
+    spans.sort()
+    assert spans[0][0] == 0 and spans[-1][1] == arena.numel()
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+
+
+def test_seeding_launchers_go_with_their_pack(packs, monkeypatch):
+    """K3's kept launchers: one for each (pack's fields, cfg, basin, n,
+    plane_offset, stream), reused while those fields live, holding none of
+    the pack's own tensors, dropped when one of them is freed; and a
+    launcher refuses a call on another stream than its own, whose scratch
+    would race.  The card (device, current stream, library) is stood in
+    for on the CPU."""
+    import weakref
+    from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
+    _, tpack = packs
+    stream = [5]
+    monkeypatch.setattr(k3, '_LAUNCHERS', {})
+    monkeypatch.setattr(k3, '_device', lambda pack: pack.env.device)
+    monkeypatch.setattr(k3, '_entry', lambda: None)
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: None)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda dev: type('S', (), {'cuda_stream':
+                                                   stream[0]})())
+    cfg = CFG.replace(seed_retry_caps=OVERFLOW_CAPS)
+    year0 = fields.slice_pack_year(tpack, cfg, 0)
+    a = k3.launcher(year0, cfg, 'GL', 1024, 3)
+    assert k3.launcher(year0._replace(wind=year0.wind), cfg, 'GL', 1024,
+                       3) is a
+    assert a.copies == [] and a.stream == 5
+    assert k3.launcher(year0, cfg, 'GL', 1024, 4) is not a
+    assert k3.launcher(year0, CFG, 'GL', 1024, 3) is not a
+    assert len(k3._LAUNCHERS) == 3
+    stream[0] = 6
+    with pytest.raises(RuntimeError, match='stream'):
+        a(rng.key(1), None)
+    b = k3.launcher(year0, cfg, 'GL', 1024, 3)
+    assert b is not a and b.stream == 6 and len(k3._LAUNCHERS) == 4
+    gone = weakref.ref(a)
+    del a, b
+    again = fields.slice_pack_year(tpack, cfg, 0)
+    k3.launcher(again, cfg, 'GL', 1024, 3)
+    del year0
+    assert len(k3._LAUNCHERS) == 1 and gone() is None
+    del again
+    assert k3._LAUNCHERS == {}
 
 
 def test_seeding_wrappers_refuse_cpu_tensors(packs):

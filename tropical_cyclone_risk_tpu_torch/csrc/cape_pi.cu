@@ -19,12 +19,25 @@
 // that level.  The first condensing level (the dry/moist switch of the
 // lifted parcel) is a flag that turns on at the first level above the LCL.
 //
-// What bounds it on this card: the bytes of the two [L, columns] profiles
-// (each read once, neighbouring threads on neighbouring columns) against
-// ~30 float32 operations, two table lookups and up to three exp/pow per
-// level; see chip_smoke.py for the bound it is held to.  The 160 KB table
-// is read through the read-only cache (__ldg); moving it to shared memory
-// is a later change.
+// What bounds it on this card: not the bytes of the two [L, columns]
+// profiles (each read once, neighbouring threads on neighbouring columns)
+// but the instructions it issues: built with -fmad=false and without fast
+// math, each IEEE division, logf, expf and powf costs tens of them.  So
+// the work that depends on the level alone or on the column alone leaves
+// the walk: a block prologue computes once per level, into shared memory,
+// the pressure, -dlnp, the dry-adiabat factor (pl / p_ns)^(Rd/cp) (p_ns is
+// the first level's pressure, the same for every column) and the table's
+// pressure cell and weights; each column computes once the entropy cells
+// and weights of its two parcels (s_ns for the lifted one, ss for the
+// saturated one).  The walk keeps what truly changes per level: the
+// environment's density temperature, the two four-corner blends, the
+// parcels' saturation formulas, the sums and the outflow pair.
+//
+// Work layout on the card: 128 threads per block, one level per loop
+// iteration, the 160 KB entropy table read through the read-only cache
+// (__ldg).  256 threads per block, two levels per iteration and the table
+// staged in shared memory were each timed against this in one call on the
+// card, and none was faster (PERF.md).
 //
 // Numerics: built without --use_fast_math and with -fmad=false, so every
 // operation rounds as the separate torch kernels of the plain twin do; the
@@ -33,7 +46,11 @@
 // package's) operation order, each constant is the float32 rounding the
 // twin uses (a parameter block filled on the host), and min/max/clamp
 // propagate NaN as torch and XLA do (fminf/fmaxf drop NaN), so land
-// columns (SST 0 K) and columns never buoyant end as the twin's do.
+// columns (SST 0 K) and columns never buoyant end as the twin's do.  The
+// hoisted values are the same operations on the same operands as the ones
+// they replace (1 - w included), so the result is bit-exact by
+// construction; tests/test_torch_cape_pi_design.py emulates this order in
+// torch and holds it against the twin bit for bit.
 //
 // The C entry returns cudaGetLastError() after the launch; the wrapper
 // (kernels/cape_pi.py) raises if it is not cudaSuccess.
@@ -151,18 +168,47 @@ __device__ __forceinline__ int cell(float x, float x0, float dx, int n,
   return i;
 }
 
-// EntropyTable.lookup: interp.bilinear_scalar(T, grid, s, p)
-__device__ float lookup(const Params& P, const float* __restrict__ table,
-                        float p, float s) {
-  float wx, wy;
-  const int ix = cell(s, P.s0, P.ds, P.ns, &wx);
-  const int iy = cell(p, P.p0, P.dp, P.np_, &wy);
-  const int base = iy * P.ns + ix;
+// what the walk needs of one level, the same for every column: the
+// pressure, -dlnp, the dry-adiabat factor and the weight of the table's
+// pressure cell (a), and 1 - that weight with the cell's first row (b)
+struct Levels {
+  const float4* a;   // pl, -dlnp, (pl / p_ns)^(Rd/cp), wy
+  const float2* b;   // 1 - wy, iy * ns (as int bits)
+};
+
+// the block prologue: one thread per level; the same operations, in the
+// same order, as the walk made on every level of every column
+__device__ void level_prologue(const Params& P, const float* __restrict__ p_env,
+                               float4* la, float2* lb) {
+  const int L = P.L;
+  const float p_ns = __ldg(p_env);
+  for (int l = threadIdx.x; l < L; l += blockDim.x) {
+    const float pl = __ldg(p_env + l);
+    // -dlnp of jnp.diff(lnp, append=2 lnp[-1] - lnp[-2])
+    const float lnp = logf(pl);
+    float dlnp;
+    if (l + 1 < L)
+      dlnp = logf(__ldg(p_env + l + 1)) - lnp;
+    else
+      dlnp = (2.0f * lnp - logf(__ldg(p_env + L - 2))) - lnp;
+    float wy;
+    const int iy = cell(pl, P.p0, P.dp, P.np_, &wy);
+    la[l] = make_float4(pl, -dlnp, powf(pl / p_ns, P.rd_cp), wy);
+    lb[l] = make_float2(1.0f - wy, __int_as_float(iy * P.ns));
+  }
+}
+
+// EntropyTable.lookup at a level's pressure cell (iyns, wy, 1 - wy) and a
+// column's entropy cell (ix, wx, 1 - wx): interp.bilinear_scalar's blend
+__device__ __forceinline__ float blend(const float* __restrict__ table,
+                                       int ns, int iyns, float wy,
+                                       float omwy, int ix, float wx,
+                                       float omwx) {
+  const int base = iyns + ix;
   const float c00 = __ldg(table + base), c01 = __ldg(table + base + 1);
-  const float c10 = __ldg(table + base + P.ns);
-  const float c11 = __ldg(table + base + P.ns + 1);
-  return (1.0f - wy) * ((1.0f - wx) * c00 + wx * c01) +
-         wy * ((1.0f - wx) * c10 + wx * c11);
+  const float c10 = __ldg(table + base + ns);
+  const float c11 = __ldg(table + base + ns + 1);
+  return omwy * (omwx * c00 + wx * c01) + wy * (omwx * c10 + wx * c11);
 }
 
 // pi.cape_pi outflow(): the sub-grid level of neutral buoyancy between the
@@ -178,100 +224,134 @@ __device__ __forceinline__ Outflow outflow(const Params& P, float p1,
   return o;
 }
 
-__global__ void __launch_bounds__(128)
+// one column's walk state and its per-column constants
+struct Walk {
+  // the column: the lifted parcel's start, its LCL and both entropy cells
+  float T_ns, r_ns, pLCL;
+  int ix_a, ix_s;
+  float wx_a, omwx_a, wx_s, omwx_s;
+  // the running sums, the partial sum at the last buoyant level and the
+  // outflow of the pair (last buoyant level, the level above)
+  float sum_a, sum_s, cape_a, cape_s, area_a, area_s, T_out_s;
+  int out_a, out_s;
+  bool condensed, prev_buoy_a, prev_buoy_s;
+  float prev_p, prev_Te, prev_dTa, prev_dTs;
+};
+
+__device__ __forceinline__ void walk_level(const Params& P, const Levels& lv,
+                                           const float* __restrict__ table,
+                                           const float* __restrict__ T_env,
+                                           const float* __restrict__ r_env,
+                                           int64_t n, int64_t c, int l,
+                                           Walk& w) {
+  const float4 la = lv.a[l];
+  const float2 lb = lv.b[l];
+  const float pl = la.x, neg_dlnp = la.y, dry = la.z, wy = la.w;
+  const float omwy = lb.x;
+  const int iyns = __float_as_int(lb.y);
+  const float Te = T_env[l * n + c];
+  const float re = r_env[l * n + c];
+  const float Trho_env = t_rho(P, Te, re);
+
+  // ascent of the lifted parcel: dry adiabat below the first condensing
+  // level (the top level when none condenses), moist above
+  w.condensed = w.condensed || (w.pLCL > pl) || (l == P.L - 1);
+  float Ta, ra;
+  if (!w.condensed) {
+    Ta = w.T_ns * dry;
+    ra = w.r_ns;
+  } else {
+    Ta = blend(table, P.ns, iyns, wy, omwy, w.ix_a, w.wx_a, w.omwx_a);
+    ra = sat_rs(P, sat_es(P, Ta), pl);
+  }
+  // the surface-saturated parcel: a moist adiabat from the surface
+  const float Ts = blend(table, P.ns, iyns, wy, omwy, w.ix_s, w.wx_s,
+                         w.omwx_s);
+  const float rsp = sat_rs(P, sat_es(P, Ts), pl);
+  const float Trho_a = t_rho(P, Ta, ra), Trho_s = t_rho(P, Ts, rsp);
+  const float dTa = Trho_a - Trho_env, dTs = Trho_s - Trho_env;
+
+  w.sum_a = w.sum_a + (P.Rd * dTa) * neg_dlnp;
+  w.sum_s = w.sum_s + (P.Rd * dTs) * neg_dlnp;
+
+  // the previous level was the last buoyant one so far: its outflow
+  if (w.prev_buoy_a)
+    w.area_a = outflow(P, w.prev_p, pl, w.prev_dTa, dTa, w.prev_Te, Te).area;
+  if (w.prev_buoy_s) {
+    const Outflow o = outflow(P, w.prev_p, pl, w.prev_dTs, dTs, w.prev_Te,
+                              Te);
+    w.T_out_s = o.T_out;
+    w.area_s = o.area;
+  }
+  w.prev_buoy_a = Trho_a >= Trho_env;
+  w.prev_buoy_s = Trho_s >= Trho_env;
+  if (w.prev_buoy_a) { w.out_a = l; w.cape_a = w.sum_a; }
+  if (w.prev_buoy_s) { w.out_s = l; w.cape_s = w.sum_s; }
+  w.prev_p = pl;
+  w.prev_Te = Te;
+  w.prev_dTa = dTa;
+  w.prev_dTs = dTs;
+}
+
+constexpr int kThreads = 128;
+
+__global__ void __launch_bounds__(kThreads)
 cape_pi_kernel(const Params P, const float* __restrict__ sst,
                const float* __restrict__ p_surf,
                const float* __restrict__ p_env,
                const float* __restrict__ T_env,
                const float* __restrict__ r_env,
                const float* __restrict__ table, float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= P.n_col) return;
-  const int64_t n = P.n_col;
+  extern __shared__ float4 smem[];
   const int L = P.L;
+  float4* la = smem;
+  float2* lb = reinterpret_cast<float2*>(la + L);
+  level_prologue(P, p_env, la, lb);
+  __syncthreads();
+  const Levels lv = {la, lb};
+  const int64_t n = P.n_col;
+  const float p_ns = __ldg(p_env);
+  const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < n) {
+    const float sst_c = sst[c], ps = p_surf[c];
+    Walk w;
+    w.T_ns = T_env[c];
+    w.r_ns = r_env[c];
+    const float rs = sat_rs(P, sat_es(P, sst_c), ps);
+    const float rh = ((w.r_ns / rs) * (1.0f + rs / P.eps)) /
+                     (1.0f + w.r_ns / P.eps);
+    const float s_ns = s_unsat(P, w.T_ns, p_ns, w.r_ns);
+    const float ss = s_sat(P, sst_c, ps);
+    w.pLCL = get_lcl(P, p_ns, w.T_ns, w.r_ns, rh);
+    w.ix_a = cell(s_ns, P.s0, P.ds, P.ns, &w.wx_a);
+    w.ix_s = cell(ss, P.s0, P.ds, P.ns, &w.wx_s);
+    w.omwx_a = 1.0f - w.wx_a;
+    w.omwx_s = 1.0f - w.wx_s;
 
-  const float sst_c = sst[c], ps = p_surf[c];
-  const float T_ns = T_env[c], r_ns = r_env[c], p_ns = __ldg(p_env);
+    w.sum_a = w.sum_s = w.cape_a = w.cape_s = 0.0f;
+    w.area_a = w.area_s = w.T_out_s = 0.0f;
+    w.out_a = w.out_s = -1;
+    w.condensed = w.prev_buoy_a = w.prev_buoy_s = false;
+    w.prev_p = w.prev_Te = w.prev_dTa = w.prev_dTs = 0.0f;
+    for (int l = 0; l < L; ++l)
+      walk_level(P, lv, table, T_env, r_env, n, c, l, w);
 
-  const float rs = sat_rs(P, sat_es(P, sst_c), ps);
-  const float rh = ((r_ns / rs) * (1.0f + rs / P.eps)) / (1.0f + r_ns / P.eps);
-  const float s_ns = s_unsat(P, T_ns, p_ns, r_ns);
-  const float ss = s_sat(P, sst_c, ps);
-  const float pLCL = get_lcl(P, p_ns, T_ns, r_ns, rh);
-
-  // the walk: running sums, the partial sum at the last buoyant level,
-  // and the outflow of the pair (last buoyant level, the level above)
-  float sum_a = 0.0f, sum_s = 0.0f, cape_a = 0.0f, cape_s = 0.0f;
-  int out_a = -1, out_s = -1;
-  float area_a = 0.0f, area_s = 0.0f, T_out_s = 0.0f;
-  bool condensed = false;
-  float lnp = logf(__ldg(p_env));
-  float prev_p = 0.0f, prev_Te = 0.0f, prev_dTa = 0.0f, prev_dTs = 0.0f;
-  bool prev_buoy_a = false, prev_buoy_s = false;
-  for (int l = 0; l < L; ++l) {
-    const float pl = __ldg(p_env + l);
-    const float Te = T_env[l * n + c];
-    const float re = r_env[l * n + c];
-    const float Trho_env = t_rho(P, Te, re);
-
-    // ascent of the lifted parcel: dry adiabat below the first
-    // condensing level (the top level when none condenses), moist above
-    condensed = condensed || (pLCL > pl) || (l == L - 1);
-    float Ta, ra;
-    if (!condensed) {
-      Ta = T_ns * powf(pl / p_ns, P.rd_cp);
-      ra = r_ns;
-    } else {
-      Ta = lookup(P, table, pl, s_ns);
-      ra = sat_rs(P, sat_es(P, Ta), pl);
+    // never buoyant: the top level, with every level summed
+    if (w.out_a < 0) { w.out_a = L - 1; w.cape_a = w.sum_a; }
+    if (w.out_s < 0) { w.out_s = L - 1; w.cape_s = w.sum_s; }
+    // buoyant up to the top: no outflow correction, T_out undefined
+    if (w.out_a == L - 1) w.area_a = 0.0f;
+    if (w.out_s == L - 1) {
+      w.area_s = 0.0f;
+      w.T_out_s = __int_as_float(0x7fc00000);
     }
-    // the surface-saturated parcel: a moist adiabat from the surface
-    const float Ts = lookup(P, table, pl, ss);
-    const float rsp = sat_rs(P, sat_es(P, Ts), pl);
-    const float Trho_a = t_rho(P, Ta, ra), Trho_s = t_rho(P, Ts, rsp);
-    const float dTa = Trho_a - Trho_env, dTs = Trho_s - Trho_env;
 
-    // -dlnp of jnp.diff(lnp, append=2 lnp[-1] - lnp[-2])
-    float dlnp;
-    if (l + 1 < L) {
-      const float lnp_next = logf(__ldg(p_env + l + 1));
-      dlnp = lnp_next - lnp;
-      lnp = lnp_next;
-    } else {
-      dlnp = (2.0f * lnp - logf(__ldg(p_env + L - 2))) - lnp;
-    }
-    sum_a = sum_a + (P.Rd * dTa) * -dlnp;
-    sum_s = sum_s + (P.Rd * dTs) * -dlnp;
-
-    // the previous level was the last buoyant one so far: its outflow
-    if (prev_buoy_a)
-      area_a = outflow(P, prev_p, pl, prev_dTa, dTa, prev_Te, Te).area;
-    if (prev_buoy_s) {
-      const Outflow o = outflow(P, prev_p, pl, prev_dTs, dTs, prev_Te, Te);
-      T_out_s = o.T_out;
-      area_s = o.area;
-    }
-    prev_buoy_a = Trho_a >= Trho_env;
-    prev_buoy_s = Trho_s >= Trho_env;
-    if (prev_buoy_a) { out_a = l; cape_a = sum_a; }
-    if (prev_buoy_s) { out_s = l; cape_s = sum_s; }
-    prev_p = pl;
-    prev_Te = Te;
-    prev_dTa = dTa;
-    prev_dTs = dTs;
+    const float cape = nan_to_num(nan_max(w.cape_a + w.area_a, 0.0f));
+    const float cape_diff = (w.cape_s + w.area_s) - cape;
+    const float pi = sqrtf(nan_max(((P.cecd * sst_c) / w.T_out_s) *
+                                   cape_diff, 0.0f));
+    out[c] = nan_to_num(pi);
   }
-  // never buoyant: the top level, with every level summed
-  if (out_a < 0) { out_a = L - 1; cape_a = sum_a; }
-  if (out_s < 0) { out_s = L - 1; cape_s = sum_s; }
-  // buoyant up to the top: no outflow correction, T_out undefined
-  if (out_a == L - 1) area_a = 0.0f;
-  if (out_s == L - 1) { area_s = 0.0f; T_out_s = __int_as_float(0x7fc00000); }
-
-  float cape = nan_to_num(nan_max(cape_a + area_a, 0.0f));
-  const float cape_diff = (cape_s + area_s) - cape;
-  const float pi = sqrtf(nan_max(((P.cecd * sst_c) / T_out_s) * cape_diff,
-                                 0.0f));
-  out[c] = nan_to_num(pi);
 }
 
 }  // namespace
@@ -294,9 +374,9 @@ extern "C" int tc_cape_pi(const float* fparams, const int* iparams,
   const int* ip = iparams;
   P.ns = *ip++; P.np_ = *ip++; P.L = *ip++; P.n_col = *ip++;
 
-  const int threads = 128;
-  const int blocks = (P.n_col + threads - 1) / threads;
-  cape_pi_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (P.n_col + kThreads - 1) / kThreads;
+  const size_t shared = (size_t)P.L * (sizeof(float4) + sizeof(float2));
+  cape_pi_kernel<<<blocks, kThreads, shared, (cudaStream_t)stream>>>(
       P, sst, p_surf, p_env, T_env, r_env, table, out);
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,9 @@
   (csrc/integrator.cu).
 - ``vmax`` (K2): the vmax diagnostic pass, CUDA C++ for sm_90a
   (csrc/vmax.cu).
-- ``seeding`` (K3): genesis seeding, one thread per slot with lazily drawn
-  proposal rounds, CUDA C++ for sm_90a (csrc/seeding.cu).
+- ``seeding`` (K3): genesis seeding in one launch, lazily drawn proposal
+  rounds shared over each warp's lanes, the stream keys derived on the
+  card, CUDA C++ for sm_90a (csrc/seeding.cu).
 - ``threefry`` (K5): the threefry2x32 stream and its bits / uniform /
   normal / randint samplers, and the fused draw_fourier, CUDA C++ for
   sm_90a (csrc/rng.cu; its device functions, csrc/threefry.cuh, are
@@ -13,8 +14,8 @@
 - ``compact`` (K4): the launch's compactions (the stable partition order
   with its row gathers and maps, and the survivor stitch), CUDA C++ for
   sm_90a (csrc/compact.cu).
-- ``cape_pi`` (K6): potential intensity per column, CUDA C++ for sm_90a
-  (csrc/cape_pi.cu).
+- ``cape_pi`` (K6): potential intensity per column, the level-only and
+  column-only work computed once, CUDA C++ for sm_90a (csrc/cape_pi.cu).
 - ``genesis`` (K7): the step-0 genesis gate, CUDA C++ for sm_90a, a second
   kernel of csrc/integrator.cu that reuses K1's gather and coloring.
 

@@ -106,12 +106,18 @@ def uniform_params(minval, maxval) -> tuple:
     return float(lo), float(np.float32(hi - lo))
 
 
-def randint_params(k: Key, minval: int, maxval: int) -> tuple:
-    """(the two stream keys, span, multiplier) of ``randint``."""
+def randint_span(minval: int, maxval: int) -> tuple:
+    """(span, multiplier) of ``randint``, which depend on the bounds
+    alone."""
     span = int(maxval) - int(minval)
     if not 0 < span < 2 ** 31:
         raise ValueError(f'unsupported randint range [{minval}, {maxval})')
-    return split(k, 2), span, (2 ** 16 % span) ** 2 % span
+    return span, (2 ** 16 % span) ** 2 % span
+
+
+def randint_params(k: Key, minval: int, maxval: int) -> tuple:
+    """(the two stream keys, span, multiplier) of ``randint``."""
+    return (split(k, 2), *randint_span(minval, maxval))
 
 
 # normal draws its uniform on [nextafter(-1, 0), 1)
