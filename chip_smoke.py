@@ -27,11 +27,16 @@ Phases (any failure raises, and the script exits non-zero):
                through its plain twin on the card, without retry caps,
                with the auto-tuned caps and with caps that overflow (slots
                drop), and retry_unresolved_curve (twice); K5's bits /
-               uniform / normal / randint at [16, n] and [n] and its fused
-               draw_fourier at [n, 4, 15] against the plain threefry twins:
-               all bit-exact; one device operation per propose_seeds call
-               under torch.profiler; K3's times alone and through its
-               dispatcher (device, event and host), K5's, and bounds.
+               uniform / normal / randint at [16, n] and [n], its fused
+               draw_fourier at [n, 4, 15], and its row draw at the
+               integrate order (131072 -> m rows, the main path's) and at
+               m == n against the plain threefry twins: all bit-exact; the
+               Fourier entries' shared cos/sin on all 2^23 phases they
+               meet against torch.cos and torch.sin; one device operation
+               per propose_seeds call under torch.profiler; K3's times
+               alone and through its dispatcher (device, event and host),
+               K5's row and full-width draws (device time), and bounds
+               (the threefry draws counted by pipe from the SASS).
    K4        - one 131072-seed launch with every compaction (the integrate
                compaction, every re-compaction boundary) and
                compact_survivors' partition and survivor stitch at k_max 64
@@ -40,7 +45,9 @@ Phases (any failure raises, and the script exits non-zero):
                each of the launch's ten partitions and their sum (beside
                torch.sort's stable order, and torch.sort with one
                index_select per row tensor), of the integrate compaction
-               and of the stitch, with their bounds.
+               (also with the full-width Fourier rows among its row
+               tensors, as the parent launch made it) and of the stitch,
+               with their bounds.
    modes     - _omega and the Fourier amplitudes on the card equal the
                CPU's bit for bit; for each of the default path,
                time_interp_fields, rk_exact_stage_fields and rk_substeps=2
@@ -48,6 +55,14 @@ Phases (any failure raises, and the script exits non-zero):
                131072-seed launch with K1 held against its twin on the
                first and the last segment and K7 on the launch; K1's time
                alone per mode.
+   geo       - land and bathymetry on grids of their own: one 131072-seed
+               launch on the pack with its land regridded onto 0.5 degrees
+               and the bathymetry proxy on that grid (fused), and one with
+               the bathymetry regridded onto 0.25 degrees (separate), in
+               the default mode and with time_interp_fields: K1 bit for bit
+               against its twin on the first and the last segment, K7 on
+               the launch; K1's time alone per launch and layout beside the
+               in-cell pack's, with bounds that count each layout's rows.
 5. workspace - write one year of a one-degree ERA5-shaped raw workspace on
                the 28 ERA5 pressure levels (utils/synthetic_era5.py).
 6. K6        - gen_thermo over that workspace with cape_pi captured: all
@@ -73,7 +88,10 @@ Phases (any failure raises, and the script exits non-zero):
                reset just before and read just after; the thermo and
                tracks files are read back and checked; stage times; then
                the CLI once more with --trace-dir (the device's busy share
-               of the simulation, from the torch.profiler trace).
+               of the simulation, from the torch.profiler trace); then the
+               CLI on a second workspace with land on 0.5 degrees and
+               bathymetry on 0.25 degrees (K7 held against its twin on
+               every launch, the files checked as before).
 10. times    - launch times, a torch.profiler trace of three launches
                (device kernels per launch, busy share, host time by
                stage, the genesis gate's among them, device time by
@@ -143,6 +161,23 @@ K4_REPS = 20
 # HBM bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# instructions a Hopper SM issues per clock on each pipe (lanes): the
+# integer ALU 64, the FMA pipe (float32 FFMA / FMUL / FADD and IMAD) 128,
+# the multi-function unit and the conversions 16, float64 64; 132 SMs at
+# the clock nvidia-smi reports as clocks.max.sm.  The threefry draws (K3,
+# K5) are bound by these, not by PEAK_F32 (pipe_bound)
+PIPE_RATE = {'alu': 64, 'fma': 128, 'mufu': 16, 'fp64': 64}
+N_SMS = 132
+# SASS opcodes by pipe (the rest: memory, control, moves, uniform datapath)
+PIPE_OPS = {
+    'alu': ('IADD3', 'LOP3', 'SHF', 'ISETP', 'SEL', 'LEA', 'PRMT', 'IMNMX',
+            'VIMNMX', 'VIADD', 'FMNMX', 'FSETP', 'FSEL', 'IABS', 'POPC',
+            'FLO', 'BREV', 'PLOP3', 'P2R', 'R2P', 'BMSK', 'SGXT', 'LOP',
+            'IADD', 'SHL', 'SHR'),
+    'fma': ('FFMA', 'FMUL', 'FADD', 'IMAD', 'IMUL', 'HFMA2', 'HADD2',
+            'HMUL2', 'FSWZADD'),
+    'mufu': ('MUFU', 'F2I', 'I2F', 'F2F', 'I2I', 'FRND', 'F2FP'),
+    'fp64': ('DADD', 'DMUL', 'DFMA', 'DSETP')}
 
 
 def log(msg):
@@ -242,6 +277,25 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def sm_clock_hz():
+    """The SM clock nvidia-smi reports as clocks.max.sm, in Hz."""
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.max.sm',
+         '--format=csv,noheader,nounits'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def pipe_bound(n_bytes, counts, clock_hz):
+    """(ms, 'bytes' or 'operations'): the least time the card could take
+    to move n_bytes once and issue `counts` ({pipe: instructions over all
+    threads}) at PIPE_RATE on N_SMS SMs at clock_hz."""
+    t_b = n_bytes / PEAK_BYTES
+    t_o = max([0.0] + [n / (PIPE_RATE[p] * N_SMS * clock_hz)
+                       for p, n in counts.items() if p in PIPE_RATE])
+    return max(t_b, t_o) * 1e3, 'bytes' if t_b >= t_o else 'operations'
+
+
 def compare_k1(out, ref):
     """(share of storms with the same alive history, max abs error per
     field over samples alive in both, share of bit-exact lon samples) of
@@ -275,28 +329,52 @@ def compare_k2(out, ref, alive):
     return err, torch.equal(torch.isfinite(k_peak), fin)
 
 
+def gather_bytes(stacks, lon, lat, plane):
+    """The bytes of the distinct corner-packed rows that field samples at
+    (lon, lat, plane) read: a cell row (336 bytes in-cell, 304 otherwise)
+    per distinct (plane, cell), and, where land and bathymetry have grids
+    of their own, a land_geo4 row (32 bytes fused, 16 separate) per
+    distinct cell of the land grid and a 16-byte bathy4 row per distinct
+    cell of the bathymetry grid."""
+    from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    from tropical_cyclone_risk_tpu_torch.ops import interp
+
+    def rows(grid, stack, plane=None):
+        ix, _ = interp._cell_and_weight(lon, grid.lon0, grid.dlon, grid.nlon)
+        iy, _ = interp._cell_and_weight(lat, grid.lat0, grid.dlat, grid.nlat)
+        cell = iy * grid.nlon + ix
+        if plane is not None:
+            cell = cell + plane.to(torch.int64) * (grid.nlat * grid.nlon)
+        return int(torch.unique(cell).numel()) * stack.shape[-1] * 4
+
+    layout = integrator.geo_layout(stacks)
+    b = rows(stacks.grid, stacks.cell4,
+             plane.clamp(0, stacks.cell4.shape[0] - 1))
+    if layout != integrator.IN_CELL:
+        b += rows(stacks.land_grid, stacks.land_geo4)
+    if layout == integrator.SEPARATE_GEO:
+        b += rows(stacks.bathy_grid, stacks.bathy4)
+    return b
+
+
 def k1_bound(args, out):
     """K1's bound on one segment.  Bytes: F(t), the initial state, the
-    outputs and end state once each, and one 336-byte corner-packed row per
-    distinct (plane, cell) the storms sampled (what this run's data reads
-    of the cell stack).  Operations: at least 360 float32 operations per
+    outputs and end state once each, and the corner-packed rows of the
+    distinct cells the storms sampled (gather_bytes: what this run's data
+    reads of the stacks).  Operations: at least 360 float32 operations per
     storm-step (four RHS evaluations, the RK4 combination, the wind
     coloring) and 150 per field gather (the 21-channel blend, the 4x4
     Cholesky), counted from csrc/integrator.cu, a transcendental as one."""
     from tropical_cyclone_risk_tpu_torch.models import simulator
-    from tropical_cyclone_risk_tpu_torch.ops import interp
     stacks, cfg, _, y0, alive0, params, _, n_steps = args
     (outs, (end_y, end_alive)) = out
     m = y0.lon.shape[0]
-    g = stacks.grid
     alive = outs[5]
-    ix, _ = interp._cell_and_weight(outs[0][alive], g.lon0, g.dlon, g.nlon)
-    iy, _ = interp._cell_and_weight(outs[1][alive], g.lat0, g.dlat, g.nlat)
     plane = params.plane.to(torch.int64)[None].expand_as(alive)[alive]
-    cells = int(torch.unique((plane * g.nlat + iy) * g.nlon + ix).numel())
     stride, n_blocks = simulator.segment_plan(cfg, n_steps)
     gathers = n_blocks + (n_steps - n_blocks * stride)
-    b = (cells * stacks.cell4.shape[-1] * 4 + n_steps * m * 4 * 4
+    b = (gather_bytes(stacks, outs[0][alive], outs[1][alive], plane)
+         + n_steps * m * 4 * 4
          + nbytes(y0.lon, y0.lat, y0.v, y0.m, alive0, params.plane,
                   params.h_bl) + nbytes(*outs, *end_y, end_alive))
     return bound(b, m * (360 * n_steps + 150 * gathers))
@@ -347,19 +425,14 @@ OPS_PER_GATE = 260
 
 
 def k7_bound(args, out):
-    """K7's bound on one call.  Bytes: one 336-byte corner-packed row per
-    distinct (plane, cell) the seeds sample (what this run's data reads of
-    the cell stack), and lon, lat, the int32 plane, B, the integrate mask
-    and the keep mask once each.  Operations: OPS_PER_GATE per seed."""
-    from tropical_cyclone_risk_tpu_torch.ops import interp
+    """K7's bound on one call.  Bytes: the corner-packed rows of the
+    distinct cells the seeds sample (gather_bytes: what this run's data
+    reads of the stacks), and lon, lat, the int32 plane, B, the integrate
+    mask and the keep mask once each.  Operations: OPS_PER_GATE per
+    seed."""
     stacks, _, y0, params, integrate = args
-    g = stacks.grid
-    ix, _ = interp._cell_and_weight(y0.lon, g.lon0, g.dlon, g.nlon)
-    iy, _ = interp._cell_and_weight(y0.lat, g.lat0, g.dlat, g.nlat)
-    plane = params.plane.to(torch.int64).clamp(0, stacks.cell4.shape[0] - 1)
-    cells = int(torch.unique((plane * g.nlat + iy) * g.nlon + ix).numel())
     m = y0.lon.shape[0]
-    b = (cells * stacks.cell4.shape[-1] * 4 + 4 * m
+    b = (gather_bytes(stacks, y0.lon, y0.lat, params.plane) + 4 * m
          + nbytes(y0.lon, y0.lat, params.fourier.B, integrate, out))
     return bound(b, OPS_PER_GATE * m)
 
@@ -403,28 +476,39 @@ def check_counts(label, launches, plain, names):
         raise AssertionError(f'{label} did not run through {names} alone')
 
 
-# K3 and K5 operation counts (csrc/seeding.cu, csrc/rng.cu): a threefry
-# draw is ~110 integer operations (20 rounds of add, rotate and xor, the
-# five key injections, the counter split and the output xor), counted
-# against the float32 peak as bound() does, so the bound is optimistic
-# (H100 runs int32 operations at half its float32 rate); an
-# interpolated value ~25 float32 operations (two cell lookups and the
-# blend); a Fourier coefficient ~8 besides its draw (uniform, 2 pi phi,
-# cos, sin, two products; a transcendental as one)
-OPS_PER_DRAW = 110
+# K3's and K5's operations: K5's Fourier entries draw one element per
+# thread in straight-line code, so the SASS of an entry by pipe is its
+# work per draw (draw_pipes, pipe_bound); a threefry draw of K3 or of the
+# uniform fill is counted as the ALU-pipe instructions of one element of
+# the full-width entry (the draw, its uniform, the phase's few selects);
+# an interpolated value ~25 float32 operations (two cell lookups and the
+# blend) on the FMA pipe
 OPS_PER_VALUE = 25
-OPS_PER_COEF = 8
 
 
-def k3_bound(key, pack, cfg, prop):
+def draw_pipes(lib_path):
+    """{'rows' / 'full': the SASS instructions by pipe of one element of
+    the Fourier row and full-width entries, 'draw': the ALU ones of the
+    latter alone (one threefry draw)} from csrc/rng.cu's library."""
+    pipes = sass_pipes(lib_path)
+    if not pipes:
+        raise AssertionError('no cuobjdump: the threefry bounds count the '
+                             'SASS')
+    full = sass_pipes_of(pipes, 'rng_fourier_kernelILb0E')
+    return {'rows': sass_pipes_of(pipes, 'rng_fourier_kernelILb1E'),
+            'full': full, 'draw': {'alu': full.get('alu', 0)}}
+
+
+def k3_bound(key, pack, cfg, prop, per_draw, clock):
     """K3's bound on one propose_seeds call.  Bytes: the run-mask cells
     (four corners) of the rounds its slots test, the basin-mask cells (all
     basins) and env cells (vpot and rh of the slot's plane) at each slot's
     final position, and its 11 outputs, each once.  Operations: the draws
     it needs (two per round of the sequential walk up to the first pass;
     month two, rejection one, v_init one) and the values it
-    interpolates.  Returns ((ms, by), the rounds the sequential
-    walk tests)."""
+    interpolates: each draw per_draw's ALU instructions, each value
+    OPS_PER_VALUE FMA-pipe ones (pipe_bound at clock).  Returns ((ms,
+    by), the rounds the sequential walk tests)."""
     from tropical_cyclone_risk_tpu_torch import rng
     from tropical_cyclone_risk_tpu_torch.models import seeding
     from tropical_cyclone_risk_tpu_torch.ops import interp
@@ -455,7 +539,8 @@ def k3_bound(key, pack, cfg, prop):
                    ) + nbytes(*prop)
     draws = 2 * n_tested + 4 * n
     values = n_tested + (B + 2) * n
-    return bound(n_bytes, OPS_PER_DRAW * draws + OPS_PER_VALUE * values), \
+    return pipe_bound(n_bytes, {'alu': draws * per_draw.get('alu', 0),
+                                'fma': values * OPS_PER_VALUE}, clock), \
         n_tested
 
 
@@ -484,13 +569,16 @@ def k3_alone(key, pack, cfg, plane0):
             'alone_event_ms': cuda_ms(launch, 20)}
 
 
-def check_k3_k5(pack_y, cfg_t, card):
+def check_k3_k5(pack_y, cfg_t, card, rng_lib, clock):
     """Phase 4: K3 and K5 against their plain twins on the card at the
-    bench's shapes, then their times and bounds.  Returns the two kernels'
-    JSON entries (launches are filled in from the workspace path)."""
+    bench's shapes, then their times and bounds (rng_lib: csrc/rng.cu's
+    built library, whose SASS the threefry bounds count; clock: the SM
+    clock in Hz).  Returns the two kernels' JSON entries (launches are
+    filled in from the workspace path)."""
     from tropical_cyclone_risk_tpu_torch import rng
     from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
-    from tropical_cyclone_risk_tpu_torch.models import seeding
+    from tropical_cyclone_risk_tpu_torch.models import pipeline, seeding
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
     from tropical_cyclone_risk_tpu_torch.ops import fourier
     from tropical_cyclone_risk_tpu_torch.utils import basins
     dev = pack_y.device
@@ -554,6 +642,37 @@ def check_k3_k5(pack_y, cfg_t, card):
                              f'(max abs {err5})')
     log(f'[K5] bits, uniform, normal, randint at [16, {N_SEEDS}] and '
         f'[{N_SEEDS}], draw_fourier at {tuple(fs.A.shape)}: bit-exact')
+    # the row entry at a launch's integrate order (N_SEEDS -> m, the main
+    # path's) and at m == n (the order of a partition with w = n), against
+    # the full draw gathered (the twin's route); the phase function on
+    # every phase the Fourier entries meet against torch.cos and torch.sin
+    m = pipeline.launch_width(cfg_t, N_SEEDS)
+    integ = props['auto-tuned caps'].integrate
+    orders = {w: compact_ops.partition_take(integ, w).order
+              for w in (m, N_SEEDS)}
+    for w, order in orders.items():
+        fk = fourier.draw_fourier(k5key, shape4, cfg_t.T_fourier_s, dev,
+                                  rows=order)
+        fp = fourier.draw_fourier_plain(k5key, shape4, cfg_t.T_fourier_s,
+                                        dev, rows=order)
+        err5 = max(err5, max_err(fk.A, fp.A), max_err(fk.B, fp.B))
+        if not (same(fk.A, fp.A) and same(fk.B, fp.B)):
+            raise AssertionError(f'K5 row draw at {N_SEEDS} -> {w} differs '
+                                 f'from the full draw gathered (max abs '
+                                 f'{err5})')
+    del fk, fp
+    c_tab, s_tab = k5.phase_table(dev)
+    u = torch.arange(k5.PHASES, dtype=torch.float32, device=dev) * 2.0 ** -23
+    bad_c = int((c_tab != torch.cos(2 * math.pi * u)).sum())
+    bad_s = int((s_tab != torch.sin(2 * math.pi * u)).sum())
+    log(f'[K5] row draw at the integrate order {N_SEEDS} -> {m} and '
+        f'{N_SEEDS} -> {N_SEEDS}: bit-exact against draw_fourier_plain(..., '
+        f'rows=order); the shared cos/sin reduction against torch.cos / '
+        f'torch.sin on all {k5.PHASES} phases: {bad_c} / {bad_s} differ')
+    if bad_c or bad_s:
+        raise AssertionError(f'K5 phase_sincos differs from torch.cos on '
+                             f'{bad_c} and torch.sin on {bad_s} phases')
+    del c_tab, s_tab, u
 
     # K3 through propose_seeds (the main path's dispatcher) and the kernel
     # alone, with the auto-tuned caps (the main path's), without caps (no
@@ -578,27 +697,57 @@ def check_k3_k5(pack_y, cfg_t, card):
     main = props['auto-tuned caps']
     ms3_plain = cuda_ms(lambda: seeding.propose_seeds_plain(
         key, pack_y, c, BASIN, N_SEEDS, plane0), 3)
-    (b3, by3), n_tested = k3_bound(key, pack_y, c, main)
+    per = draw_pipes(rng_lib)
+    (b3, by3), n_tested = k3_bound(key, pack_y, c, main, per['draw'], clock)
     log(f'[K3] {card}: propose_seeds {N_SEEDS} slots (caps '
         f'{c.seed_retry_caps}, {n_tested} rounds of the sequential walk): '
         f'kernel {k3t["auto-tuned caps"]["ms"]:.4f} ms device, plain twin '
         f'{ms3_plain:.3f} ms, bound {b3:.5f} ms ({by3})')
+    # K5 on the main path: the row draw at the integrate order, one launch
+    # per bench launch; beside it the full-width entry (m == n) and the
+    # uniform fill; device times (torch.profiler), bounds from the SASS
     amp = fourier._amplitudes(dev)
-    ms5 = cuda_ms(lambda: k5.fourier_cuda(k5key, shape4, amp), 20)
-    ms5_plain = cuda_ms(lambda: fourier.draw_fourier_plain(
-        k5key, shape4, c.T_fourier_s, dev), 5)
-    b5, by5 = bound(nbytes(fs.A, fs.B, amp),
-                    fs.A.numel() * (OPS_PER_DRAW + OPS_PER_COEF))
+    order = orders[m]
+    rows_call = lambda: k5.fourier_rows_cuda(k5key, shape4, order, amp)
+    full_call = lambda: k5.fourier_cuda(k5key, shape4, amp)
+    A_r, B_r = rows_call()
+    k5t = {'rows_ms': device_ms(rows_call, 20, ('rng_fourier',)),
+           'rows_event_ms': cuda_ms(rows_call, 20),
+           'full_ms': device_ms(full_call, 20, ('rng_fourier',)),
+           'full_event_ms': cuda_ms(full_call, 20),
+           'rows_plain_ms': cuda_ms(lambda: fourier.draw_fourier_plain(
+               k5key, shape4, c.T_fourier_s, dev, rows=order), 5),
+           'full_plain_ms': cuda_ms(lambda: fourier.draw_fourier_plain(
+               k5key, shape4, c.T_fourier_s, dev), 5),
+           'draws_rows': A_r.numel(), 'draws_full': fs.A.numel(),
+           'sass_per_draw': per, 'clock_hz': clock}
+    b5, by5 = pipe_bound(nbytes(A_r, B_r, order, amp),
+                         {p: n * A_r.numel() for p, n in per['rows'].items()},
+                         clock)
+    b5f, by5f = pipe_bound(nbytes(fs.A, fs.B, amp),
+                           {p: n * fs.A.numel()
+                            for p, n in per['full'].items()}, clock)
+    k5t.update(full_bound_ms=b5f, full_bound_by=by5f)
     shape16 = (seeding.N_RETRY_ROUNDS, N_SEEDS)
     ms5u = cuda_ms(lambda: rng.uniform(k5key, shape16, device=dev), 20)
     ms5u_plain = cuda_ms(lambda: rng.uniform_plain(k5key, shape16,
                                                    device=dev), 5)
-    b5u, by5u = bound(4 * math.prod(shape16),
-                      (OPS_PER_DRAW + 4) * math.prod(shape16))
-    log(f'[K5] {card}: draw_fourier {tuple(fs.A.shape)}: kernel '
-        f'{ms5:.4f} ms, plain twin {ms5_plain:.3f} ms, bound {b5:.5f} ms '
-        f'({by5}); uniform {shape16}: kernel {ms5u:.4f} ms, plain twin '
-        f'{ms5u_plain:.3f} ms, bound {b5u:.5f} ms ({by5u})')
+    b5u, by5u = pipe_bound(4 * math.prod(shape16),
+                           {p: n * math.prod(shape16)
+                            for p, n in per['draw'].items()}, clock)
+    log(f'[K5] {card}: SASS instructions per draw by pipe (rows entry, '
+        f'full-width entry) {per["rows"]}, {per["full"]}; SM clock '
+        f'{clock / 1e6:.0f} MHz')
+    log(f'[K5] {card}: row draw {N_SEEDS} -> {m} rows {tuple(A_r.shape)}: '
+        f'kernel {k5t["rows_ms"]:.4f} ms device ({k5t["rows_event_ms"]:.4f} '
+        f'ms event), plain twin {k5t["rows_plain_ms"]:.3f} ms, bound '
+        f'{b5:.5f} ms ({by5}, {100 * b5 / k5t["rows_ms"]:.0f}% of it); '
+        f'full-width entry {tuple(fs.A.shape)}: {k5t["full_ms"]:.4f} ms '
+        f'device ({k5t["full_event_ms"]:.4f} ms event), plain twin '
+        f'{k5t["full_plain_ms"]:.3f} ms, bound {b5f:.5f} ms ({by5f}, '
+        f'{100 * b5f / k5t["full_ms"]:.0f}% of it); uniform {shape16}: '
+        f'kernel {ms5u:.4f} ms, plain twin {ms5u_plain:.3f} ms, bound '
+        f'{b5u:.5f} ms ({by5u})')
     src = 'tropical_cyclone_risk_tpu_torch/'
     return [
         {'name': 'seeding', 'route': 'cuda', 'source': src + 'csrc/seeding.cu',
@@ -610,9 +759,11 @@ def check_k3_k5(pack_y, cfg_t, card):
          'times': k3t},
         {'name': 'threefry', 'route': 'cuda', 'source': src + 'csrc/rng.cu',
          'replaces': 'tropical_cyclone_risk_tpu/ops/fourier.py:84',
-         'launches': None, 'max_abs_err': err5, 'ms': ms5,
-         'plain_ms': ms5_plain, 'bound_ms': b5, 'bound_by': by5,
-         'library_ms': None}]
+         'launches': None, 'max_abs_err': err5, 'ms': k5t['rows_ms'],
+         'plain_ms': k5t['rows_plain_ms'], 'bound_ms': b5, 'bound_by': by5,
+         'library_ms': None,
+         'per': f'launch: the row draw {N_SEEDS} -> {m} (the kernel alone, '
+                f'device time)', 'times': k5t}]
 
 
 def same_parts(a, b):
@@ -706,12 +857,13 @@ def launch_setup(dev):
 def launch_calls(key, pack_y, cfg_t, plane0, k_maxes=(64,), check=False):
     """One full-width launch: launch_body, then compact_survivors at each
     k_max of k_maxes, with simulator.integrate_segment and K4's two
-    dispatchers captured; with check, each K4 call is repeated through its
-    plain twin as it is made (its record's check: the fields that differ).
-    Returns (K1 calls, partition calls, stitch calls, the number of
-    partitions in launch_body)."""
+    dispatchers and the Fourier draw captured; with check, each K4 call is
+    repeated through its plain twin as it is made (its record's check: the
+    fields that differ).  Returns (K1 calls, partition calls, stitch calls,
+    the number of partitions in launch_body, draw_fourier calls)."""
     from tropical_cyclone_risk_tpu_torch.models import pipeline, simulator
     from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+    from tropical_cyclone_risk_tpu_torch.ops import fourier
 
     def twin(plain):
         return (lambda out, *a, **kw: same_parts(out, plain(*a, **kw))) \
@@ -722,7 +874,8 @@ def launch_calls(key, pack_y, cfg_t, plane0, k_maxes=(64,), check=False):
             captured(compact_ops, 'partition_take',
                      twin(compact_ops.partition_take_plain)) as parts, \
             captured(compact_ops, 'stitch_survivors',
-                     twin(compact_ops.stitch_survivors_plain)) as stitches:
+                     twin(compact_ops.stitch_survivors_plain)) as stitches, \
+            captured(fourier, 'draw_fourier') as draws:
         body = pipeline.launch_body(key, pack_y, cfg_t, BASIN, N_SEEDS,
                                     plane0)
         n_launch = len(parts)
@@ -730,7 +883,7 @@ def launch_calls(key, pack_y, cfg_t, plane0, k_maxes=(64,), check=False):
             pipeline.compact_survivors(body, m, k_max,
                                        len(cfg_t.basin_ids_sorted()))
     torch.cuda.synchronize()
-    return segs, parts, stitches, n_launch
+    return segs, parts, stitches, n_launch, draws
 
 
 def mode_calls(key, pack_y, cfg, plane0, gate=False):
@@ -759,8 +912,8 @@ def check_k4(key, pack_y, cfg_t, plane0, card):
     from tropical_cyclone_risk_tpu_torch.models import pipeline
     from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
     m = pipeline.launch_width(cfg_t, N_SEEDS)
-    _, parts_all, stitches, n_launch = launch_calls(key, pack_y, cfg_t,
-                                                    plane0, (64, m), True)
+    _, parts_all, stitches, n_launch, _ = launch_calls(
+        key, pack_y, cfg_t, plane0, (64, m), True)
     bad = [(kind, i, c[3]) for kind, calls in (('partition', parts_all),
                                                ('stitch', stitches))
            for i, c in enumerate(calls) if c[3]]
@@ -817,6 +970,25 @@ def check_k4(key, pack_y, cfg_t, plane0, card):
     ms_plain = cuda_ms(lambda: compact_ops.partition_take_plain(
         mask, w, rows, **kw), 20)
     b4, by4 = partition_bound(mask, out, kw.get('a_prev'))
+    # the same compaction as the parent's launch made it, with the
+    # full-width Fourier rows A and B [n, 4, 15] among its row tensors
+    # (this launch draws them after it, at the order's rows alone)
+    from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
+    from tropical_cyclone_risk_tpu_torch.ops import fourier
+    ab = k5.fourier_cuda(rng.key(1), (mask.shape[0], 4),
+                         fourier._amplitudes(mask.device))
+    ms_ab = device_ms(k4.launcher('partition', mask, w, rows + ab,
+                                  kw.get('acc'), kw.get('slot_rank', False),
+                                  kw.get('a_prev'), kw.get('inv_len'))[0],
+                      K4_REPS)
+    b4_ab, _ = partition_bound(mask, out._replace(rows=out.rows + tuple(
+        t[out.order] for t in ab)), kw.get('a_prev'))
+    log(f'[K4] {card}: integrate compaction {N_SEEDS} -> {w}: kernels '
+        f'{first["ms"]:.4f} ms device with the launch\'s {len(rows)} row '
+        f'tensors (bound {b4:.5f} ms), {ms_ab:.4f} ms with A and B among '
+        f'them as well ({len(rows) + 2} row tensors, bound {b4_ab:.5f} ms)')
+    del ab
     sargs, _, sout, _ = stitches[0]
     ms_st = cuda_ms(k4.launcher('stitch', *sargs)[0], 50)
     ms_st_call = cuda_ms(lambda: compact_ops.stitch_survivors(*sargs), 50)
@@ -839,6 +1011,7 @@ def check_k4(key, pack_y, cfg_t, plane0, card):
             'launches': None, 'max_abs_err': 0.0, 'ms': first['ms'],
             'plain_ms': ms_plain, 'bound_ms': b4, 'bound_by': by4,
             'library_ms': first['library_ms'], 'per': 'integrate compaction',
+            'with_ab_ms': ms_ab, 'with_ab_bound_ms': b4_ab,
             'sort_take_ms': first['sort_take_ms'], 'dispatch_ms': ms_call,
             'order_ms': ms_order, 'launch_partitions': len(rows_k4),
             'launch_ms': launch_k4['ms'],
@@ -925,6 +1098,113 @@ def check_modes(key, pack_y, cfg_t, plane0, card):
     return worst, modes_ms
 
 
+# the stack layouts of the geo phase (kernels/integrator.py geo_layout),
+# each held in these modes
+GEO_LAYOUTS = ('fused', 'separate')
+GEO_MODES = {'default': {},
+             'time_interp_fields': dict(time_interp_fields=True)}
+
+
+def geo_pack(cfg, dev, layout):
+    """The 12-plane one-degree synthetic pack (fields.synthetic_pack_numpy,
+    seed 0) with its land mask regridded onto 0.5 degrees and its
+    bathymetry either the land-derived proxy on that grid (as
+    preprocess/static.py load_bathy makes it without a file: 'fused') or
+    regridded onto 0.25 degrees ('separate')."""
+    from tropical_cyclone_risk_tpu_torch.models import fields
+    from tropical_cyclone_risk_tpu_torch.ops import interp
+    from tropical_cyclone_risk_tpu_torch.utils import synthetic_era5
+    pk = fields.synthetic_pack_numpy(cfg, 12, 181, 360, seed=0)
+    g = pk['grid']
+
+    def onto(a, res):
+        lon, lat = synthetic_era5.res_axes(res)
+        return (interp.UniformGrid.from_axes(lon, lat),
+                interp.regrid(a, g.lon_axis(), g.lat_axis(), lon,
+                              lat).numpy())
+
+    pk['land_grid'], pk['land'] = onto(pk['land'], 0.5)
+    if layout == 'fused':
+        pk['bathy_grid'] = pk['land_grid']
+        pk['bathy'] = np.where(pk['land'] >= 0.5, 100.0, -4500.0).astype(
+            np.float32)
+    else:
+        pk['bathy_grid'], pk['bathy'] = onto(pk['bathy'], 0.25)
+    return fields.pack_from_numpy(pk, dev)
+
+
+def k1_differs(out, ref):
+    """The outputs of one K1 segment (out) that differ from its twin's (ref)
+    in any bit: the time-major buffers, the end state and alive mask."""
+    (ko, (k_end, k_alive)), (po, (p_end, p_alive)) = out, ref
+    names = ('lon', 'lat', 'v', 'm', 'wnds', 'alive')
+    return ([nm for nm, a, b in zip(names, ko, po) if not same(a, b)]
+            + [f'end {nm}' for nm, a, b in zip(names, (*k_end, k_alive),
+                                               (*p_end, p_alive))
+               if not same(a, b)])
+
+
+def check_geo(key, pack_y, cfg_t, plane0, card):
+    """Phase geo: one N_SEEDS launch (_simulate_batch) on a pack with land
+    and bathymetry on one grid of their own (fused) and on two (separate),
+    in the default mode and with time_interp_fields: K1 bit for bit against
+    its twin on the first and the last segment, K7 against its twin on the
+    launch; then K1's time alone on every segment of the default launch
+    beside its bound, for each layout and for the in-cell pack pack_y.
+    Returns {layout: K1's segment times and bounds}."""
+    from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    from tropical_cyclone_risk_tpu_torch.models import fields, simulator
+    want = {'in-cell': integrator.IN_CELL, 'fused': integrator.FUSED_GEO,
+            'separate': integrator.SEPARATE_GEO}
+    out = {}
+    for layout in ('in-cell',) + GEO_LAYOUTS:
+        pack = (pack_y if layout == 'in-cell'
+                else geo_pack(cfg_t, pack_y.device, layout))
+        stacks = fields.build_stacks(pack)
+        if integrator.geo_layout(stacks) != want[layout]:
+            raise AssertionError(f'geo {layout}: the stacks are in layout '
+                                 f'{integrator.geo_layout(stacks)}')
+        for mode, kw in GEO_MODES.items():
+            if layout == 'in-cell' and mode != 'default':
+                continue
+            calls, gates = mode_calls(key, pack, cfg_t.replace(**kw), plane0,
+                                      gate=True)
+            if layout != 'in-cell':
+                k7_results(f'geo {layout} {mode}', gates)
+                for args, _, res, _ in (calls[0], calls[-1]):
+                    bad = k1_differs(res,
+                                     simulator.integrate_segment_plain(*args))
+                    log(f'[geo] {layout}, {mode}: K1 segment of {args[7]} '
+                        f'steps x {args[3].lon.shape[0]} storms from sample '
+                        f'{args[6]}: not bit-exact against its twin: '
+                        f'{bad or "none"}')
+                    if bad:
+                        raise AssertionError(f'K1 in the {layout} layout '
+                                             f'({mode}) differs from its '
+                                             f'twin in {bad}')
+            if mode != 'default':
+                continue
+            segs = [{'steps': args[7], 'width': args[3].lon.shape[0],
+                     'ms': cuda_ms(k1_launcher(args), 5),
+                     'bound_ms': k1_bound(args, res)[0]}
+                    for args, _, res, _ in calls]
+            out[layout] = {
+                'segments': segs,
+                'cell_row_bytes': stacks.cell4.shape[-1] * 4,
+                **{k: sum(sg[k] for sg in segs) for k in ('ms', 'bound_ms')}}
+            log(f'[geo] {card}: K1 in the {layout} layout (cell row '
+                f'{stacks.cell4.shape[-1] * 4} bytes; land grid '
+                f'{stacks.land_grid.nlat} x {stacks.land_grid.nlon}, '
+                f'bathymetry grid {stacks.bathy_grid.nlat} x '
+                f'{stacks.bathy_grid.nlon}): per launch ({len(segs)} '
+                f'segments) {out[layout]["ms"]:.4f} ms, bound '
+                f'{out[layout]["bound_ms"]:.5f} ms; segment 0 '
+                f'{segs[0]["ms"]:.4f} ms, bound {segs[0]["bound_ms"]:.5f} '
+                f'ms; the kernel alone')
+            del calls, gates
+    return out
+
+
 def profile_launches(run, reps, path):
     """torch.profiler over `reps` launches, each pipeline stage under a
     record_function range.  Returns (device kernels per launch, busy
@@ -995,9 +1275,11 @@ def card_line():
 def build_all(dev):
     """nvcc for K1 with K7, K2, K3, K4, K5 and K6 in six threads (six
     processes at once); logs the build seconds, each kernel's registers,
-    stack frame, spills and SASS local-memory instructions; requires K1's
-    default instance to have neither a stack frame nor spills, and K1's
-    sin and cos to equal CUDA's sinf and cosf."""
+    stack frame, spills and SASS local-memory instructions (K1's and K7's
+    instances of every stack layout among them); requires K1's default
+    instance to have neither a stack frame nor spills, and K1's sin and
+    cos to equal CUDA's sinf and cosf.  Returns {name: kernels/build.py's
+    info}."""
     from tropical_cyclone_risk_tpu_torch.kernels import cape_pi as k6
     from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
@@ -1049,12 +1331,13 @@ def build_all(dev):
                                  f'on {bad} inputs, first 0x{first:08x}')
     log(f'[build] K1 sin and cos path equals CUDA\'s sinf and cosf on all '
         f'{n_trig} float32 inputs with |x| < 105615, +-inf and NaN')
+    return {name: info for name, (info, _) in builds.items()}
 
 
 # the K1 instance of the default path, and the float32 bit patterns on
 # which its sin and cos path must equal CUDA's sinf and cosf: |x| < 105615
 # of both signs, the infinities and every NaN
-K1_DEFAULT_INSTANCE = 'integrate_segment_kernel<0,0>'
+K1_DEFAULT_INSTANCE = 'integrate_segment_kernel<0,0,0>'
 TRIG_CHECK_RANGES = ((0x00000000, 0x47ce4780), (0x80000000, 0x47ce4780),
                     (0x7f800000, 0x00800000), (0xff800000, 0x00800000))
 
@@ -1144,6 +1427,43 @@ def sass_local_memory(lib_path):
     return out
 
 
+def pipe_of(op):
+    """The pipe of a SASS opcode (PIPE_OPS), or 'other'."""
+    base = op.split('.')[0]
+    for pipe, ops in PIPE_OPS.items():
+        if base in ops:
+            return pipe
+    return 'other'
+
+
+def sass_pipes(lib_path):
+    """{mangled kernel name: {pipe: static SASS instructions}} by
+    cuobjdump -sass of a built library; empty when cuobjdump is not
+    found."""
+    import collections
+    import re
+    text = cuobjdump('-sass', lib_path)
+    if text is None:
+        return {}
+    out = {}
+    for part in re.split(r'\n\s*Function : ', text)[1:]:
+        name = part.split('\n', 1)[0].strip()
+        out[name] = dict(collections.Counter(
+            pipe_of(m.group(1)) for m in re.finditer(
+                r'/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)',
+                part)))
+    return out
+
+
+def sass_pipes_of(pipes, fragment):
+    """The entry of sass_pipes whose mangled name contains `fragment`."""
+    found = [v for k, v in pipes.items() if fragment in k]
+    if len(found) != 1:
+        raise AssertionError(f'{len(found)} kernels named like {fragment} '
+                             f'in the SASS ({sorted(pipes)})')
+    return found[0]
+
+
 def sass_counts(lib_path):
     """{kernel: (SASS instructions, [instructions in each loop])} of a
     built library by cuobjdump -sass: a loop is the span from a backward
@@ -1198,7 +1518,8 @@ def main():
         f'{torch.version.cuda}')
 
     # ---- 2. build ---------------------------------------------------------
-    build_all(dev)
+    libs = build_all(dev)
+    clock = sm_clock_hz()
 
     # ---- 3. K1, K2 and K7 against their plain twins ----------------------
     # one full launch at the slice's shapes, with the kernel dispatchers
@@ -1322,7 +1643,7 @@ def main():
     del k1_calls, k2_calls, k7_calls, args0, v_args, v_kw, g_args, g_out
 
     # ---- 4. K3 and K5 against their plain twins --------------------------
-    k35 = check_k3_k5(pack_y, cfg_t, card)
+    k35 = check_k3_k5(pack_y, cfg_t, card, libs['threefry']['path'], clock)
     plane0 = cfg.start_month - 1
 
     # ---- K4 against its plain twins on a launch's compactions ------------
@@ -1331,6 +1652,9 @@ def main():
     # ---- modes: K1 under the integration modes ----------------------------
     modes_err, modes_ms = check_modes(rng.key(97), pack_y, cfg_t, plane0,
                                       card)
+
+    # ---- geo: K1 and K7 with land and bathymetry on their own grids ------
+    geo = check_geo(rng.key(96), pack_y, cfg_t, plane0, card)
 
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
         # ---- 5. workspace -------------------------------------------------
@@ -1527,6 +1851,48 @@ def main():
             f'{busy / 1e3:.2f} ms of {span / 1e3:.2f} ms traced '
             f'({busy / span:.3f} busy share)')
 
+        # ---- 9b. the workspace path with land on 0.5 degrees and
+        # bathymetry on 0.25 degrees (the separate stack layout) ----------
+        t0 = time.perf_counter()
+        nl_geo = synthetic_era5.make_workspace(
+            f'{tmp}/ws_geo', WS_YEAR, WS_YEAR, nlat=181, nlon=360,
+            seed_batch=N_SEEDS, land_res=0.5, bathy_res=0.25)
+        cfg_geo = load_namelist_py(nl_geo)
+        t_write = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with captured(pack_builder, 'build_field_pack') as built, \
+                captured(simulator, 'genesis_alive', check_k7,
+                         keep=False) as k7_runs:
+            cli.main(['GL', '--namelist', nl_geo, '--seed', '0'])
+        torch.cuda.synchronize()
+        t_cli_geo = time.perf_counter() - t0
+        check_counts('geo workspace', dict(kernels.LAUNCHES),
+                     dict(kernels.PLAIN_ON_CUDA), kernels.NAMES)
+        k7_results('geo workspace', k7_runs)
+        (_, _, pack_geo, _), = built
+        stacks_geo = fields.build_stacks(pack_geo)
+        grids = [(g.nlat, g.nlon) for g in (pack_geo.grid, pack_geo.land_grid,
+                                            pack_geo.bathy_grid)]
+        if (integrator.geo_layout(stacks_geo) != integrator.SEPARATE_GEO
+                or grids != [(181, 360), (361, 720), (721, 1440)]):
+            raise AssertionError(f'geo workspace: grids {grids}, layout '
+                                 f'{integrator.geo_layout(stacks_geo)}')
+        check_thermo_file(thermo_driver.get_fn_thermo(cfg_geo), netcdf,
+                          synthetic_era5)
+        n_geo, peaks_geo = check_tracks(
+            netcdf.read(runtime.get_fn_tracks(cfg_geo, BASIN)), cfg_geo)
+        if n_geo != cfg_geo.tracks_per_year:
+            raise AssertionError(f'{n_geo} tracks != '
+                                 f'{cfg_geo.tracks_per_year}')
+        log(f'[geo workspace] {card}: cli.main GL one year with the wind '
+            f'grid, land and bathymetry on {grids} (written in {t_write:.1f}'
+            f' s) in {t_cli_geo:.2f} s: {n_geo} tracks, peak v '
+            f'{peaks_geo.min():.1f}..{peaks_geo.max():.1f} m/s; kernel '
+            f'launches {dict(kernels.LAUNCHES)}')
+        del built, pack_geo, stacks_geo
+
         # ---- 10. times ----------------------------------------------------
         per_launch, share, traced_ms, stage_ms, top = profile_launches(
             lambda: pipeline._simulate_batch(rng.key(98), pack_y, cfg_t,
@@ -1589,7 +1955,8 @@ def main():
          'bound_by': k1_by, 'library_ms': None,
          'per': 'launch (every segment, the kernel alone)',
          'segment0_dispatch_ms': ms_k1_call, 'segments': k1_segs,
-         'modes_max_abs_err': modes_err, 'modes_ms': modes_ms},
+         'modes_max_abs_err': modes_err, 'modes_ms': modes_ms,
+         'geo': geo},
         {'name': 'vmax', 'route': 'cuda', 'source': src + 'csrc/vmax.cu',
          'replaces': 'tropical_cyclone_risk_tpu/models/diagnostics.py:193',
          'launches': launches['vmax'], 'max_abs_err': k2_err, 'ms': ms_k2,
@@ -1821,7 +2188,10 @@ def kernel_times(root):
     K6 through ops.pi.cape_pi on the 12 x 181 x 360 columns and 28
     levels that gen_thermo gives it on the one-year workspace of
     utils/synthetic_era5 (written once into build/ and reused), and K6's
-    SASS instruction counts; the wall time of five launches (_simulate_batch at k_max 64,
+    SASS instruction counts; K5 through ops.fourier.draw_fourier as the
+    launch calls it (device, event and host time) and the SASS
+    instructions by pipe of csrc/rng.cu's kernels; the device memory one
+    launch allocates at its peak; the wall time of five launches (_simulate_batch at k_max 64,
     after one more); and a torch.profiler trace of three launches
     (profile_launches: device kernels per launch, busy share, host and
     device-span ms per stage, the genesis gate's among them); prints one
@@ -1840,13 +2210,16 @@ def kernel_times(root):
     from tropical_cyclone_risk_tpu_torch.kernels import cape_pi
     from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    from tropical_cyclone_risk_tpu_torch.kernels import rng as k5_kernel
     from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3_kernel
     from tropical_cyclone_risk_tpu_torch.models import diagnostics, pipeline
     from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+    from tropical_cyclone_risk_tpu_torch.ops import fourier
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
         built = [pool.submit(b) for b in (integrator.build, k4.build,
-                                          k3_kernel.build, cape_pi.build)]
-        k6_lib = [f.result() for f in built][-1]['path']
+                                          k3_kernel.build, k5_kernel.build,
+                                          cape_pi.build)]
+        *_, k5_lib, k6_lib = [f.result()['path'] for f in built]
     dev = torch.device('cuda', 0)
     cfg, _, pack_y, cfg_t = launch_setup(dev)
     plane0 = cfg.start_month - 1
@@ -1859,7 +2232,8 @@ def kernel_times(root):
     k6['sass'] = {fn: {'instructions': n_ins, 'loops': loops}
                   for fn, (n_ins, loops) in sass_counts(k6_lib).items()}
     with captured(diagnostics, 'axi_to_max_wind_raw') as k2_calls:
-        segs, parts, _, _ = launch_calls(rng.key(99), pack_y, cfg_t, plane0)
+        segs, parts, _, _, draws = launch_calls(rng.key(99), pack_y, cfg_t,
+                                                plane0)
     modes = {name: mode_calls(rng.key(97), pack_y, cfg_t.replace(**kw),
                               plane0)[0][0]
              for name, kw in MODES.items()}
@@ -1892,6 +2266,21 @@ def kernel_times(root):
                     ('count_kernel', 'partition_kernel', 'gather_kernel')),
             'prep_host_ms': host_ms(lambda: k4.launcher(*largs), K4_REPS),
             'launch_host_ms': host_ms(k4.launcher(*largs)[0], K4_REPS)})
+    (d_args, d_kw, d_out, _), = draws
+    k5 = {'shape': list(d_out.A.shape),
+          **timed(lambda: fourier.draw_fourier(*d_args, **d_kw), 20,
+                  ('rng_fourier',)),
+          'sass_pipes': {kernel_label(fn): p
+                         for fn, p in sass_pipes(k5_lib).items()
+                         if 'fourier' in fn}}
+    # the device memory one launch allocates above what it starts from
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pipeline._simulate_batch(rng.key(99), pack_y, cfg_t, BASIN, N_SEEDS, 64,
+                             plane0)
+    torch.cuda.synchronize()
+    peak_mib = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
     launch_ms = []
     for i in range(6):
         torch.cuda.synchronize()
@@ -1906,9 +2295,9 @@ def kernel_times(root):
                                              BASIN, N_SEEDS, 64, plane0),
             3, f'{tmp}/launches.json')
     res = {'kernel_times': root, 'card': card_line(), 'k1': k1, 'k2': k2,
-           'k3': k3, 'k4': k4_rows, 'k6': k6,
+           'k3': k3, 'k4': k4_rows, 'k5': k5, 'k6': k6,
            'k1_modes_segment0_device_ms': k1_modes,
-           'launch_ms': launch_ms[1:],
+           'launch_ms': launch_ms[1:], 'launch_peak_mib': peak_mib,
            'launch_ms_median': statistics.median(launch_ms[1:]),
            'profile': {'device_kernels_per_launch': per_launch,
                        'busy_share': share, 'traced_ms_per_launch': traced_ms,

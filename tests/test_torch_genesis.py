@@ -132,8 +132,11 @@ def test_gate_params_are_the_twins_constants(packs, order):
 
 def test_gate_wrapper_refuses_what_k1_refuses(packs):
     """CPU tensors (ValueError), and every option K1 raises on
-    (NotImplementedError): land/bathy on their own grids, fixed positions,
-    three steering levels; nothing is launched or counted."""
+    (NotImplementedError): a cell row that does not fit the stack layout
+    (84 channels where land and bathymetry have a grid of their own, which
+    takes 76), fixed positions, three steering levels; nothing is launched
+    or counted.  Land and bathymetry on their own grids are K1's and K7's
+    since they take those layouts (tests/test_torch_geo.py)."""
     _, tpack = packs
     _, _, ty, tp, mask = _seeds(5)
     stacks = fields.build_stacks(tpack)
@@ -141,7 +144,7 @@ def test_gate_wrapper_refuses_what_k1_refuses(packs):
     kernels.reset_counts()
     with pytest.raises(ValueError, match='CUDA'):
         integrator.genesis_gate_cuda(stacks, Namelist(), ty, tp, keep_in)
-    with pytest.raises(NotImplementedError, match='geo_in_cell'):
+    with pytest.raises(NotImplementedError, match='76-channel'):
         integrator.genesis_gate_cuda(stacks._replace(geo_in_cell=False),
                                      Namelist(), ty, tp, keep_in)
     with pytest.raises(NotImplementedError, match='debug_fixed_position'):

@@ -161,9 +161,13 @@ def test_k1_launch_geometry_fills_the_sms(n_sm):
 
 
 def _stacks():
+    """In-cell stacks as the parameter block reads them: the cell grid and
+    stack, the layout, and the land and bathymetry grids (the cell grid's
+    in this layout)."""
     grid = SimpleNamespace(lon0=0.0, dlon=1.0, lat0=-90.0, dlat=1.0,
                            nlon=360, nlat=181)
-    return SimpleNamespace(grid=grid, cell4=torch.zeros(12, 1, 1, 84))
+    return SimpleNamespace(grid=grid, cell4=torch.zeros(12, 1, 1, 84),
+                           geo_in_cell=True, land_grid=grid, bathy_grid=grid)
 
 
 @pytest.mark.parametrize('levels', [(250, 850), (850, 250)])

@@ -16,7 +16,12 @@ Tolerances, with their reasons:
 - (c) run_downscaling for one year from the same seed in both packages:
   the same variables, dims and dtypes, the same seeds_per_month and the
   same track count;
-- (d) m_init_mode='dvdt0' launches: as (a).
+- (d) m_init_mode='dvdt0' launches: as (a);
+- (e) launch_inputs, which draws the Fourier flow at the integrate
+  compaction's rows alone, against the JAX package's full-width draw
+  gathered at its order: the compacted proposal rows bit-exact, A and B
+  within 1e-6 (tests/test_torch_ops.py's Fourier tolerance: torch's and
+  XLA's float32 cos and sin round apart by an ulp).
 """
 
 import jax
@@ -29,6 +34,9 @@ from tropical_cyclone_risk_tpu.config import Namelist
 from tropical_cyclone_risk_tpu.io import netcdf
 from tropical_cyclone_risk_tpu.models import fields as jfields
 from tropical_cyclone_risk_tpu.models import pipeline as jpipeline
+from tropical_cyclone_risk_tpu.models import seeding as jseeding
+from tropical_cyclone_risk_tpu.ops import compact as jcompact
+from tropical_cyclone_risk_tpu.ops import fourier as jfourier
 from tropical_cyclone_risk_tpu_torch import rng, runtime
 from tropical_cyclone_risk_tpu_torch.models import fields, pipeline
 
@@ -107,6 +115,37 @@ def test_dvdt0_launch_matches_jax(packs, port_segmented):
     m0 = tt['m'][tt['valid'], 0]
     assert np.all((m0 >= 0) & (m0 <= 1))
     assert not np.allclose(m0[:10], tr['m'][:10, 0], atol=1e-3)
+
+
+@pytest.mark.parametrize('cap', [0.5, 1.0])
+def test_launch_inputs_match_jax(packs, cap):
+    """(e) the integrate compaction of launch_inputs, m < n (cap 0.5) and
+    m == n (cap 1.0, the full draw): the JAX package's route is
+    propose_seeds, the full-width Fourier draw, the stable partition order
+    and the gathers (models/pipeline.py launch_body)."""
+    cfg = CFG.replace(integrate_cap=cap)
+    n = CFG.seed_batch
+    m = pipeline.launch_width(cfg, n)
+    assert (m < n) == (cap < 1.0)
+    li = pipeline.launch_inputs(rng.key(5), packs[1], cfg, 'GL', n, 0)
+    k_seed, k_fourier = jax.random.split(jax.random.key(5))
+    prop = jseeding.propose_seeds(k_seed, packs[0], cfg, 'GL', n,
+                                  jnp.int32(0))
+    fs = jfourier.draw_fourier(k_fourier, (n, cfg.n_wind_levels),
+                               cfg.T_fourier_s)
+    if m < n:
+        order = jcompact.stable_partition_order(prop.integrate, m)
+        fs = jfourier.take_leading(fs, order)
+        g = lambda a: np.asarray(a)[np.asarray(order)]
+    else:
+        g = np.asarray
+    assert li.params.fourier.A.shape == (m, cfg.n_wind_levels, 15)
+    for a, b in ((li.params.fourier.A, fs.A), (li.params.fourier.B, fs.B)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-6)
+    np.testing.assert_array_equal(li.params.plane.numpy(), g(prop.plane))
+    np.testing.assert_array_equal(li.month.numpy(), g(prop.month))
+    np.testing.assert_array_equal(li.state.lon.numpy(), g(prop.lon))
 
 
 def test_compaction_bit_identical_to_uncapped(packs, port_segmented):

@@ -8,6 +8,7 @@ from JAX's in the last ulps: |diff| <= 1e-6 (4 ulps near |z| = 4) and at
 least 95% of draws bit-exact.
 """
 
+import math
 import re
 from pathlib import Path
 
@@ -110,6 +111,69 @@ def test_cpu_draws_launch_no_kernel():
     assert torch.equal(fs.A, ref.A) and torch.equal(fs.B, ref.B)
     assert kernels.LAUNCHES['seeding'] == kernels.LAUNCHES['threefry'] == 0
     assert not any(kernels.PLAIN_ON_CUDA.values())
+
+
+@pytest.mark.parametrize('case', ['order', 'random', 'all'])
+def test_fourier_rows_are_the_full_draw_gathered(case):
+    """draw_fourier(..., rows=order) is the full draw at those rows, bit
+    for bit: a launch's integrate order (its True slots first, then the
+    rest, as ops/compact.partition_take gives it), a random selection with
+    repeats, and every row (m == n)."""
+    n, kt = 700, rng.key(9)
+    r = np.random.default_rng(4)
+    if case == 'order':
+        mask = torch.from_numpy(r.random(n) < 0.3)
+        rows = torch.cat([torch.nonzero(mask)[:, 0],
+                          torch.nonzero(~mask)[:, 0]])[:256]
+    elif case == 'random':
+        rows = torch.from_numpy(r.integers(0, n, 300))
+    else:
+        rows = torch.arange(n)
+    full = fourier.draw_fourier_plain(kt, (n, 4), 3600.0)
+    kernels.reset_counts()
+    got = fourier.draw_fourier(kt, (n, 4), 3600.0, rows=rows)
+    assert kernels.LAUNCHES['threefry'] == 0
+    assert got.A.shape == (rows.shape[0], 4, fourier.N_FOURIER)
+    assert torch.equal(got.A, full.A[rows]) and torch.equal(got.B,
+                                                            full.B[rows])
+    # each element's draw is its counter's: (row * 4 + c) * 15 + f
+    phi = rng.uniform_plain(kt, (n * 4 * fourier.N_FOURIER,)).reshape(
+        n, 4, fourier.N_FOURIER)[rows]
+    amp = fourier._amplitudes('cpu')
+    assert torch.equal(got.A, amp * torch.cos(2 * math.pi * phi))
+
+
+def test_fourier_row_wrapper_refuses_cpu_tensors():
+    """K5's row entry refuses CPU tensors (ValueError) and launches
+    nothing; its compile-time shape is the twin's: 15 components and the
+    integrator's four wind channels."""
+    from tropical_cyclone_risk_tpu_torch.config import Namelist
+    from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match='CUDA'):
+        k5.fourier_rows_cuda(rng.key(1), (8, 4), torch.arange(3),
+                             fourier._amplitudes('cpu'))
+    assert not any(kernels.LAUNCHES.values())
+    assert k5.N_FOURIER == fourier.N_FOURIER
+    assert k5.ROW_CHANNELS == Namelist().n_wind_levels
+
+
+def test_fourier_phase_quadrant_is_rint():
+    """csrc/rng.cu phase_sincos rounds x * 2/pi with an add of 1.5 * 2^23:
+    on every phase the Fourier entries meet, float32(2 pi) * m * 2^-23,
+    that gives rint's integer (ties to even, as __float2int_rn) in the low
+    bits and exactly, in float32."""
+    from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
+    u = np.arange(k5.PHASES, dtype=np.float32) * np.float32(2.0 ** -23)
+    x = np.float32(k5.TWO_PI_F32) * u
+    v = x * np.float32(np.frombuffer(np.uint32(0x3f22f983).tobytes(),
+                                     np.float32)[0])
+    shift = np.float32(12582912.0)
+    r = v + shift
+    assert r.dtype == np.float32 and x.max() < 2 * np.pi
+    np.testing.assert_array_equal(r - shift, np.rint(v))
+    np.testing.assert_array_equal(r.view(np.int32) & 3,
+                                  np.rint(v).astype(np.int32) & 3)
 
 
 def _cuh_floats(name):

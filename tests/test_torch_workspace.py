@@ -141,6 +141,47 @@ def test_build_field_pack_matches_jax(ws, basin):
         assert ours.grid.nlon < NLON
 
 
+@pytest.mark.parametrize('layout', ['fused', 'separate'])
+def test_geo_grids_pack_matches_jax(ws, tmp_path, layout):
+    """The workspace writer's static files with land on its own grid (5
+    degrees here, the wind grid being 10), and either no bathymetry (the
+    proxy then lies on the land grid: the fused layout) or bathymetry on a
+    2.5-degree grid (the separate layout): build_field_pack gives a pack
+    whose land and bathymetry keep those grids, so build_stacks leaves
+    them out of the cell row, and equals the JAX builder's on the same
+    files (tolerances of test_build_field_pack_matches_jax)."""
+    from tropical_cyclone_risk_tpu.models import fields as jfields
+    from tropical_cyclone_risk_tpu_torch.models import fields
+    root, nl, cfg = ws
+    lon, lat = synthetic_era5.axes(NLAT, NLON)
+    bathy_res = 2.5 if layout == 'separate' else None
+    synthetic_era5.write_static(str(tmp_path), lon, lat, land_res=5.0,
+                                bathy_res=bathy_res)
+    files = dict(fn_land=str(tmp_path / 'static' / 'land.nc'),
+                 fn_bathy=str(tmp_path / 'static' / 'bathymetry.nc'))
+    assert os.path.exists(files['fn_bathy']) == (layout == 'separate')
+    ours = pack_builder.build_field_pack(cfg.replace(**files), 'GL',
+                                         device='cpu')
+    theirs = jpack_builder.build_field_pack(
+        jconfig.load_namelist_py(nl).replace(**files), 'GL')
+    for name in ours._fields:
+        a, b = getattr(ours, name), getattr(theirs, name)
+        if name.endswith('grid'):
+            assert tuple(a) == tuple(b), name
+        else:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
+    assert (ours.land_grid.nlat, ours.land_grid.nlon) == (37, 72)
+    want_bathy = (73, 144) if layout == 'separate' else (37, 72)
+    assert (ours.bathy_grid.nlat, ours.bathy_grid.nlon) == want_bathy
+    stacks, jstacks = fields.build_stacks(ours), jfields.build_stacks(theirs)
+    assert not stacks.geo_in_cell and not jstacks.geo_in_cell
+    assert stacks.fused_geo == jstacks.fused_geo == (layout == 'fused')
+    bathy = ours.bathy.numpy()
+    assert (bathy == 100.0).any() and (bathy == -4500.0).any()
+    assert ((bathy == -30.0).any()) == (layout == 'separate')
+
+
 def test_cli_matches_jax_seed_by_seed(ws, tmp_path):
     """cli.main(..., '--device', 'cpu') against the JAX cli.main, both from
     the same thermo, wind-stat and mask files: the same track count,

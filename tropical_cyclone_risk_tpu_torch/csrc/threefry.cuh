@@ -9,7 +9,8 @@
 // - uniform: the mantissa trick, then XLA-CPU's fused multiply-add as the
 //   twin emulates it: a float64 product and a float64 add of the float32
 //   value, rounded once to float32 (not one __fmaf_rn), then max with lo;
-//   lo and span come from the host as the twin computes them;
+//   lo and span come from the host as the twin computes them (on [0, 1)
+//   that is the mantissa trick alone, tf_uniform01);
 // - normal: XLA's float32 erf_inv polynomial with CUDA's log1pf (as
 //   torch's CUDA kernel calls it) and the same emulated Horner steps, times
 //   float32(sqrt(2));
@@ -65,6 +66,15 @@ __device__ __forceinline__ float tf_uniform(const TfKey k, uint64_t i,
   const float x = __double2float_rn(__dadd_rn(__dmul_rn((double)f, span),
                                               lo));
   return fmaxf(x, (float)lo);
+}
+
+// rng.uniform on [0, 1) (lo 0, span 1), the Fourier draw's: the mantissa
+// trick alone.  tf_uniform's emulated multiply-add is then float(double(f)
+// * 1.0 + 0.0) with f a float32 in [0, 1): the product and the sum are
+// exact in float64 and round back to f, and max(f, 0) is f, so the two
+// are equal bit for bit without the float64 work and the conversions
+__device__ __forceinline__ float tf_uniform01(const TfKey k, uint64_t i) {
+  return __int_as_float((int)((tf_bits(k, i) >> 9) | 0x3F800000u)) - 1.0f;
 }
 
 // rng.erf_inv_f32: the float32 rounding of rng.py's coefficients, written

@@ -1,16 +1,17 @@
 """Hand-written Hopper kernels of the port and their launch counters.
 
 - ``integrator`` (K1): the fused track integrator, CUDA C++ for sm_90a
-  (csrc/integrator.cu).
+  (csrc/integrator.cu), with land and bathymetry in the cell row or on
+  grids of their own.
 - ``vmax`` (K2): the vmax diagnostic pass, CUDA C++ for sm_90a
   (csrc/vmax.cu).
 - ``seeding`` (K3): genesis seeding in one launch, lazily drawn proposal
   rounds shared over each warp's lanes, the stream keys derived on the
   card, CUDA C++ for sm_90a (csrc/seeding.cu).
 - ``threefry`` (K5): the threefry2x32 stream and its bits / uniform /
-  normal / randint samplers, and the fused draw_fourier, CUDA C++ for
-  sm_90a (csrc/rng.cu; its device functions, csrc/threefry.cuh, are
-  shared with K3).
+  normal / randint samplers, and the fused draw_fourier at full width or
+  at the rows a launch integrates, CUDA C++ for sm_90a (csrc/rng.cu; its
+  device functions, csrc/threefry.cuh, are shared with K3).
 - ``compact`` (K4): the launch's compactions (the stable partition order
   with its row gathers and maps, and the survivor stitch), CUDA C++ for
   sm_90a (csrc/compact.cu).

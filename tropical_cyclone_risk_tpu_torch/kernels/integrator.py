@@ -4,10 +4,13 @@ PyTorch's current stream.
 
 The kernel replaces the JAX package's XLA-fused segment loop; see the note
 at the top of the source.  Its plain twin is models/simulator.py
-integrate_segment_plain.  The default path streams F(t) from the per-step
-grid; under rk_exact_stage_fields or rk_substeps > 1 the kernel evaluates
-F(t) from the storms' Fourier rows with w_n from ops/fourier._omega.  The
-launch's shape follows the segment's width and the card's SM count
+integrate_segment_plain.  It takes the three stack layouts of
+models/fields.py GatherStacks (geo_layout): land and bathymetry in the
+cell row, on one grid of their own, or each on its own grid.  The
+default path streams F(t) from the per-step grid; under
+rk_exact_stage_fields or rk_substeps > 1 the kernel evaluates F(t) from
+the storms' Fourier rows with w_n from ops/fourier._omega.  The launch's
+shape follows the segment's width and the card's SM count
 (launch_geometry).
 
 K7, the genesis gate (genesis_gate_cuda), is the file's second kernel:
@@ -29,16 +32,20 @@ from tropical_cyclone_risk_tpu_torch.kernels import build as kbuild
 from tropical_cyclone_risk_tpu_torch.models import fast
 from tropical_cyclone_risk_tpu_torch.ops import fourier
 
-N_POINTERS = 22          # device pointers of tc_integrate_segment
+N_POINTERS = 24          # device pointers of tc_integrate_segment
 MAX_SUB = 8              # csrc/integrator.cu kMaxSub
 MAX_THREADS = 64         # csrc/integrator.cu kMaxThreads (__launch_bounds__)
 GATE_THREADS = 128       # csrc/integrator.cu kGateThreads (K7)
-GATE_POINTERS = 7        # device pointers of tc_genesis_gate
+GATE_POINTERS = 9        # device pointers of tc_genesis_gate
 # csrc/integrator.cu sincos_rad: CUDA's sinf/cosf fast path below this |x|
 FAST_TRIG_LIMIT = 105615.0
 WARP = 32
 # fast.deep_layer_indices of the two steering orders -> the kernel's flag
 STEERING_SWAP = {(0, 1, 2, 3): 0, (2, 3, 0, 1): 1}
+# csrc/integrator.cu's stack layouts (kInCell, kFusedGeo, kSeparateGeo) and
+# the channels of each layout's cell row (21 or 19 channels x 4 corners)
+IN_CELL, FUSED_GEO, SEPARATE_GEO = 0, 1, 2
+CELL_ROW = {IN_CELL: 84, FUSED_GEO: 76, SEPARATE_GEO: 76}
 
 
 def build() -> dict:
@@ -108,6 +115,25 @@ def trig_check(lo: int, count: int, device) -> tuple:
     return n_bad, (int(first.item()) & 0xffffffff) if n_bad else None
 
 
+def geo_layout(stacks) -> int:
+    """The kernels' stack layout of a GatherStacks: IN_CELL (land and
+    bathymetry in the cell row), FUSED_GEO (both in land_geo4, on one grid
+    that is not the wind grid) or SEPARATE_GEO (land_geo4 and bathy4 on
+    two grids)."""
+    if stacks.geo_in_cell:
+        return IN_CELL
+    return FUSED_GEO if stacks.fused_geo else SEPARATE_GEO
+
+
+def geo_inputs(stacks) -> dict:
+    """The land and bathymetry stacks the layout's kernels read (None
+    where they read nothing): land_geo4 outside the cell row, bathy4 in
+    the separate layout alone."""
+    layout = geo_layout(stacks)
+    return {'geo4': None if layout == IN_CELL else stacks.land_geo4,
+            'bathy4': stacks.bathy4 if layout == SEPARATE_GEO else None}
+
+
 def _f32(x) -> float:
     return float(np.float32(x))
 
@@ -125,8 +151,10 @@ def _params(stacks, cfg: Namelist, bounds, m: int, n_steps: int,
             stride: int, n_blocks: int, k0: int, T_s: float,
             analytic: bool, geometry):
     """The kernel's scalar parameters, each float the float32 rounding of
-    the constant the plain twin uses (see csrc/integrator.cu Params)."""
-    g = stacks.grid
+    the constant the plain twin uses (see csrc/integrator.cu Params); the
+    land and bathymetry grids are the stacks' own (the cell grid's in the
+    in-cell layout, which does not read them)."""
+    g, gl, gb = stacks.grid, stacks.land_grid, stacks.bathy_grid
     dt_out = float(cfg.output_interval_s)
     sub = max(1, int(cfg.rk_substeps))
     dt = dt_out / sub
@@ -143,10 +171,13 @@ def _params(stacks, cfg: Namelist, bounds, m: int, n_steps: int,
           fast.BETA, fast.EPSILON, fast.KAPPA, dt, dt / 2, dt / 6,
           *cfg.y_alpha, *cfg.m_alpha, *cfg.alpha_min, *cfg.alpha_max,
           *cfg.steering_coefs, *omega,
-          fast.SECONDS_PER_MONTH, dt_out]
+          fast.SECONDS_PER_MONTH, dt_out,
+          gl.lon0, gl.dlon, gl.lat0, gl.dlat,
+          gb.lon0, gb.dlon, gb.lat0, gb.dlat]
     ip = [g.nlon, g.nlat, stacks.cell4.shape[0], int(cfg.coupled_track),
           steering_swap(cfg), stride, n_blocks, n_steps, m,
-          k0, sub, int(cfg.rk_exact_stage_fields),
+          k0, sub, int(cfg.rk_exact_stage_fields), geo_layout(stacks),
+          gl.nlon, gl.nlat, gb.nlon, gb.nlat,
           int(cfg.time_interp_fields), int(analytic), *geometry]
     return (np.array([_f32(x) for x in fp], np.float32),
             np.array(ip, np.int32))
@@ -159,13 +190,12 @@ def _check(stacks, cfg: Namelist, tensors: dict, m: int, n_steps: int):
     if cfg.debug_fixed_position:
         raise NotImplementedError('debug_fixed_position is not in the '
                                   'integrator kernel')
-    if not stacks.geo_in_cell:
-        raise NotImplementedError('the integrator kernel needs land/bathy '
-                                  'on the atmospheric grid (geo_in_cell)')
+    layout = geo_layout(stacks)
     if (cfg.n_wind_levels != 4 or stacks.n_wind_ch != 14
-            or stacks.cell4.shape[-1] != 84):
-        raise NotImplementedError('the integrator kernel takes two '
-                                  'steering levels (84-channel cell rows)')
+            or stacks.cell4.shape[-1] != CELL_ROW[layout]):
+        raise NotImplementedError(f'the integrator kernel takes two '
+                                  f'steering levels ({CELL_ROW[layout]}-'
+                                  f'channel cell rows)')
     if not 1 <= int(cfg.rk_substeps) <= MAX_SUB:
         raise NotImplementedError(f'the integrator kernel takes 1 to '
                                   f'{MAX_SUB} RK4 substeps')
@@ -173,7 +203,10 @@ def _check(stacks, cfg: Namelist, tensors: dict, m: int, n_steps: int):
     if dev.type != 'cuda':
         raise ValueError(f'integrator kernel needs CUDA tensors, got {dev}')
     rows = (m, 4, fourier.N_FOURIER)
-    shapes = {'cell4': None, 'f_all': (n_steps, m, 4), 'A': rows, 'B': rows}
+    shapes = {'cell4': None, 'f_all': (n_steps, m, 4), 'A': rows, 'B': rows,
+              'geo4': (stacks.land_grid.nlat, stacks.land_grid.nlon,
+                       8 if layout == FUSED_GEO else 4),
+              'bathy4': (stacks.bathy_grid.nlat, stacks.bathy_grid.nlon, 4)}
     for name, t in tensors.items():
         if t is None or (name in ('A', 'B') and tensors['f_all'] is not None):
             continue
@@ -210,7 +243,8 @@ def launcher(stacks, cfg: Namelist, bounds, y0, alive0,
     here, once, so that repeated launches time the kernel alone."""
     m = y0.lon.shape[0]
     fs = params.fourier
-    ins = {'cell4': stacks.cell4, 'f_all': f_all, 'A': fs.A, 'B': fs.B,
+    ins = {'cell4': stacks.cell4, **geo_inputs(stacks), 'f_all': f_all,
+           'A': fs.A, 'B': fs.B,
            'lon0': y0.lon, 'lat0': y0.lat, 'v0': y0.v, 'm0': y0.m,
            'alive0': alive0,
            'plane': params.plane.to(torch.int32).contiguous(),
@@ -269,9 +303,10 @@ def gate_launcher(stacks, cfg: Namelist, y0, params: fast.SeedParams,
     """(launch, keep): a function that launches K7 on these inputs (as
     genesis_gate_cuda), writing ``keep``; the checks, the output and the
     parameter block are made here, once.  Raises where K1's launcher
-    raises."""
+    raises, and takes the stack layouts K1 takes."""
     m = y0.lon.shape[0]
-    ins = {'cell4': stacks.cell4, 'f_all': None, 'B': params.fourier.B,
+    ins = {'cell4': stacks.cell4, **geo_inputs(stacks), 'f_all': None,
+           'B': params.fourier.B,
            'lon0': y0.lon, 'lat0': y0.lat,
            'plane': params.plane.to(torch.int32).contiguous(),
            'integrate': integrate_mask}
@@ -281,7 +316,8 @@ def gate_launcher(stacks, cfg: Namelist, y0, params: fast.SeedParams,
     if m == 0:
         return (lambda: None), keep
     fp, ip = gate_params(stacks, cfg, m)
-    ptrs = [t.data_ptr() for t in ins.values() if t is not None]
+    ptrs = [0 if t is None else t.data_ptr()
+            for name, t in ins.items() if name != 'f_all']
     ptrs.append(keep.data_ptr())
     entry = _lib().tc_genesis_gate
 

@@ -24,6 +24,10 @@ from tropical_cyclone_risk_tpu_torch.kernels import build as kbuild
 MODES = {'bits': (0, torch.int64), 'uniform': (1, torch.float32),
          'normal': (2, torch.float32), 'randint': (3, torch.int32)}
 TWO_PI_F32 = float(np.float32(2 * math.pi))
+N_FOURIER = 15          # csrc/rng.cu kNF
+ROW_CHANNELS = 4        # csrc/rng.cu kRowCh: channels of the rows entry
+PHASES = 1 << 23        # uniforms on [0, 1): the float32 mantissas
+INT32_MAX = 2 ** 31 - 1
 
 
 def build() -> dict:
@@ -39,12 +43,17 @@ def _entries():
     fill.argtypes = [ctypes.c_int, u32, u32, u32, u32, i64, f64, f64, u32,
                      u32, i64, ctypes.c_void_p, ctypes.c_void_p]
     fill.restype = ctypes.c_int
+    ptr, f32 = ctypes.c_void_p, ctypes.c_float
     four = lib.tc_rng_fourier
-    four.argtypes = [u32, u32, i64, ctypes.c_int, ctypes.c_void_p,
-                     ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_void_p]
+    four.argtypes = [u32, u32, i64, ptr, f32, ptr, ptr, ptr]
     four.restype = ctypes.c_int
-    return fill, four
+    rows = lib.tc_rng_fourier_rows
+    rows.argtypes = [u32, u32, i64, ptr, ptr, f32, ptr, ptr, ptr]
+    rows.restype = ctypes.c_int
+    table = lib.tc_rng_phase_table
+    table.argtypes = [f32, ptr, ptr, ptr]
+    table.restype = ctypes.c_int
+    return fill, four, rows, table
 
 
 def _cuda(device) -> torch.device:
@@ -75,7 +84,7 @@ def fill_cuda(mode: str, key, shape, device, lo: float = 0.0,
     out = torch.empty(tuple(int(s) for s in shape), dtype=dtype, device=dev)
     if out.numel() == 0:
         return out
-    fill, _ = _entries()
+    fill = _entries()[0]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fill(code, key[0], key[1], key2[0], key2[1], out.numel(), lo,
@@ -84,25 +93,83 @@ def fill_cuda(mode: str, key, shape, device, lo: float = 0.0,
     return out
 
 
-def fourier_cuda(key, shape, amp: torch.Tensor):
-    """Launch K5's fused draw_fourier entry: (A, B) of ``shape`` + (nf,)
-    with A = amp * cos(2 pi phi), B = amp * sin(2 pi phi) and phi the
-    uniform stream of ``key``; amp [nf] float32 on the card."""
+def _amp(amp: torch.Tensor) -> torch.device:
+    """The card of the N_FOURIER amplitudes the Fourier entries take."""
     dev = _cuda(amp.device)
-    if amp.dtype != torch.float32 or amp.dim() != 1 or \
+    if amp.dtype != torch.float32 or tuple(amp.shape) != (N_FOURIER,) or \
             not amp.is_contiguous():
-        raise ValueError(f'amp: need a contiguous 1-D float32 tensor, got '
-                         f'{amp.dtype} {tuple(amp.shape)}')
-    nf = amp.shape[0]
-    full = tuple(int(s) for s in shape) + (nf,)
+        raise ValueError(f'amp: need a contiguous float32 tensor of shape '
+                         f'({N_FOURIER},), got {amp.dtype} '
+                         f'{tuple(amp.shape)}')
+    return dev
+
+
+def fourier_cuda(key, shape, amp: torch.Tensor):
+    """Launch K5's fused draw_fourier entry: (A, B) of ``shape`` + (15,)
+    with A = amp * cos(2 pi phi), B = amp * sin(2 pi phi) and phi the
+    uniform stream of ``key``; amp [15] float32 on the card."""
+    dev = _amp(amp)
+    full = tuple(int(s) for s in shape) + (N_FOURIER,)
     A = torch.empty(full, dtype=torch.float32, device=dev)
     B = torch.empty_like(A)
     if A.numel() == 0:
         return A, B
-    _, four = _entries()
+    if A.numel() > INT32_MAX:
+        raise ValueError(f'the Fourier entry takes fewer than 2**31 '
+                         f'elements, got {A.numel()}')
+    four = _entries()[1]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = four(key[0], key[1], A.numel(), nf, amp.data_ptr(), TWO_PI_F32,
+        err = four(key[0], key[1], A.numel(), amp.data_ptr(), TWO_PI_F32,
                    A.data_ptr(), B.data_ptr(), stream)
     _check(err, 'fourier')
     return A, B
+
+
+def fourier_rows_cuda(key, shape, rows: torch.Tensor, amp: torch.Tensor):
+    """Launch K5's row entry: (A, B) [k, 4, 15], row j the draw of
+    ``fourier_cuda(key, shape, amp)`` at source row rows[j], without the
+    full draw.  shape: (n, 4); rows [k] int64 on the card, each in [0, n)
+    (not checked on the card: the caller's partition order)."""
+    dev = _amp(amp)
+    n, C = (int(s) for s in shape)
+    if C != ROW_CHANNELS:
+        raise NotImplementedError(f'the Fourier row entry takes '
+                                  f'{ROW_CHANNELS} channels, got {C}')
+    if rows.device != dev or rows.dtype != torch.int64 or rows.dim() != 1 \
+            or not rows.is_contiguous():
+        raise ValueError(f'rows: need a contiguous 1-D int64 tensor on '
+                         f'{dev}, got {rows.dtype} {tuple(rows.shape)} on '
+                         f'{rows.device}')
+    k = rows.shape[0]
+    A = torch.empty((k, C, N_FOURIER), dtype=torch.float32, device=dev)
+    B = torch.empty_like(A)
+    if k == 0:
+        return A, B
+    if A.numel() > INT32_MAX or n * C >= 2 ** 32:
+        raise ValueError(f'the Fourier row entry takes fewer than 2**31 '
+                         f'outputs from fewer than 2**32 / {C} rows, got '
+                         f'{A.numel()} from {n}')
+    entry = _entries()[2]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = entry(key[0], key[1], A.numel(), rows.data_ptr(),
+                    amp.data_ptr(), TWO_PI_F32, A.data_ptr(), B.data_ptr(),
+                    stream)
+    _check(err, 'fourier rows')
+    return A, B
+
+
+def phase_table(device):
+    """(cos, sin) [PHASES] of the Fourier entries' phase function at every
+    phase they meet, float32(2 pi) * m * 2**-23 (csrc/rng.cu
+    tc_rng_phase_table); not counted as a launch of the main path."""
+    dev = _cuda(device)
+    c = torch.empty((PHASES,), dtype=torch.float32, device=dev)
+    s = torch.empty_like(c)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _entries()[3](TWO_PI_F32, c.data_ptr(), s.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f'phase table launch failed: CUDA error {err}')
+    return c, s

@@ -258,28 +258,30 @@ def launch_inputs(key: rng.Key, pack: FieldPack, cfg: Namelist,
                   basin_id: str, n: int, plane_offset: int) -> LaunchInputs:
     """Propose n seeds and compact the integrable ones slot-stably to the
     first m = launch_width(cfg, n) positions (one partition_take with every
-    per-seed row).  The Fourier flow is drawn at full batch width and
-    gathered, so survivor tracks are identical to an uncapped launch."""
+    per-seed row).  The Fourier flow is drawn at the compacted slots alone
+    (the draw of a slot does not depend on the others), so survivor tracks
+    are identical to an uncapped launch's."""
     simulator.check_supported(cfg)
     dev = pack.device
     k_seed, k_fourier = rng.split(key)
     prop = seeding.propose_seeds(k_seed, pack, cfg, basin_id, n,
                                  plane_offset)
-    fs = fourier.draw_fourier(k_fourier, (n, cfg.n_wind_levels),
-                              cfg.T_fourier_s, dev)
     m = launch_width(cfg, n)
     rows = (prop.plane, prop.h_bl, prop.lon, prop.lat, prop.v_init,
-            prop.m_init, prop.integrate, prop.month, prop.basin_idx, fs.A,
-            fs.B)
+            prop.m_init, prop.integrate, prop.month, prop.basin_idx)
+    shape = (n, cfg.n_wind_levels)
     slot_rank = None
     overflow = torch.zeros((1,), dtype=torch.int64, device=dev)
     if m < n:
         part = compact_ops.partition_take(prop.integrate, m, rows,
                                           slot_rank=True)
         rows, overflow, slot_rank = part.rows, part.overflow, part.slot_rank
-    plane, h_bl, lon, lat, v, m_init, integrate, month, basin_idx, A, B = rows
-    params = fast.SeedParams(plane=plane, h_bl=h_bl,
-                             fourier=fs._replace(A=A, B=B))
+        fs = fourier.draw_fourier(k_fourier, shape, cfg.T_fourier_s, dev,
+                                  rows=part.order)
+    else:
+        fs = fourier.draw_fourier(k_fourier, shape, cfg.T_fourier_s, dev)
+    plane, h_bl, lon, lat, v, m_init, integrate, month, basin_idx = rows
+    params = fast.SeedParams(plane=plane, h_bl=h_bl, fourier=fs)
     state = fast.State(lon, lat, v, m_init)
     if cfg.m_init_mode == 'dvdt0':
         state = state._replace(m=fast.init_m_dvdt0(

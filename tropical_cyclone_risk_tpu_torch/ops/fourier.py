@@ -75,22 +75,31 @@ def _amplitudes(device) -> torch.Tensor:
     return amplitudes_formula('cpu').to(device)
 
 
-def draw_fourier(key: rng.Key, shape, T_s: float,
-                 device='cpu') -> FourierSeries:
+def draw_fourier(key: rng.Key, shape, T_s: float, device='cpu',
+                 rows=None) -> FourierSeries:
     """Random-phase coefficients (amplitudes as _amplitudes, phases
     uniform in [0, 1) cycles).  shape: batch shape + (C,), e.g.
-    (n_seeds, 4).  On a CUDA device K5's fused entry draws the phases and
-    writes A and B directly; on the CPU the plain twin runs."""
+    (n_seeds, 4).  rows: an int64 [k] tensor of leading indices; the
+    result is then the draw of ``shape`` at those rows ([k, C, 15]).  On a
+    CUDA device K5's fused entries draw the phases and write A and B
+    directly (with rows, at those rows alone); on the CPU the plain twin
+    runs."""
     if torch.device(device).type == 'cuda':
-        A, B = k5.fourier_cuda(key, shape, _amplitudes(device))
+        amp = _amplitudes(device)
+        A, B = (k5.fourier_cuda(key, shape, amp) if rows is None else
+                k5.fourier_rows_cuda(key, shape, rows, amp))
         return FourierSeries(A, B, float(T_s))
-    return draw_fourier_plain(key, shape, T_s, device)
+    return draw_fourier_plain(key, shape, T_s, device, rows)
 
 
-def draw_fourier_plain(key: rng.Key, shape, T_s: float,
-                       device='cpu') -> FourierSeries:
-    """Plain twin of ``draw_fourier``."""
+def draw_fourier_plain(key: rng.Key, shape, T_s: float, device='cpu',
+                       rows=None) -> FourierSeries:
+    """Plain twin of ``draw_fourier``: with rows, the full draw gathered
+    at them, the JAX package's route (models/pipeline.py launch_inputs)."""
     amp = _amplitudes(device)
     phi = rng.uniform_plain(key, tuple(shape) + (N_FOURIER,), device=device)
-    return FourierSeries(amp * torch.cos(2 * math.pi * phi),
-                         amp * torch.sin(2 * math.pi * phi), float(T_s))
+    A = amp * torch.cos(2 * math.pi * phi)
+    B = amp * torch.sin(2 * math.pi * phi)
+    if rows is not None:
+        A, B = A[rows], B[rows]
+    return FourierSeries(A, B, float(T_s))

@@ -4,12 +4,21 @@ of the JAX package, on the 28 pressure levels of the real ERA5 request,
 scripts/download_era5.py:20-22).
 
     python -m tropical_cyclone_risk_tpu_torch.utils.synthetic_era5 WS \
-        [Y0 [Y1]] [--nlat 181 --nlon 360 --seed-batch N]
+        [Y0 [Y1]] [--nlat 181 --nlon 360 --seed-batch N] \
+        [--land-res 0.5] [--bathy-res 0.25]
 
 writes WS/raw (monthly sst/sp/t/q and twice-daily 250/850 hPa u/v per
-year), WS/static (land, mld, strat) and WS/namelist.py, which
-``python -m tropical_cyclone_risk_tpu_torch.cli GL --namelist
-WS/namelist.py`` reads.
+year), WS/static (land, mld, strat, and with --bathy-res bathymetry) and
+WS/namelist.py, which ``python -m tropical_cyclone_risk_tpu_torch.cli GL
+--namelist WS/namelist.py`` reads.
+
+By default the land mask is on the wind grid and there is no bathymetry
+file (the pack builder then puts its land-derived proxy on the land grid),
+so land and bathymetry sit in the integrator's cell row.  --land-res puts
+the land mask on a grid of that spacing in degrees; the proxy follows it
+there (the "fused geo" layout of models/fields.py GatherStacks).
+--bathy-res writes a bathymetry file on a grid of its own (with another
+spacing than the land's: the "separate" layout).
 """
 
 from __future__ import annotations
@@ -34,13 +43,26 @@ def axes(nlat: int, nlon: int):
     return (np.arange(nlon) * (360.0 / nlon), np.linspace(-90.0, 90.0, nlat))
 
 
-def land_2d(lon, lat) -> np.ndarray:
-    """Polar caps and two idealized continents."""
+def land_2d(lon, lat, margin: float = 0.0) -> np.ndarray:
+    """Polar caps and two idealized continents (grown by `margin`
+    degrees)."""
     LO, LA = np.meshgrid(lon, lat)
-    return ((np.abs(LA) > 70) | ((LO > 265) & (LO < 310) & (LA > -55) &
-                                 (LA < 60)) |
-            ((LO > 10) & (LO < 50) & (LA > -35) & (LA < 35))
+    e = margin
+    return ((np.abs(LA) > 70 - e) |
+            ((LO > 265 - e) & (LO < 310 + e) & (LA > -55 - e) &
+             (LA < 60 + e)) |
+            ((LO > 10 - e) & (LO < 50 + e) & (LA > -35 - e) & (LA < 35 + e))
             ).astype(np.float32)
+
+
+def bathy_2d(lon, lat) -> np.ndarray:
+    """Elevation in metres: +100 over land, a 30 m deep shelf within two
+    degrees of the coasts (shallower than the mixed layer, so the ocean
+    feedback is off there) and -4500 m in the open ocean."""
+    land = land_2d(lon, lat)
+    shelf = land_2d(lon, lat, margin=2.0)
+    return np.where(land > 0, 100.0,
+                    np.where(shelf > 0, -30.0, -4500.0)).astype(np.float32)
 
 
 def _hours(t: np.ndarray) -> np.ndarray:
@@ -110,13 +132,29 @@ def write_year(base: str, year: int, lon, lat, rng) -> None:
                                 'level': {'units': 'millibars'}})
 
 
-def write_static(ws: str, lon, lat) -> None:
-    """Land fraction and the monthly MLD / stratification climatologies."""
+def res_axes(res: float):
+    """(lon, lat) of a global grid of `res` degrees (axes' layout)."""
+    return axes(int(round(180.0 / res)) + 1, int(round(360.0 / res)))
+
+
+def write_static(ws: str, lon, lat, land_res: float | None = None,
+                 bathy_res: float | None = None) -> None:
+    """Land fraction (on the wind grid, or on a grid of land_res degrees),
+    the monthly MLD / stratification climatologies on the wind grid and,
+    with bathy_res, bathymetry on a grid of bathy_res degrees, in the
+    variable layout preprocess/static.py reads."""
     land = land_2d(lon, lat)
     nlat, nlon = lat.size, lon.size
     os.makedirs(f'{ws}/static', exist_ok=True)
-    netcdf.write(f'{ws}/static/land.nc', {'land': (('lat', 'lon'), land)},
-                 coords={'lat': lat, 'lon': lon})
+    l_lon, l_lat = (lon, lat) if land_res is None else res_axes(land_res)
+    netcdf.write(f'{ws}/static/land.nc',
+                 {'land': (('lat', 'lon'), land_2d(l_lon, l_lat))},
+                 coords={'lat': l_lat, 'lon': l_lon})
+    if bathy_res is not None:
+        b_lon, b_lat = res_axes(bathy_res)
+        netcdf.write(f'{ws}/static/bathymetry.nc',
+                     {'bathymetry': (('lat', 'lon'), bathy_2d(b_lon, b_lat))},
+                     coords={'lat': b_lat, 'lon': b_lon})
     mld = np.where(land[:, :, None] > 0, np.nan,
                    40.0 + 20.0 * np.cos(np.deg2rad(lat))[:, None, None]
                    * np.ones((nlat, nlon, 12))).astype(np.float32)
@@ -131,14 +169,16 @@ def write_static(ws: str, lon, lat) -> None:
 
 def make_workspace(ws: str, y0: int = 2016, y1: int = 2016, nlat: int = 181,
                    nlon: int = 360, tracks_per_year: int = 20,
-                   seed_batch: int = 16384) -> str:
+                   seed_batch: int = 16384, land_res: float | None = None,
+                   bathy_res: float | None = None) -> str:
     """Write the workspace and its namelist (random fields from seed 0);
-    returns the namelist's path."""
+    returns the namelist's path.  land_res / bathy_res: see
+    write_static."""
     os.makedirs(f'{ws}/raw', exist_ok=True)
     os.makedirs(f'{ws}/out', exist_ok=True)
     lon, lat = axes(nlat, nlon)
     rng = np.random.default_rng(0)
-    write_static(ws, lon, lat)
+    write_static(ws, lon, lat, land_res, bathy_res)
     for year in range(y0, y1 + 1):
         write_year(f'{ws}/raw', year, lon, lat, rng)
     path = f'{ws}/namelist.py'
@@ -172,9 +212,16 @@ def main(argv=None) -> int:
     ap.add_argument('--nlat', type=int, default=181)
     ap.add_argument('--nlon', type=int, default=360)
     ap.add_argument('--seed-batch', type=int, default=16384)
+    ap.add_argument('--land-res', type=float, default=None,
+                    help='land mask grid spacing in degrees (default: the '
+                         'wind grid)')
+    ap.add_argument('--bathy-res', type=float, default=None,
+                    help='write a bathymetry file on a grid of this '
+                         'spacing in degrees (default: none)')
     a = ap.parse_args(argv)
     print(make_workspace(a.ws, a.y0, a.y1 if a.y1 is not None else a.y0,
-                         a.nlat, a.nlon, seed_batch=a.seed_batch))
+                         a.nlat, a.nlon, seed_batch=a.seed_batch,
+                         land_res=a.land_res, bathy_res=a.bathy_res))
     return 0
 
 
