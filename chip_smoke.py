@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times ROOT    (see kernel_times)
+    python3 chip_smoke.py --drivers ROOT         (see drivers_times)
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -82,6 +83,18 @@ Phases (any failure raises, and the script exits non-zero):
                just after, K7 held against its twin on every launch; the
                tracks file is read back and checked; the same for one year
                with time_interp_fields=True and rk_substeps=2.
+8b. years    - the production year drivers on a 36-plane (three-year)
+               pack: run_downscaling with years_per_program=2 (the fused
+               driver, one group of two years and a tail of one; every
+               steady-state year settled without run_tracks_year) and with
+               years_per_program=1 (the per-year loop with a prefetched
+               batch 0), counters reset just before and read just after
+               each, write the same file bit for bit; a forced fallback
+               (integrate_cap 1/16) through the fused driver equals the
+               per-year loop bit for bit, every year handed its fused
+               launch; K7 held against its twin on every launch; the host
+               synchronisations of one launch, with their sources, under
+               torch.cuda.set_sync_debug_mode.
 9. slice 2   - the workspace path: cli.main(['GL', '--namelist', ...,
                '--seed', '0']) on cuda at seed_batch=131072 (land masks,
                wind statistics, thermo, pack builder, simulation), counters
@@ -96,11 +109,22 @@ Phases (any failure raises, and the script exits non-zero):
                (device kernels per launch, busy share, host time by
                stage, the genesis gate's among them, device time by
                operator) and the two-year run.
+11. bench    - the port's bench entry point (python -m
+               tropical_cyclone_risk_tpu_torch.bench) at its full workload
+               in process, counters reset just before and read just after:
+               its one JSON line (bench.py's keys, the card's name and
+               power limit), its rates checked positive, its peak device
+               memory and its kernel launches; then the two year drivers
+               on its workload pass by pass (8 years, each pass from
+               nothing issued): seconds per year, launches, host
+               synchronisations with their sources, the device's busy
+               share.
 
 The line before the card line is a JSON object with each kernel's route,
-source, launches on the workspace path, error against its twin, times and
-bound; the last line is {"ok": true, "device": {...}}.  Builds go to
-build/.  Every time printed stands beside the card's name and power limit.
+source, launches on the workspace path (and in the bench run), error
+against its twin, times and bound; the last line is {"ok": true,
+"device": {...}}.  Builds go to build/.  Every time printed stands beside
+the card's name and power limit.
 """
 
 import contextlib
@@ -1791,6 +1815,10 @@ def main():
         if n_md != cfg.tracks_per_year:
             raise AssertionError(f'modes: {n_md} tracks')
 
+        # ---- 8b. years: the production year drivers -----------------------
+        n_sync, sync_where = check_years(dev, cfg_t, pack_y, plane0, tmp,
+                                         card)
+
         # ---- 9. slice 2: the workspace path through the CLI ---------------
         stage_s = {}
         timed = [(winds, 'gen_wind_mean_cov', 'winds'),
@@ -1942,10 +1970,14 @@ def main():
         f'sim-years/min; two-year run_downscaling {t_run:.2f} s incl. '
         f'auto-tune and write; workspace CLI {t_cli:.2f} s')
 
+    # ---- 11. bench: the port's bench entry point --------------------------
+    del pack24
+    bench_line, bench_launches, bench_peak, drivers = run_bench(card)
+
     for k in k35 + [k4_entry]:
         k['launches'] = launches[k['name']]
     src = 'tropical_cyclone_risk_tpu_torch/'
-    print(json.dumps({'kernels': [
+    entries = [
         {'name': 'integrator', 'route': 'cuda',
          'source': src + 'csrc/integrator.cu',
          'replaces': 'tropical_cyclone_risk_tpu/models/simulator.py:111',
@@ -1982,7 +2014,15 @@ def main():
          'per': 'one launch\'s gate (the kernel alone, device time)',
          'event_ms': ms_k7_event, 'dispatch_ms': ms_k7_call,
          'stage_host_ms': g_host, 'stage_device_span_ms': g_span,
-         'device_kernels_per_launch': per_launch}]}))
+         'device_kernels_per_launch': per_launch}]
+    for k in entries:
+        k['bench_launches'] = bench_launches[k['name']]
+    log(f'[summary] {card}: host synchronisations per launch {n_sync}; '
+        f'bench peak {bench_peak:.2f} MiB; bench sim-years/min '
+        f'{bench_line["detail"]["sim_years_per_min"]}; s per sim-year by '
+        f'driver, each pass from nothing issued: '
+        f'{ {k: v["s_per_year"] for k, v in drivers.items()} }')
+    print(json.dumps({'kernels': entries}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -2076,6 +2116,234 @@ def check_small_launch(dev, Namelist, fields, pipeline, rng):
             and dlat <= 1e-3 and dpk <= 0.5 and both.sum() > 10):
         raise AssertionError('small launch on the card disagrees with the '
                              'CPU twins')
+
+
+def same_years(ref, got):
+    """Every YearTracks field of two lists of years equal bit for bit
+    (NaN where NaN, the same dtype)."""
+    keys = ('lon', 'lat', 'v', 'm', 'vmax', 'wnds', 'month', 'basin_idx',
+            'n_seeds')
+    return len(ref) == len(got) and all(
+        getattr(r, k).dtype == getattr(f, k).dtype
+        and np.array_equal(getattr(r, k), getattr(f, k),
+                           equal_nan=getattr(r, k).dtype.kind == 'f')
+        for r, f in zip(ref, got) for k in keys) and all(
+        (r.n_dropped, r.n_proposed) == (f.n_dropped, f.n_proposed)
+        for r, f in zip(ref, got))
+
+
+def host_syncs(fn):
+    """(count, {source: count}) of the synchronizing CUDA operations fn()
+    makes, as torch.cuda.set_sync_debug_mode('warn') reports them while
+    fn() runs (switching the mode off reports one of its own); a
+    source is the innermost line of the port on the stack (file:line
+    function), or the innermost line when no line of the port is on it."""
+    import collections
+    import traceback
+    import warnings
+    where = collections.Counter()
+    inside = [False]
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if not inside[0] or 'synchroniz' not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if not f.filename.endswith('warnings.py')]
+        port = [f for f in stack
+                if 'tropical_cyclone_risk_tpu_torch' in f.filename]
+        f = (port or stack)[-1]
+        where[f'{f.filename.split("tropical_cyclone_risk_tpu_torch/")[-1]}'
+              f':{f.lineno} {f.name}'] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter('always')
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode('warn')
+        inside[0] = True
+        try:
+            fn()
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(where.values()), dict(where)
+
+
+def check_years(dev, cfg_t, pack_y, plane0, tmp, card):
+    """Phase 'years': the production year drivers on a 36-plane pack.
+    run_downscaling with years_per_program 2 (the fused driver: one group
+    of two years and a tail of one, every steady-state year settled without
+    run_tracks_year) and 1 (the per-year loop with its prefetched batch 0)
+    writes the same file bit for bit; a forced fallback (integrate_cap
+    1/16, no quota prefix) through the fused driver equals the per-year
+    loop; K7 against its twin on every launch; the host synchronisations of
+    one launch.  Returns the synchronisation count and its sources."""
+    from tropical_cyclone_risk_tpu_torch import kernels, rng, runtime
+    from tropical_cyclone_risk_tpu_torch.io import netcdf
+    from tropical_cyclone_risk_tpu_torch.models import (fields, pipeline,
+                                                        simulator)
+    cfg_y = cfg_t.replace(start_year=2016, end_year=2018,
+                          output_directory=f'{tmp}/years')
+    pack36 = fields.synthetic_pack(cfg_y, n_planes=36, nlat=181, nlon=360,
+                                   seed=0, device=dev)
+    fns, t_run = {}, {}
+    for ypp, name in ((2, 'fused'), (1, 'loop')):
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with captured(simulator, 'genesis_alive', check_k7,
+                      keep=False) as k7_runs, \
+                captured(pipeline, 'run_tracks_year', keep=False) as rty, \
+                captured(pipeline, '_simulate_years', keep=False) as groups:
+            fns[name] = runtime.run_downscaling(
+                cfg_y.replace(years_per_program=ypp, exp_name=name), BASIN,
+                pack36, seed=0, device=dev)
+        torch.cuda.synchronize()
+        t_run[name] = time.perf_counter() - t0
+        check_counts(f'years, {name}', dict(kernels.LAUNCHES),
+                     dict(kernels.PLAIN_ON_CUDA), SIMULATION_KERNELS)
+        k7_results(f'years, {name}', k7_runs)
+        log(f'[years] {card}: run_downscaling three years with '
+            f'years_per_program={ypp} in {t_run[name]:.2f} s: '
+            f'{len(groups)} fused groups, {len(rty)} calls of '
+            f'run_tracks_year, {len(k7_runs)} launches')
+        if name == 'fused' and (len(groups) != 2 or rty):
+            raise AssertionError(f'fused route: {len(groups)} groups, '
+                                 f'{len(rty)} run_tracks_year calls')
+    df, dl = netcdf.read(fns['fused']), netcdf.read(fns['loop'])
+    diff = [k for k, v in dl.variables.items()
+            if k not in df.variables or not np.array_equal(
+                df.variables[k].data, v.data,
+                equal_nan=v.data.dtype.kind == 'f')]
+    n_trk, _ = check_tracks(df, cfg_y)
+    log(f'[years] the two files: {len(dl.variables)} variables, '
+        f'{n_trk} tracks, differing {diff}')
+    if diff or set(df.variables) != set(dl.variables) \
+            or n_trk != 3 * cfg_y.tracks_per_year:
+        raise AssertionError(f'fused and per-year files differ: {diff}')
+
+    # a forced fallback: every year's batch 0 overflows its cap
+    cfg_fb = cfg_y.replace(integrate_cap=1.0 / 16.0, survivors_per_slot=None)
+    years = list(cfg_fb.years())
+    key = rng.key(5)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with captured(simulator, 'genesis_alive', check_k7,
+                  keep=False) as k7_runs:
+        ref = [pipeline.run_tracks_year(rng.fold_in(key, yr), pack36, cfg_fb,
+                                        BASIN, yi)
+               for yi, yr in enumerate(years)]
+        with captured(pipeline, 'run_tracks_year') as fb_calls:
+            fused = pipeline.run_tracks_years_fused(key, pack36, cfg_fb,
+                                                    BASIN, years, k_fuse=2)
+    torch.cuda.synchronize()
+    check_counts('years, fallback', dict(kernels.LAUNCHES),
+                 dict(kernels.PLAIN_ON_CUDA), SIMULATION_KERNELS)
+    k7_results('years, fallback', k7_runs)
+    handed = sum(c[1].get('first_batch') is not None for c in fb_calls)
+    equal = same_years(ref, fused)
+    log(f'[years] {card}: forced fallback (integrate_cap 1/16) in '
+        f'{time.perf_counter() - t0:.2f} s: {len(fb_calls)} fallback years, '
+        f'{handed} handed their fused launch; equal to the per-year loop '
+        f'bit for bit {equal}')
+    if not (equal and len(fb_calls) == len(years) == handed):
+        raise AssertionError('forced fallback differs from the loop')
+    del fb_calls, ref, fused, pack36
+
+    # the host synchronisations of one launch (a warm one)
+    def launch():
+        pipeline._simulate_batch(rng.key(95), pack_y, cfg_t, BASIN,
+                                 N_SEEDS, 64, plane0)
+    launch()
+    n_sync, where = host_syncs(launch)
+    log(f'[years] host synchronisations in one launch (_simulate_batch, '
+        f'torch.cuda.set_sync_debug_mode): {n_sync} {json.dumps(where)}')
+    return n_sync, where
+
+
+def run_bench(card):
+    """Phase 'bench': the bench entry point at its full workload, in
+    process; its JSON line, its peak device memory and its kernel
+    launches."""
+    import contextlib
+    import io
+    from tropical_cyclone_risk_tpu_torch import bench, kernels
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        bench.main([])
+    dt = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    lines = out.getvalue().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f'the bench printed {len(lines)} lines')
+    log(f'[bench] {lines[0]}')
+    res = json.loads(lines[0])
+    d = res['detail']
+    rates = (res['value'], d['scan_rows_per_min'], d['surviving_tcs_per_min'],
+             d['sim_years_per_min'], d['seconds_per_sim_year_unfused_loop'])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f'[bench] {card}: {dt:.1f} s in all; peak device memory allocated '
+        f'{peak:.2f} MiB')
+    check_counts('bench', launches, dict(kernels.PLAIN_ON_CUDA),
+                 SIMULATION_KERNELS)
+    if not (min(rates) > 0 and d['platform'] == 'gpu'
+            and d['device'] == card and res['vs_baseline'] is None):
+        raise AssertionError(f'bench line: {res}')
+    drivers = compare_drivers(card)
+    return res, launches, peak, drivers
+
+
+def compare_drivers(card, n_years=8, reps=3):
+    """The two year drivers on the bench's workload (its auto-tuned caps,
+    an 8-year 181x360 pack), pass by pass, each pass timed from nothing
+    issued: wall time (median of reps, after a warm pass), launches per
+    pass (K3 launches once per launch), host synchronisations per pass
+    with their sources, and the device's busy share over one pass under
+    torch.profiler.  Returns {driver: numbers}."""
+    from torch.profiler import ProfilerActivity, profile
+    from tropical_cyclone_risk_tpu_torch import bench, kernels
+    from tropical_cyclone_risk_tpu_torch.models import fields
+    dev = torch.device('cuda', 0)
+    cfg, _ = bench.workload(dev)
+    pack = fields.synthetic_pack(cfg, 12 * n_years, 181, 360, seed=0,
+                                 device=dev)
+    passes = {
+        'fused': lambda s: bench.fused_pass(s, pack, cfg, n_years),
+        'loop': lambda s: bench.loop_pass(s, pack, cfg, n_years,
+                                          bench.loop_first(s, pack, cfg))}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix='drivers_') as tmp:
+        for name, one in passes.items():
+            one(300)
+            dts = []
+            for r in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one(301 + r)
+                dts.append(time.perf_counter() - t0)
+            kernels.reset_counts()
+            one(310)
+            n_launch = kernels.LAUNCHES['seeding']
+            n_sync, where = host_syncs(lambda: one(311))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                one(312)
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(f'{tmp}/{name}.json')
+            busy, span, n_kern = trace_busy(f'{tmp}/{name}.json')
+            out[name] = {'s_per_year': statistics.median(dts) / n_years,
+                         's_per_year_all': [d / n_years for d in dts],
+                         'launches': n_launch, 'host_syncs': n_sync,
+                         'sync_sources': where, 'busy_share': busy / span,
+                         'device_kernels': n_kern}
+            log(f'[bench] {card}: {name} driver, {n_years} years per pass: '
+                f'{json.dumps(out[name])}')
+    return out
 
 
 # profiles taken per measurement before giving up: the card's tracer now
@@ -2309,7 +2577,29 @@ def kernel_times(root):
     print(json.dumps(res))
 
 
+def drivers_times(root):
+    """--drivers ROOT: with the port imported from the tree at ROOT, its
+    kernels built (build_all) and compare_drivers on the bench's workload;
+    prints one JSON line.  Run on two trees, a parent and its change, in
+    one chip call, it compares their year drivers on one card."""
+    import os
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device')
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import tropical_cyclone_risk_tpu_torch as pkg
+    if not pkg.__file__.startswith(root + os.sep):
+        raise SystemExit(f'the port was imported from {pkg.__file__}')
+    card = card_line()
+    with contextlib.redirect_stdout(sys.stderr):
+        build_all(torch.device('cuda', 0))
+        out = compare_drivers(card)
+    print(json.dumps({'root': root, 'card': card, 'drivers': out}))
+
+
 if __name__ == '__main__':
     if len(sys.argv) == 3 and sys.argv[1] == '--kernel-times':
         sys.exit(kernel_times(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == '--drivers':
+        sys.exit(drivers_times(sys.argv[2]))
     sys.exit(main())

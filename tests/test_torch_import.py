@@ -48,10 +48,9 @@ def _imports(path: Path):
 def test_every_module_imports_with_jax_blocked():
     """...and with the JAX package blocked too."""
     assert len(MODULES) >= 30
-    assert {'tropical_cyclone_risk_tpu_torch.kernels.compact',
-            'tropical_cyclone_risk_tpu_torch.kernels.vmax',
-            'tropical_cyclone_risk_tpu_torch.kernels.integrator'} <= set(
-                MODULES)
+    assert {'tropical_cyclone_risk_tpu_torch.' + m for m in (
+        'kernels.compact', 'kernels.vmax', 'kernels.integrator', 'bench',
+        'analysis', 'utils.util', 'ops.sphere')} <= set(MODULES)
     code = ("import sys, importlib\n"
             f"for b in {BLOCKED!r}: sys.modules[b] = None\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"

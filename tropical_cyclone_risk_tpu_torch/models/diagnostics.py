@@ -1,7 +1,9 @@
 """Track diagnostics: azimuthal -> maximum wind conversion (twin of
-tropical_cyclone_risk_tpu/models/diagnostics.py, the standalone vmax pass).
+tropical_cyclone_risk_tpu/models/diagnostics.py).
 
-``axi_to_max_wind_raw`` runs over every launch row.  On a CUDA tensor it
+``axi_to_max_wind``, ``_extrapolate_nan_tail`` and ``vmax_filter`` are the
+per-track API of one-shot callers, in plain torch.  ``axi_to_max_wind_raw``
+is the launch's vmax pass and runs over every launch row.  On a CUDA tensor it
 launches the CUDA kernel of csrc/vmax.cu (kernels/vmax.py); on a CPU tensor
 it runs ``axi_to_max_wind_raw_plain``, the same arithmetic in torch ops.
 """
@@ -16,6 +18,7 @@ from tropical_cyclone_risk_tpu_torch import constants
 from tropical_cyclone_risk_tpu_torch import kernels
 from tropical_cyclone_risk_tpu_torch.kernels import vmax as vmax_kernel
 from tropical_cyclone_risk_tpu_torch.models.fast import deep_layer_indices
+from tropical_cyclone_risk_tpu_torch.ops import sphere
 
 DEG2RAD = math.pi / 180.0
 KM2 = constants.earth_R / 1000.0 * 2      # twice the earth radius in km
@@ -56,6 +59,46 @@ def vmax_step(cfg, lat, tc_v, env_wnds, ut, vt):
     U_inc = G * ut + 0.1 * u_shr * tc_v / 15.0
     V_inc = G * vt + 0.1 * v_shr * tc_v / 15.0
     return _vmax_from_inc(tc_v, torch.sqrt(U_inc * U_inc + V_inc * V_inc))
+
+
+def _extrapolate_nan_tail(x):
+    """Replace the NaN tail of each track (last axis) with linear
+    extrapolation from the last two valid samples: the reference's edge
+    handling (util/sphere.py:66-69), which NaN-padded buffers would
+    otherwise turn into a NaN speed at each track's final valid sample.
+    A loop over time, step for step the JAX package's scan."""
+    prev, delta = x[..., 0], torch.zeros_like(x[..., 0])
+    out = []
+    for t in range(x.shape[-1]):
+        xt = x[..., t]
+        bad = torch.isnan(xt)
+        cur = torch.where(bad, prev + delta, xt)
+        delta = torch.where(bad, delta, cur - prev)
+        prev = cur
+        out.append(cur)
+    return torch.stack(out, dim=-1)
+
+
+def axi_to_max_wind(track_lon, track_lat, dt_track, tc_v, env_wnds,
+                    cfg=None):
+    """Maximum wind from azimuthal wind + translation + shear asymmetries
+    (wind/tc_wind.py:6-21) over NaN-padded track buffers.
+
+    track_lon/lat/tc_v: [..., T]; env_wnds: [..., T, W] in (u_l1, v_l1,
+    u_l2, v_l2, ...) channel order; cfg resolves which channels are the
+    250/850 hPa shear layers (default: the two-level layout).  NaN samples
+    beyond a track's death yield NaN vmax; the final valid sample gets the
+    reference's edge extrapolation rather than NaN."""
+    pos = _extrapolate_nan_tail(torch.stack([track_lon, track_lat]))
+    utran, vtran = sphere.translational_speed(pos[0], pos[1], dt_track)
+    return vmax_step(cfg, track_lat, tc_v, env_wnds, utran, vtran)
+
+
+def vmax_filter(cfg, vmax):
+    """Lifetime-max filter (util/compute.py:205): keep where the NaN-aware
+    maximum over the last axis reaches seed_vmax_threshold_ms."""
+    peak = torch.where(torch.isnan(vmax), -math.inf, vmax).amax(dim=-1)
+    return peak >= cfg.seed_vmax_threshold_ms
 
 
 def _take_rows(x, i):

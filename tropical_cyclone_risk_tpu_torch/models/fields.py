@@ -138,14 +138,26 @@ def slice_pack_year(pack: FieldPack, cfg: Namelist, year_idx: int
     """The 12 calendar-month planes of one simulated year; months outside
     the data range get a clamped plane with vpot zeroed, so the PI gate
     rejects them (util/compute.py:107-121)."""
-    idx_np, valid = year_plane_indices(cfg, pack.n_planes, year_idx)
+    return gather_year(pack, *year_plane_indices(cfg, pack.n_planes,
+                                                 year_idx))
+
+
+def gather_year(pack: FieldPack, idx_np: np.ndarray, valid: np.ndarray
+                ) -> FieldPack:
+    """The planes idx_np of pack, vpot zeroed where valid is 0 (one row of
+    year_plane_indices; the per-year loop and the fused years share it).
+    A year inside the data range is a run of 12 planes, taken as a view:
+    no index goes up from the host, so issuing the year does not wait for
+    the launches queued before it."""
+    if valid.all():
+        lo = int(idx_np[0])
+        return pack._replace(wind=pack.wind[lo:lo + 12],
+                             env=pack.env[lo:lo + 12])
     idx = torch.as_tensor(idx_np, dtype=torch.int64, device=pack.device)
-    wind = pack.wind[idx]
     env = pack.env[idx]
-    if not valid.all():
-        vmask = torch.as_tensor(valid, device=pack.device)[:, None, None]
-        env[..., VPOT] *= vmask
-    return pack._replace(wind=wind, env=env)
+    env[..., VPOT] *= torch.as_tensor(valid, device=pack.device)[:, None,
+                                                                  None]
+    return pack._replace(wind=pack.wind[idx], env=env)
 
 
 def prepare_chi(chi_raw: np.ndarray, cfg: Namelist) -> np.ndarray:

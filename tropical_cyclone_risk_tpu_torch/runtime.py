@@ -82,6 +82,14 @@ def write_tracks_nc(path: str, out: dict, cfg: Namelist) -> None:
                  var_attrs={'time': {'units': 'seconds since genesis'}})
 
 
+def count_year(metrics: obs.Metrics, res: pipeline.YearTracks) -> None:
+    """Add one simulated year to the run's counters."""
+    metrics.count('tracks', res.lon.shape[0])
+    metrics.count('seeds', float(res.n_seeds.sum()))
+    metrics.count('seeds_dropped', res.n_dropped)
+    metrics.count('seeds_proposed', res.n_proposed)
+
+
 def run_downscaling(cfg: Namelist, basin_id: str, pack: FieldPack,
                     seed: Optional[int] = None,
                     n_years: Optional[int] = None,
@@ -119,16 +127,39 @@ def run_downscaling(cfg: Namelist, basin_id: str, pack: FieldPack,
     results = []
     adapt = {'cfg': cfg}     # cap-overflow re-tuning persists across years
     with obs.maybe_profile(trace_dir):
-        for yi, year in enumerate(years):
-            with obs.phase(f'year {year}', metrics):
-                results.append(pipeline.run_tracks_year(
-                    rng.fold_in(key, year), pack, cfg, basin_id, yi,
-                    adapt=adapt))
-            metrics.count('tracks', results[-1].lon.shape[0])
-            metrics.count('seeds', float(results[-1].n_seeds.sum()))
-            metrics.count('seeds_dropped', results[-1].n_dropped)
-            metrics.count('seeds_proposed', results[-1].n_proposed)
-            metrics.time('simulate', metrics.timings.pop(f'year {year}'))
+        if cfg.years_per_program > 1 and len(years) > 1:
+            # the default: batch 0 of years_per_program years issued as one
+            # group, the next group in flight while this one is read; years
+            # their batch 0 does not settle finish on the per-year loop
+            # inside the driver, with the same results
+            with obs.phase('simulate', metrics):
+                results = pipeline.run_tracks_years_fused(
+                    key, pack, cfg, basin_id, list(years), adapt=adapt)
+            # the fused driver logs each group's progress
+            for res in results:
+                count_year(metrics, res)
+        else:
+            # per-year loop with one launch in flight across year
+            # boundaries: year y+1's first batch is issued before year y's
+            # results are read
+            pending = pipeline.prefetch_year_batch0(
+                rng.fold_in(key, years[0]), pack, cfg, basin_id,
+                0) if years else None
+            for yi, year in enumerate(years):
+                nxt = pipeline.prefetch_year_batch0(
+                    rng.fold_in(key, years[yi + 1]), pack, adapt['cfg'],
+                    basin_id, yi + 1) if yi + 1 < len(years) else None
+                with obs.phase(f'year {year}', metrics):
+                    results.append(pipeline.run_tracks_year(
+                        rng.fold_in(key, year), pack, cfg, basin_id, yi,
+                        first_batch=pending, adapt=adapt))
+                pending = nxt
+                count_year(metrics, results[-1])
+                metrics.time('simulate', metrics.timings.pop(f'year {year}'))
+                obs.log.info('year %d: %d tracks, %d seeds, %.1f s elapsed',
+                             year, results[-1].lon.shape[0],
+                             int(results[-1].n_seeds.sum()),
+                             time.time() - t0)
     obs.log.info('throughput: %.0f seeds/s, %.2f tracks/s',
                  metrics.rate('seeds', 'simulate'),
                  metrics.rate('tracks', 'simulate'))
