@@ -66,11 +66,27 @@ Phases (any failure raises, and the script exits non-zero):
                in-cell pack's, with bounds that count each layout's rows.
 5. workspace - write one year of a one-degree ERA5-shaped raw workspace on
                the 28 ERA5 pressure levels (utils/synthetic_era5.py).
+   fixed     - one 131072-seed launch with debug_fixed_position: K1
+               against its twin on the first and the last segment, K7 bit
+               for bit, K2 within 1e-4 m/s on every segment, and every
+               alive sample's lon and lat equal bit for bit to the storm's
+               start.
+   BAM       - models/bam.gen_tracks (the uncoupled beta-advection model)
+               at 32768 storms on the 181x360 pack, on the card and on the
+               CPU from the same numpy-seeded inputs: agreement within
+               1e-3 degrees; the card's wall time per call.
 6. K6        - gen_thermo over that workspace with cape_pi captured: all
                12 x 181 x 360 columns on 28 levels through K6 and through
                the plain twin on the card, bit for bit (and a sample of
                columns through the twin on the CPU, within the stated
                tolerances); times.
+6b. K6 modes - the same columns through K6's five other instances
+               (Newton with select_thermo 1 and 2, the 3-D table with
+               both, the 2-D table with select_thermo=2) and their twin on
+               the card: the largest difference and the columns that
+               differ (within 1e-3 m/s), the kernel's device time, its
+               bound (Newton: its steps on these inputs at the SASS of one
+               step by pipe) and the twin's time.
 7. slice 1   - runtime.run_downscaling(cfg, 'GL', pack, seed=0) at
                seed_batch=131072 for two years on a 24-plane synthetic
                pack, counters reset just before and read just after, K7
@@ -105,6 +121,10 @@ Phases (any failure raises, and the script exits non-zero):
                CLI on a second workspace with land on 0.5 degrees and
                bathymetry on 0.25 degrees (K7 held against its twin on
                every launch, the files checked as before).
+9c. thermo2  - the CLI on the first workspace with select_thermo=2 (K6 on
+               the reversible 3-D table), counters reset just before and
+               read just after; the thermo and tracks files checked, the
+               thermo stage's seconds.
 10. times    - launch times, a torch.profiler trace of three launches
                (device kernels per launch, busy share, host time by
                stage, the genesis gate's among them, device time by
@@ -130,6 +150,7 @@ the card's name and power limit.
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -472,6 +493,292 @@ def k6_bound(args, out):
     n_col, L = sst.numel(), p_env.shape[0]
     return bound(nbytes(sst, p_surf, p_env, T_env, r_env, table.T, out),
                  n_col * (140 + 100 * L))
+
+
+# K6's instances besides the default (name: select_thermo, select_interp,
+# the table), each held against its twin on the workspace's columns.  The
+# tables: the reversible 3-D table the thermo driver builds for
+# select_thermo=2; for the pseudoadiabatic branch on a 3-D table, the 2-D
+# pseudoadiabatic table on the r_t slabs, 0.05 K apart; for the reversible
+# branch on a 2-D table, the 3-D table's slab at r_t = 0.021
+K6_MODES = {'pseudo-newton': (1, 1, None),
+            'reversible-newton': (2, 1, None),
+            'reversible-table3': (2, 2, 'table3'),
+            'pseudo-table3': (1, 2, 'pseudo3'),
+            'reversible-table2': (2, 2, 'slab')}
+K6_NEWTON_REPS = 5
+
+
+def k6_mode_tables(table, dev):
+    """{table name of K6_MODES: the table on dev}, from the default 2-D
+    table."""
+    from tropical_cyclone_risk_tpu_torch.ops import pi as pi_ops
+    t3 = pi_ops.EntropyTable3.create(dev)
+    nrt = t3.T.shape[-1]
+    rt = t3.rt0 + t3.drt * np.arange(nrt)
+    shifted = (table.T.cpu().numpy()[..., None]
+               - np.float32(0.05) * np.arange(nrt, dtype=np.float32))
+    return {'table3': t3,
+            'pseudo3': pi_ops.EntropyTable3.from_arrays(
+                table.grid.lat_axis(), table.grid.lon_axis(), rt, shifted,
+                dev),
+            'slab': pi_ops.EntropyTable.from_arrays(
+                t3.grid.lat_axis(), t3.grid.lon_axis(),
+                t3.T.cpu().numpy()[..., 9], dev)}
+
+
+def newton_inversions(args):
+    """The Newton inversions a cape_pi call needs on these inputs, as the
+    kernel makes them: the saturated parcel on every level of every
+    column, the lifted one from its first condensing level up (the
+    twin's Icond)."""
+    from tropical_cyclone_risk_tpu_torch import constants as pr
+    from tropical_cyclone_risk_tpu_torch.ops import thermo
+    from tropical_cyclone_risk_tpu_torch.ops.interp import true_div
+    sst, p_surf, p_env, T_env, r_env = args[:5]
+    L = p_env.shape[0]
+    T_ns, r_ns = T_env[0], r_env[0]
+    _, rs = thermo.sat_thermo(sst, p_surf)
+    rh = r_ns / rs * (1 + true_div(rs, pr.eps)) / (1 + true_div(r_ns, pr.eps))
+    p_lcl = thermo.get_LCL(p_env[0], T_ns, r_ns, rh)
+    cond = p_lcl[None] > p_env.reshape((L,) + (1,) * sst.dim())
+    cond[-1] = True
+    first = cond.to(torch.uint8).argmax(dim=0)
+    return sst.numel() * L + int((L - first).sum())
+
+
+def sass_loop_pipes(lib_path, label):
+    """{pipe: static SASS instructions} of the shortest loop (the span from
+    a backward branch's target to the branch) of the kernel labelled
+    `label` (kernel_label) in a built library: the Newton step of K6's
+    Newton instances."""
+    import collections
+    import re
+    text = cuobjdump('-sass', lib_path)
+    if text is None:
+        raise AssertionError('no cuobjdump: the Newton bounds count the '
+                             'SASS')
+    for part in re.split(r'\n\s*Function : ', text)[1:]:
+        if kernel_label(part.split('\n', 1)[0].strip()) != label:
+            continue
+        ins = []
+        for line in part.splitlines():
+            m = re.search(r'/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?'
+                          r'([A-Z][A-Z0-9_.]*)([^;]*)', line)
+            if m:
+                ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+        loops = []
+        for at, op, rest in ins:
+            b = re.search(r'0x([0-9a-f]+)', rest)
+            if op.startswith('BRA') and b and int(b.group(1), 16) < at:
+                lo = int(b.group(1), 16)
+                # a Newton step's seven IEEE divisions (the level prologue
+                # makes one)
+                rcp = sum(o.startswith('MUFU.RCP') for a, o, _ in ins
+                          if lo <= a <= at)
+                if rcp >= 5:
+                    loops.append((at - lo, lo, at))
+        if not loops:
+            raise AssertionError(f'{label}: no Newton loop in the SASS')
+        _, lo, hi = min(loops)
+        return dict(collections.Counter(pipe_of(op) for at, op, _ in ins
+                                        if lo <= at <= hi))
+    raise AssertionError(f'{label} not in the SASS of {lib_path}')
+
+
+def check_k6_modes(args, kw, card, lib_path, clock):
+    """Phase K6 modes: on the main path's inputs (the workspace's columns
+    and levels, captured in phase K6), each instance of K6_MODES through
+    ops.pi.cape_pi (K6) and its twin on the card: agreement (the largest
+    difference and the columns that differ), the kernel's device time
+    alone, its bound (table instances: k6_bound; Newton: the Newton steps
+    these inputs need, NEWTON_ITERS per inversion, at the SASS
+    instructions of one step by pipe) and the twin's time.  Returns
+    {instance: its numbers}."""
+    from tropical_cyclone_risk_tpu_torch.kernels import cape_pi as k6
+    from tropical_cyclone_risk_tpu_torch.ops import pi as pi_ops
+    from tropical_cyclone_risk_tpu_torch.ops import thermo
+    t0 = time.perf_counter()
+    tables = k6_mode_tables(args[5], args[0].device)
+    log(f'[K6 modes] tables built in {time.perf_counter() - t0:.2f} s '
+        f'(the reversible 3-D table {tuple(tables["table3"].T.shape)} by '
+        f'Newton on the CPU)')
+    out_modes = {}
+    for name, (thermo_, interp, tname) in K6_MODES.items():
+        margs = args[:5] + (tables.get(tname, args[5]),)
+        mkw = dict(kw, select_thermo=thermo_, select_interp=interp)
+        out = pi_ops.cape_pi(*margs, **mkw)
+        ref = uncounted(pi_ops.cape_pi_plain, *margs, **mkw)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        n_diff = int((out != ref).sum())
+        ok = bool(torch.isfinite(out).all()) and err <= K6_TOL
+        newton = interp == 1
+        reps = K6_NEWTON_REPS if newton else 20
+        ms = device_ms(lambda: pi_ops.cape_pi(*margs, **mkw), reps,
+                       ('cape_pi_kernel',))
+        plain = cuda_ms(lambda: pi_ops.cape_pi_plain(*margs, **mkw), 1)
+        if newton:
+            steps = newton_inversions(margs) * thermo.NEWTON_ITERS
+            per_step = sass_loop_pipes(
+                lib_path, f'cape_pi_kernel<{thermo_},{k6.NEWTON}>')
+            b, by = pipe_bound(nbytes(*margs[:5], out),
+                               {p: n * steps for p, n in per_step.items()},
+                               clock)
+            extra = (f'; {steps} Newton steps at {per_step} SASS '
+                     f'instructions each by pipe')
+        else:
+            b, by = k6_bound(margs, out)
+            extra = ''
+        out_modes[name] = {
+            'select_thermo': thermo_, 'select_interp': interp,
+            'table': tname or 'none', 'max_abs_err': err,
+            'differing_columns': n_diff, 'ms': ms, 'plain_ms': plain,
+            'bound_ms': b, 'bound_by': by,
+            'pi_max': float(out.max())}
+        log(f'[K6 modes] {card}: {name} (select_thermo={thermo_}, '
+            f'select_interp={interp}, table {tname}): max abs err '
+            f'{err:.3e} m/s against the twin, {n_diff} of {out.numel()} '
+            f'columns differ, PI max {float(out.max()):.2f} m/s; kernel '
+            f'{ms:.4f} ms device, bound {b:.4f} ms ({by}), plain twin '
+            f'{plain:.2f} ms{extra}')
+        if not ok:
+            raise AssertionError(f'K6 {name}: err {err} (tol {K6_TOL}), '
+                                 f'{n_diff} columns differ')
+        del out, ref
+    return out_modes
+
+
+def check_fixed(key, pack_y, cfg_t, plane0, card):
+    """Phase fixed: one full-width launch with debug_fixed_position (the
+    reference's intensity-only integration): K1 against its twin on the
+    first and the last segment (K1_TOL, K1_ALIVE_AGREE; the share of
+    bit-exact samples logged), K7 bit for bit on the launch, K2 within
+    K2_TOL on every segment, and every alive sample's lon and lat equal
+    bit for bit to the position the storm started its segment from (so,
+    segment by segment, to its genesis point).  Returns K1's largest
+    error."""
+    from tropical_cyclone_risk_tpu_torch.models import (diagnostics,
+                                                        pipeline, simulator)
+    cfg = cfg_t.replace(debug_fixed_position=True)
+    with captured(simulator, 'integrate_segment') as calls, \
+            captured(simulator, 'genesis_alive', check_k7,
+                     keep=False) as gates, \
+            captured(diagnostics, 'axi_to_max_wind_raw',
+                     lambda out, *a, **kw: compare_k2(
+                         out, uncounted(
+                             diagnostics.axi_to_max_wind_raw_plain, *a,
+                             **kw), a[5]), keep=False) as k2_calls:
+        pipeline._simulate_batch(key, pack_y, cfg, BASIN, N_SEEDS, 64,
+                                 plane0)
+    torch.cuda.synchronize()
+    k7_results('fixed', gates)
+    frozen = True
+    for args, _, out, _ in calls:
+        y0, (outs, (end_y, end_alive)) = args[3], out
+        alive = outs[5]
+        for got, start, end in ((outs[0], y0.lon, end_y.lon),
+                                (outs[1], y0.lat, end_y.lat)):
+            frozen &= bool((got == start[None])[alive].all())
+            frozen &= bool((end == start)[end_alive].all())
+    res = []
+    worst = 0.0
+    for args, _, out, _ in (calls[0], calls[-1]):
+        agree, err, exact = compare_k1(
+            out, uncounted(simulator.integrate_segment_plain, *args))
+        res.append((args[7], args[3].lon.shape[0], agree, exact, err))
+        worst = max([worst] + list(err.values()))
+        if agree < K1_ALIVE_AGREE or any(not err[nm] <= tol
+                                         for nm, tol in K1_TOL.items()):
+            raise AssertionError(f'K1 with fixed positions: alive agreement '
+                                 f'{agree}, errors {err}')
+    k2_err = max(c[3][0] for c in k2_calls)
+    n_alive = sum(int(c[2][0][5].sum()) for c in calls)
+    log(f'[fixed] {card}: debug_fixed_position, {len(calls)} segments, '
+        f'{n_alive} alive samples: every alive lon and lat equal to the '
+        f'segment start bit for bit {frozen}; K1 against its twin on the '
+        f'first and last (steps, storms, alive agreement, bit-exact lon '
+        f'share, max abs err) {res}; K2 max abs err {k2_err:.3e} on '
+        f'{len(k2_calls)} calls')
+    if not frozen:
+        raise AssertionError('fixed positions moved')
+    if not (k2_err <= K2_TOL and all(c[3][1] for c in k2_calls)):
+        raise AssertionError(f'K2 with fixed positions: err {k2_err}')
+    return worst
+
+
+BAM_STORMS = 32768
+BAM_TOL = 1e-3        # degrees, as tests/test_torch_bam.py against JAX
+
+
+def check_bam(pack_y, cfg, card):
+    """Phase BAM: models/bam.gen_tracks (the uncoupled beta-advection
+    model, plain torch) at BAM_STORMS storms on the pack, on the card and
+    on the CPU from the same numpy-seeded inputs (genesis points in the GL
+    belt, planes, Fourier A/B): alive histories equal up to exits on the
+    basin margin, lon and lat within BAM_TOL where both are alive; the
+    card's wall time per call.  Returns its numbers."""
+    from tropical_cyclone_risk_tpu_torch.models import bam
+    from tropical_cyclone_risk_tpu_torch.ops import fourier
+    from tropical_cyclone_risk_tpu_torch.utils import basins
+    r = np.random.default_rng(0)
+    n = BAM_STORMS
+    lon = r.uniform(0.0, 360.0, n).astype(np.float32)
+    lat = (r.choice([-1.0, 1.0], n) * r.uniform(5.0, 30.0, n)).astype(
+        np.float32)
+    plane = r.integers(0, 12, n).astype(np.int32)
+    k = np.arange(1, fourier.N_FOURIER + 1, dtype=np.float32)
+    amp = np.sqrt(2.0 / np.sum(k ** -3.0)) * k ** -1.5
+    phi = r.random((n, 4, fourier.N_FOURIER))
+    A = (amp * np.cos(2 * np.pi * phi)).astype(np.float32)
+    B = (amp * np.sin(2 * np.pi * phi)).astype(np.float32)
+
+    def run(pack):
+        dev = pack.device
+        t = lambda a: torch.from_numpy(a).to(dev)
+        return bam.gen_tracks(pack, cfg, BASIN, t(lon), t(lat), t(plane),
+                              fourier.FourierSeries(t(A), t(B),
+                                                    cfg.T_fourier_s))
+
+    pack_cpu = type(pack_y)(*(x.cpu() if isinstance(x, torch.Tensor) else x
+                              for x in pack_y))
+    t0 = time.perf_counter()
+    want = [x.numpy() for x in run(pack_cpu)]
+    t_cpu = time.perf_counter() - t0
+    got = [x.cpu().numpy() for x in run(pack_y)]
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(pack_y)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    (gl, ga, galive), (wl, wa, walive) = got, want
+    lon_lo, lat_lo, lon_hi, lat_hi = basins.basin_bounds(cfg, BASIN)
+    bad = []
+    for i in np.flatnonzero((galive != walive).any(axis=1)):
+        d = int(np.argmax(galive[i] != walive[i]))
+        x, y = (gl[i, d], ga[i, d]) if galive[i, d] else (wl[i, d], wa[i, d])
+        if min(abs(x - (lon_lo + 1)), abs(x - (lon_hi - 1)),
+               abs(y - (lat_lo + 1)), abs(y - (lat_hi - 1))) > BAM_TOL:
+            bad.append(i)
+    both = galive & walive
+    err = max(float(np.abs(gl - wl)[both].max()),
+              float(np.abs(ga - wa)[both].max()))
+    res = {'storms': n, 'steps': int(galive.shape[1]),
+           'alive_differ': int((galive != walive).any(axis=1).sum()),
+           'max_abs_err_deg': err, 'wall_s': statistics.median(walls),
+           'walls_s': walls, 'cpu_s': t_cpu}
+    log(f'[BAM] {card}: gen_tracks {n} storms x {res["steps"]} steps on '
+        f'the card against the CPU: {res["alive_differ"]} alive histories '
+        f'differ ({len(bad)} off the margin), lon/lat max abs err '
+        f'{err:.3e} deg (tol {BAM_TOL}); card wall '
+        f'{res["wall_s"]:.4f} s per call (median of '
+        f'{[round(w, 4) for w in walls]}), CPU {t_cpu:.2f} s')
+    if bad or not err <= BAM_TOL or not galive[:, 0].all():
+        raise AssertionError(f'BAM card against CPU: err {err}, storms off '
+                             f'the margin {bad[:10]}')
+    return res
 
 
 def same(a, b):
@@ -1427,7 +1734,6 @@ def ptxas_report(text):
 def cuobjdump(flag, lib_path):
     """cuobjdump's output for one flag on a built library, or None when
     cuobjdump is not found."""
-    import os
     tool = os.path.join(os.environ.get('CUDA_HOME') or '/usr/local/cuda',
                         'bin', 'cuobjdump')
     if not os.path.exists(tool):
@@ -1680,6 +1986,12 @@ def main():
     # ---- geo: K1 and K7 with land and bathymetry on their own grids ------
     geo = check_geo(rng.key(96), pack_y, cfg_t, plane0, card)
 
+    # ---- fixed: K1, K7 and K2 with debug_fixed_position ------------------
+    fixed_err = check_fixed(rng.key(95), pack_y, cfg_t, plane0, card)
+
+    # ---- BAM: the uncoupled beta-advection model, card against CPU -------
+    bam_res = check_bam(pack_y, cfg, card)
+
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
         # ---- 5. workspace -------------------------------------------------
         t0 = time.perf_counter()
@@ -1741,7 +2053,12 @@ def main():
         log(f'[K6] {card}: kernel {ms_k6_device:.4f} ms device, '
             f'{ms_k6:.4f} ms event through cape_pi, plain twin '
             f'{ms_k6_plain:.3f} ms, bound {k6_bound_ms:.4f} ms ({k6_by})')
-        del k6_calls, k6_args, k6_out, k6_ref
+        del k6_out, k6_ref
+
+        # ---- 6b. K6's other instances on the same inputs ----------------
+        k6_modes = check_k6_modes(k6_args, k6_kw, card,
+                                  libs['cape_pi']['path'], clock)
+        del k6_calls, k6_args
 
         # ---- 7. slice 1: run_downscaling on the synthetic pack ------------
         cfg_run = cfg.replace(output_directory=f'{tmp}/slice1',
@@ -1820,33 +2137,11 @@ def main():
                                          card)
 
         # ---- 9. slice 2: the workspace path through the CLI ---------------
-        stage_s = {}
-        timed = [(winds, 'gen_wind_mean_cov', 'winds'),
-                 (thermo_driver, 'gen_thermo', 'thermo'),
-                 (pack_builder, 'build_field_pack', 'pack build'),
-                 (runtime, 'run_downscaling', 'simulation')]
-        originals = [getattr(mod, nm) for mod, nm, _ in timed]
-
-        def timer(fn_, label):
-            def run(*a, **kw):
-                t = time.perf_counter()
-                try:
-                    return fn_(*a, **kw)
-                finally:
-                    torch.cuda.synchronize()
-                    stage_s[label] = time.perf_counter() - t
-            return run
-
-        for (mod, nm, label), orig in zip(timed, originals):
-            setattr(mod, nm, timer(orig, label))
         torch.cuda.synchronize()
         kernels.reset_counts()
         t0 = time.perf_counter()
-        try:
+        with stage_times() as stage_s:
             cli.main(['GL', '--namelist', nl, '--seed', '0'])
-        finally:
-            for (mod, nm, _), orig in zip(timed, originals):
-                setattr(mod, nm, orig)
         torch.cuda.synchronize()
         t_cli = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
@@ -1921,6 +2216,49 @@ def main():
             f'launches {dict(kernels.LAUNCHES)}')
         del built, pack_geo, stacks_geo
 
+        # ---- 9c. the workspace path with select_thermo=2 (the reversible
+        # branch, K6 on the 3-D table) -----------------------------------
+        nl_t2 = f'{tmp}/namelist_thermo2.py'
+        with open(nl) as f:
+            text = f.read().replace(repr(f'{ws}/out'),
+                                    repr(f'{tmp}/out_thermo2'))
+        with open(nl_t2, 'w') as f:
+            f.write(text + 'select_thermo = 2\n')
+        os.makedirs(f'{tmp}/out_thermo2')
+        cfg_t2 = load_namelist_py(nl_t2)
+        if cfg_t2.select_thermo != 2 or \
+                cfg_t2.output_directory != f'{tmp}/out_thermo2':
+            raise AssertionError(f'thermo2 namelist: {cfg_t2}')
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with stage_times() as stage_t2, \
+                captured(pi_ops, 'cape_pi', keep=False,
+                         check=lambda out, *a, **kw: (
+                             type(a[5]).__name__, kw.get('select_thermo'),
+                             kw.get('select_interp'))) as t2_calls:
+            cli.main(['GL', '--namelist', nl_t2, '--seed', '0'])
+        torch.cuda.synchronize()
+        t_cli_t2 = time.perf_counter() - t0
+        check_counts('thermo2', dict(kernels.LAUNCHES),
+                     dict(kernels.PLAIN_ON_CUDA), kernels.NAMES)
+        modes_t2 = sorted({c[3] for c in t2_calls})
+        if modes_t2 != [('EntropyTable3', 2, 2)]:
+            raise AssertionError(f'thermo2: cape_pi called as {modes_t2}')
+        check_thermo_file(thermo_driver.get_fn_thermo(cfg_t2), netcdf,
+                          synthetic_era5, 'thermo2')
+        n_t2, peaks_t2 = check_tracks(
+            netcdf.read(runtime.get_fn_tracks(cfg_t2, BASIN)), cfg_t2)
+        if n_t2 != cfg_t2.tracks_per_year:
+            raise AssertionError(f'{n_t2} tracks != '
+                                 f'{cfg_t2.tracks_per_year}')
+        log(f'[thermo2] {card}: cli.main GL one year with select_thermo=2 '
+            f'(cape_pi as {modes_t2} in {len(t2_calls)} calls) in '
+            f'{t_cli_t2:.2f} s; stages (s) '
+            f'{json.dumps({k: round(v, 3) for k, v in stage_t2.items()})}; '
+            f'{n_t2} tracks, peak v {peaks_t2.min():.1f}..'
+            f'{peaks_t2.max():.1f} m/s')
+
         # ---- 10. times ----------------------------------------------------
         per_launch, share, traced_ms, stage_ms, top = profile_launches(
             lambda: pipeline._simulate_batch(rng.key(98), pack_y, cfg_t,
@@ -1988,7 +2326,7 @@ def main():
          'per': 'launch (every segment, the kernel alone)',
          'segment0_dispatch_ms': ms_k1_call, 'segments': k1_segs,
          'modes_max_abs_err': modes_err, 'modes_ms': modes_ms,
-         'geo': geo},
+         'geo': geo, 'fixed_max_abs_err': fixed_err},
         {'name': 'vmax', 'route': 'cuda', 'source': src + 'csrc/vmax.cu',
          'replaces': 'tropical_cyclone_risk_tpu/models/diagnostics.py:193',
          'launches': launches['vmax'], 'max_abs_err': k2_err, 'ms': ms_k2,
@@ -2004,7 +2342,10 @@ def main():
          'ms': ms_k6_device, 'plain_ms': ms_k6_plain,
          'bound_ms': k6_bound_ms, 'bound_by': k6_by, 'library_ms': None,
          'per': '12 months (the kernel alone, device time)',
-         'event_ms': ms_k6},
+         'event_ms': ms_k6,
+         'instance': 'cape_pi_kernel<1,0> (select_thermo=1, 2-D table)',
+         'instances': k6_modes,
+         'thermo2_cli_thermo_s': stage_t2['thermo']},
         {'name': 'genesis', 'route': 'cuda',
          'source': src + 'csrc/integrator.cu',
          'replaces': 'tropical_cyclone_risk_tpu/models/simulator.py:295',
@@ -2018,6 +2359,7 @@ def main():
     for k in entries:
         k['bench_launches'] = bench_launches[k['name']]
     log(f'[summary] {card}: host synchronisations per launch {n_sync}; '
+        f'BAM {json.dumps(bam_res)}; '
         f'bench peak {bench_peak:.2f} MiB; bench sim-years/min '
         f'{bench_line["detail"]["sim_years_per_min"]}; s per sim-year by '
         f'driver, each pass from nothing issued: '
@@ -2027,6 +2369,41 @@ def main():
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
+
+
+@contextlib.contextmanager
+def stage_times():
+    """Within the block, the workspace path's stages (wind statistics,
+    thermo, pack build, simulation) are timed, each to a synchronised end;
+    yields {stage: seconds}."""
+    from tropical_cyclone_risk_tpu_torch import runtime
+    from tropical_cyclone_risk_tpu_torch.models import pack_builder
+    from tropical_cyclone_risk_tpu_torch.preprocess import (thermo_driver,
+                                                            winds)
+    stage_s = {}
+    timed = [(winds, 'gen_wind_mean_cov', 'winds'),
+             (thermo_driver, 'gen_thermo', 'thermo'),
+             (pack_builder, 'build_field_pack', 'pack build'),
+             (runtime, 'run_downscaling', 'simulation')]
+    originals = [getattr(mod, nm) for mod, nm, _ in timed]
+
+    def timer(fn_, label):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn_(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                stage_s[label] = time.perf_counter() - t
+        return run
+
+    for (mod, nm, label), orig in zip(timed, originals):
+        setattr(mod, nm, timer(orig, label))
+    try:
+        yield stage_s
+    finally:
+        for (mod, nm, _), orig in zip(timed, originals):
+            setattr(mod, nm, orig)
 
 
 def trace_busy(path):
@@ -2067,7 +2444,7 @@ def check_tracks(ds, cfg):
     return v.shape[0], peaks
 
 
-def check_thermo_file(fn, netcdf, synthetic_era5):
+def check_thermo_file(fn, netcdf, synthetic_era5, label='slice 2'):
     """vmax, chi and rh_mid finite over the ocean (the generator's land
     mask), PI > 40 m/s somewhere in the warm pool (|lat| < 20)."""
     ds = netcdf.read(fn)
@@ -2079,7 +2456,7 @@ def check_thermo_file(fn, netcdf, synthetic_era5):
         if not np.isfinite(a[ocean]).all():
             raise AssertionError(f'thermo {nm} not finite over the ocean')
     warm = vmax[:, np.abs(lat) < 20]
-    log(f'[slice 2] thermo file {vmax.shape}: ocean share '
+    log(f'[{label}] thermo file {vmax.shape}: ocean share '
         f'{ocean.mean():.3f}, warm-pool PI max {warm.max():.2f} m/s, chi '
         f'{np.nanmin(chi[ocean]):.3f}..{np.nanmax(chi[ocean]):.3f}, rh_mid '
         f'{np.nanmin(rh[ocean]):.3f}..{np.nanmax(rh[ocean]):.3f}')
@@ -2413,7 +2790,6 @@ def k6_times(dev):
     build/kernel_times_ws on first use, then reused) with cape_pi
     captured, then that call's device time (its kernels under
     torch.profiler), CUDA-event time and host time."""
-    import os
     from tropical_cyclone_risk_tpu_torch.config import load_namelist_py
     from tropical_cyclone_risk_tpu_torch.ops import pi as pi_ops
     from tropical_cyclone_risk_tpu_torch.preprocess import thermo_driver
@@ -2466,7 +2842,6 @@ def kernel_times(root):
     JSON line.  Run on two trees, a parent commit and its change, in one
     chip call, it compares the two on one card."""
     import concurrent.futures
-    import os
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
     root = os.path.abspath(root)
@@ -2582,7 +2957,6 @@ def drivers_times(root):
     kernels built (build_all) and compare_drivers on the bench's workload;
     prints one JSON line.  Run on two trees, a parent and its change, in
     one chip call, it compares their year drivers on one card."""
-    import os
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
     root = os.path.abspath(root)

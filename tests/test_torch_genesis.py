@@ -134,9 +134,10 @@ def test_gate_wrapper_refuses_what_k1_refuses(packs):
     """CPU tensors (ValueError), and every option K1 raises on
     (NotImplementedError): a cell row that does not fit the stack layout
     (84 channels where land and bathymetry have a grid of their own, which
-    takes 76), fixed positions, three steering levels; nothing is launched
-    or counted.  Land and bathymetry on their own grids are K1's and K7's
-    since they take those layouts (tests/test_torch_geo.py)."""
+    takes 76), three steering levels; nothing is launched or counted.
+    Land and bathymetry on their own grids are K1's and K7's since they
+    take those layouts (tests/test_torch_geo.py); fixed positions too, so
+    with debug_fixed_position the wrapper refuses only the CPU tensors."""
     _, tpack = packs
     _, _, ty, tp, mask = _seeds(5)
     stacks = fields.build_stacks(tpack)
@@ -147,7 +148,7 @@ def test_gate_wrapper_refuses_what_k1_refuses(packs):
     with pytest.raises(NotImplementedError, match='76-channel'):
         integrator.genesis_gate_cuda(stacks._replace(geo_in_cell=False),
                                      Namelist(), ty, tp, keep_in)
-    with pytest.raises(NotImplementedError, match='debug_fixed_position'):
+    with pytest.raises(ValueError, match='CUDA'):
         integrator.genesis_gate_cuda(stacks,
                                      Namelist(debug_fixed_position=True),
                                      ty, tp, keep_in)

@@ -192,6 +192,25 @@ def test_k1_steering_order(levels):
     assert fp.dtype == np.float32 and ip.dtype == np.int32
 
 
+@pytest.mark.parametrize('fixed', [False, True])
+def test_k1_fixed_position_flag(fixed):
+    """debug_fixed_position goes into K1's (and K7's) parameter block at
+    the place csrc/integrator.cu read_params reads p.fixed (the wrappers
+    take the flag: tests/test_torch_genesis.py)."""
+    cfg = Namelist(debug_fixed_position=fixed)
+    geometry = integrator.launch_geometry(4097, H100_SMS)
+    fp, ip = integrator._params(_stacks(), cfg, (0.0, -60.0, 360.0, 60.0),
+                                4097, 60, 3, 20, 0, 1.0, False, geometry)
+    src = (CSRC / 'integrator.cu').read_text()
+    body = src[src.index('void read_params('):]
+    body = body[:body.index('\n}\n')]
+    order = re.findall(r'([\w.\[\]]+) = \*ip\+\+;', body)
+    assert len(order) == ip.size and order.index('p.fixed') == ip.size - 4
+    assert ip[-4] == int(fixed) and tuple(ip[-3:]) == geometry
+    _, gate_ip = integrator.gate_params(_stacks(), cfg, 1000)
+    assert gate_ip[-4] == int(fixed)
+
+
 def test_k1_steering_order_refuses_other_levels():
     with pytest.raises(NotImplementedError, match='two steering levels'):
         integrator.steering_swap(Namelist(steering_levels=(250, 500, 850)))

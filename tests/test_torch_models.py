@@ -263,6 +263,37 @@ def test_integrate_raw_one_day(packs, storms):
         simulator.tc_filters_raw(cfg, raw)[0].numpy(), np.asarray(is_tc_j))
 
 
+def test_integrate_fixed_position_matches_jax(packs, storms):
+    """debug_fixed_position (the reference's Coupled_FAST.debug,
+    intensity-only integration) over a 1-day track: positions frozen at
+    the genesis point bit for bit in both packages, alive masks equal, v
+    and m within test_integrate_segment's tolerances."""
+    jpack, tpack = packs
+    jy, jp, ty, tp = storms
+    cfg = CFG.replace(total_track_time_days=1, debug_fixed_position=True)
+    mask = np.random.default_rng(9).random(N) < 0.8
+    out_j = jsim.integrate(jpack, cfg, 'GL', jy, jp, jnp.asarray(mask))
+    raw = simulator.integrate_raw(fields.build_stacks(tpack), cfg, 'GL', ty,
+                                  tp, torch.from_numpy(mask))
+    alive = raw.alive.numpy()
+    np.testing.assert_array_equal(alive.T, np.asarray(out_j.alive))
+    assert alive[0].sum() > 100 and alive[-1].sum() > 100
+    for name, start in (('lon', ty.lon), ('lat', ty.lat)):
+        got = getattr(raw, name).numpy()
+        want = np.asarray(getattr(out_j, name)).T
+        frozen = np.broadcast_to(start.numpy(), got.shape)
+        np.testing.assert_array_equal(got[alive], frozen[alive])
+        np.testing.assert_array_equal(want[alive], frozen[alive])
+    for name, tol in (('v', 1e-3), ('m', 1e-4)):
+        np.testing.assert_allclose(
+            getattr(raw, name).numpy()[alive],
+            np.asarray(getattr(out_j, name)).T[alive], rtol=0, atol=tol,
+            err_msg=name)
+    # the intensity still evolves
+    assert float(np.abs(raw.v.numpy()[-1] - raw.v.numpy()[0])[
+        alive[-1]].max()) > 1.0
+
+
 def _tracks(T, n, seed):
     """Random-walk time-major tracks with frozen tails past each death."""
     r = np.random.default_rng(seed)

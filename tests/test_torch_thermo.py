@@ -202,24 +202,72 @@ def test_cape_pi_plain_matches_jax(tables, select_thermo, select_interp,
 
 
 def test_cape_pi_kernel_wrapper_refuses_cpu_tensors(tables):
-    """The K6 wrapper launches only on CUDA tensors; it never falls back."""
+    """The K6 wrapper launches only on CUDA tensors, in every mode; it
+    never falls back."""
     sst, ps, pe, Te, re = (torch.tensor(a) for a in _soundings(8))
-    with pytest.raises(ValueError, match='CUDA'):
-        k6.cape_pi_cuda(sst, ps, pe, Te, re, tables[2][1])
+    for table, select_thermo, select_interp in (
+            (tables[2][1], 1, 2), (tables[2][1], 2, 2), (tables[3][1], 1, 2),
+            (tables[3][1], 2, 2), (tables[2][1], 1, 1), (None, 2, 1)):
+        with pytest.raises(ValueError, match='CUDA'):
+            k6.cape_pi_cuda(sst, ps, pe, Te, re, table,
+                            select_thermo=select_thermo,
+                            select_interp=select_interp)
     assert kernels.LAUNCHES['cape_pi'] == 0
 
 
 def test_cape_pi_kernel_params_are_the_twins_constants(tables):
     """The kernel's parameter block holds the float32 roundings of the
-    constants the twin uses, in csrc/cape_pi.cu's order."""
-    fp, ip = k6.params(tables[2][1], 28, 1000, 1.0)
-    g = tables[2][1].grid
-    assert fp.dtype == np.float32 and fp.size == 25
-    assert fp[8] == np.float32(287.04) and fp[10] == np.float32(2.555e6)
-    assert fp[12] == np.float32(tth.LCL_CPV)
-    assert tuple(fp[21:]) == tuple(np.float32([g.lon0, g.dlon, g.lat0,
-                                               g.dlat]))
-    assert ip.tolist() == [g.nlon, g.nlat, 28, 1000]
+    constants the twin uses, in csrc/cape_pi.cu's order, for each of its
+    six instances: the table's grid (zeros for Newton without a table),
+    the reversible branch's and Newton's constants, the 3-D table's r_t
+    axis, and the instance (thermo, inversion) last."""
+    t3 = tables[3][1]
+    f32 = lambda *xs: tuple(np.float32(xs))
+    for table, select_thermo, select_interp, want_mode in (
+            (tables[2][1], 1, 2, (1, k6.TABLE2)),
+            (tables[2][1], 2, 2, (2, k6.TABLE2)),
+            (t3, 1, 2, (1, k6.TABLE3)), (t3, 2, 2, (2, k6.TABLE3)),
+            (None, 1, 1, (1, k6.NEWTON)), (None, 2, 1, (2, k6.NEWTON))):
+        fp, ip = k6.params(table, 28, 1000, 1.0, select_thermo,
+                           select_interp)
+        assert fp.dtype == np.float32 and fp.size == 38
+        assert fp[8] == np.float32(287.04) and fp[10] == np.float32(2.555e6)
+        assert fp[12] == np.float32(tth.LCL_CPV)
+        grid = (0.0,) * 4 if table is None else (
+            table.grid.lon0, table.grid.dlon, table.grid.lat0,
+            table.grid.dlat)
+        assert tuple(fp[21:25]) == f32(*grid)
+        assert tuple(fp[25:30]) == f32(2.5e6, 1870 - 4190, 273.15, 4190,
+                                       1870)
+        assert tuple(fp[30:36]) == f32(2.555e6 ** 2, tth.NEWTON_T0,
+                                       -tth.NEWTON_STEP, tth.NEWTON_STEP,
+                                       tth.NEWTON_T_MIN, tth.NEWTON_T_MAX)
+        nrt = 1
+        if want_mode[1] == k6.TABLE3:
+            assert tuple(fp[36:]) == f32(t3.rt0, t3.drt)
+            nrt = t3.T.shape[-1]
+        else:
+            assert not fp[36:].any()
+        dims = [0, 0] if table is None else [table.grid.nlon,
+                                             table.grid.nlat]
+        assert ip.tolist() == dims + [28, 1000, nrt, tth.NEWTON_ITERS,
+                                      *want_mode]
+
+
+def test_cape_pi_kernel_mode_reads_the_arguments_as_jax_does(tables):
+    """The instance follows the JAX cape_pi's reading of its arguments:
+    select_thermo 1 is the pseudoadiabatic branch and any other value the
+    reversible one; select_interp 1 is Newton whatever the table, any
+    other value the table's own lookup; a table lookup without a table
+    raises."""
+    t2, t3 = tables[2][1], tables[3][1]
+    assert k6.mode(t2, 1, 2) == (1, k6.TABLE2)
+    assert k6.mode(t2, 3, 0) == (2, k6.TABLE2)
+    assert k6.mode(t3, 2, 2) == (2, k6.TABLE3)
+    assert k6.mode(t3, 1, 1) == (1, k6.NEWTON)
+    assert k6.mode(None, 2, 1) == (2, k6.NEWTON)
+    with pytest.raises(ValueError, match='table'):
+        k6.mode(None, 1, 2)
 
 
 @pytest.mark.parametrize('c', [1.0, -2.5, 3.0e7, 1.0e-3, 7.0 / 3.0])

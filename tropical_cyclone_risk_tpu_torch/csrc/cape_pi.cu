@@ -2,11 +2,25 @@
 //
 // Replaces the XLA-fused function of the JAX package (there is no Pallas
 // kernel to translate; XLA fused these jnp functions over the whole grid):
-//   ops/pi.py:92 cape_pi, in its default configuration (select_thermo=1,
-//   select_interp=2: the pseudoadiabatic parcel and the 2-D entropy
-//   table), with ops/thermo.py sat_thermo, s_unsat, s_sat, get_LCL,
-//   lambertw_m1, calc_T_rho and ops/interp.py bilinear_scalar inlined.
+//   ops/pi.py:92 cape_pi, with ops/thermo.py sat_thermo, s_unsat, s_sat,
+//   s_sat_der, invert_entropy_newton, get_LCL, lambertw_m1, calc_T_rho,
+//   ops/pi.py EntropyTable(3).lookup and ops/interp.py bilinear_scalar
+//   inlined.
 // Its plain PyTorch twin is ops/pi.py cape_pi_plain.
+//
+// Modes (template arguments, so the default instance is the code of the
+// default mode alone and no mode flag is tested inside the level walk):
+//   THERMO  1: the pseudoadiabatic parcel (constant L0); 2: the reversible
+//           one (cp + r_t cl, L(T) = Lv - (cpv - cl)(273.15 - T), the
+//           density temperature over 1 + r_t), as select_thermo;
+//   INV     kTable2: the (p, s) -> T table, bilinear (select_interp=2
+//           with an EntropyTable, the default with THERMO 1);
+//           kTable3: the (p, s, r_t) -> T table, two bilinear lookups on
+//           the r_t slabs k and k+1 and a lerp (an EntropyTable3);
+//           kNewton: 25 damped Newton steps on s_sat(T) = s from 250 K
+//           (select_interp=1; no table).
+// The thermo driver reaches (1, kTable2), (1, kNewton), (2, kNewton) and
+// (2, kTable3); the other two are reachable through ops/pi.py cape_pi.
 //
 // Work layout: one thread per column.  The thread walks the L levels once,
 // surface first, and keeps only what the next level needs: the running
@@ -17,7 +31,9 @@
 // is formed when the walk reaches the next level.  So CAPE "up to the last
 // buoyant level" needs no second pass: it is the partial sum recorded at
 // that level.  The first condensing level (the dry/moist switch of the
-// lifted parcel) is a flag that turns on at the first level above the LCL.
+// lifted parcel) is a flag that turns on at the first level above the LCL;
+// below it the lifted parcel's inversion is not made (the twin computes it
+// and discards it).
 //
 // What bounds it on this card: not the bytes of the two [L, columns]
 // profiles (each read once, neighbouring threads on neighbouring columns)
@@ -27,17 +43,22 @@
 // the walk: a block prologue computes once per level, into shared memory,
 // the pressure, -dlnp, the dry-adiabat factor (pl / p_ns)^(Rd/cp) (p_ns is
 // the first level's pressure, the same for every column) and the table's
-// pressure cell and weights; each column computes once the entropy cells
-// and weights of its two parcels (s_ns for the lifted one, ss for the
-// saturated one).  The walk keeps what truly changes per level: the
-// environment's density temperature, the two four-corner blends, the
-// parcels' saturation formulas, the sums and the outflow pair.
+// pressure cell and weights; each column computes once, per parcel (the
+// lifted one from s_ns and r_ns, the saturated one from ss and rs), the
+// entropy cell and weights, the 3-D table's r_t slab and weight,
+// cp + r_t cl and 1 + r_t.  The walk keeps what truly changes per level:
+// the environment's density temperature, the two inversions, the parcels'
+// saturation formulas, the sums and the outflow pair.  A Newton inversion
+// depends on the level and the column both and cannot be hoisted: 25
+// steps of two logf, one expf and seven IEEE divisions; s_sat and
+// s_sat_der share one saturation formula at the same (T, p), as the twin
+// computes both from the same floats.
 //
 // Work layout on the card: 128 threads per block, one level per loop
-// iteration, the 160 KB entropy table read through the read-only cache
-// (__ldg).  256 threads per block, two levels per iteration and the table
-// staged in shared memory were each timed against this in one call on the
-// card, and none was faster (PERF.md).
+// iteration, the 160 KB (2-D) or 2.56 MB (3-D) entropy table read through
+// the read-only cache (__ldg).  256 threads per block, two levels per
+// iteration and the 2-D table staged in shared memory were each timed
+// against this in one call on the card, and none was faster (PERF.md).
 //
 // Numerics: built without --use_fast_math and with -fmad=false, so every
 // operation rounds as the separate torch kernels of the plain twin do; the
@@ -50,7 +71,7 @@
 // hoisted values are the same operations on the same operands as the ones
 // they replace (1 - w included), so the result is bit-exact by
 // construction; tests/test_torch_cape_pi_design.py emulates this order in
-// torch and holds it against the twin bit for bit.
+// torch for every mode and holds it against the twin bit for bit.
 //
 // The C entry returns cudaGetLastError() after the launch; the wrapper
 // (kernels/cape_pi.py) raises if it is not cudaSuccess.
@@ -60,6 +81,9 @@
 #include <stdint.h>
 
 namespace {
+
+// the inversion of the moist adiabat (template argument INV)
+constexpr int kTable2 = 0, kTable3 = 1, kNewton = 2;
 
 struct Params {
   // ops/thermo.py sat_thermo (Bolton)
@@ -74,7 +98,13 @@ struct Params {
   float rd_cp, cecd;
   // entropy table: s along the fast axis, p along the slow one
   float s0, ds, p0, dp;
-  int ns, np_, L, n_col;
+  // the reversible branch: Lv, cpv - cl, 273.15, cl, cpv
+  float Lv, cpv_cl, t_lat, cl, cpv;
+  // invert_entropy_newton: L0^2, T0, the step's and T's clamps
+  float L0sq, T0, step_lo, step_hi, T_lo, T_hi;
+  // the 3-D table's r_t axis
+  float rt0, drt;
+  int ns, np_, L, n_col, nrt, iters;
 };
 
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -101,23 +131,71 @@ __device__ __forceinline__ float sat_rs(const Params& P, float es, float p) {
   return (P.rd_rv * es) / (p - es);
 }
 
-// thermo.s_unsat, select_thermo=1 (r_t unused)
-__device__ float s_unsat(const Params& P, float T, float p, float r) {
+// thermo._latent: the reversible branch's latent heat at T
+__device__ __forceinline__ float latent(const Params& P, float T) {
+  return P.Lv - P.cpv_cl * (P.t_lat - T);
+}
+
+// thermo.s_unsat; a_rt = cp + cl r_t (THERMO 2)
+template <int THERMO>
+__device__ float s_unsat(const Params& P, float T, float p, float r,
+                         float a_rt) {
   const float es = sat_es(P, T);
   const float rs = sat_rs(P, es, p);
   const float rh = nan_max(((r / rs) * (1.0f + rs / P.eps)) /
                                (1.0f + r / P.eps), 0.0f);
-  return ((P.cp * logf(T) - P.Rd * logf(p - es * rh)) + (P.L0 * r) / T) -
-         (r * P.Rv) * logf(rh);
+  if constexpr (THERMO == 1)
+    return ((P.cp * logf(T) - P.Rd * logf(p - es * rh)) + (P.L0 * r) / T) -
+           (r * P.Rv) * logf(rh);
+  else
+    return ((a_rt * logf(T) - P.Rd * logf(p - es * rh)) +
+            (latent(P, T) * r) / T) - (r * P.Rv) * logf(rh);
 }
 
-// thermo.s_sat, select_thermo=1, Bolton saturation
-__device__ float s_sat(const Params& P, float T, float p) {
+// thermo.s_sat, Bolton saturation; a_rt = cp + r_t cl (THERMO 2)
+template <int THERMO>
+__device__ float s_sat(const Params& P, float T, float p, float a_rt) {
   const float es = sat_es(P, T);
   const float rs = sat_rs(P, es, p);
   const float Tm = nan_max(T, P.floor_tiny);
   const float log_pd = logf(nan_max(p - es, P.floor_tiny));
-  return (P.cp * logf(Tm) - P.Rd * log_pd) + (P.L0 * rs) / Tm;
+  if constexpr (THERMO == 1)
+    return (P.cp * logf(Tm) - P.Rd * log_pd) + (P.L0 * rs) / Tm;
+  else
+    return (a_rt * logf(Tm) - P.Rd * log_pd) + (latent(P, Tm) * rs) / Tm;
+}
+
+// thermo.invert_entropy_newton (use_pog=False): T with s_sat(T, p, r_t)
+// = s_ref.  T stays in [T_lo, T_hi] = [40, 400] K (or NaN) from T0 = 250 K
+// on, so s_sat's clamp of T at 1e-4 K is the identity and s_sat and
+// s_sat_der read the same T, es and rs
+template <int THERMO>
+__device__ float newton(const Params& P, float p, float s_ref, float r_t,
+                        float a_rt) {
+  float T = P.T0;
+  // one step per loop iteration (chip_smoke.py counts its SASS by pipe)
+#pragma unroll 1
+  for (int it = 0; it < P.iters; ++it) {
+    const float es = sat_es(P, T);
+    const float rs = sat_rs(P, es, p);
+    const float log_pd = logf(nan_max(p - es, P.floor_tiny));
+    const float moist = 1.0f - rs / P.eps;
+    float s, der;
+    if constexpr (THERMO == 1) {
+      s = (P.cp * logf(T) - P.Rd * log_pd) + (P.L0 * rs) / T;
+      der = (1.0f / T) *
+            (P.cp + (((P.L0sq * rs) / P.Rv) / (T * T)) * moist);
+    } else {
+      const float lat = latent(P, T);
+      s = (a_rt * logf(T) - P.Rd * log_pd) + (lat * rs) / T;
+      der = (1.0f / T) *
+            (((P.cp + P.cpv * rs) + P.cl * (r_t - rs)) +
+             ((((lat * lat) * rs) / P.Rv) / (T * T)) * moist);
+    }
+    const float step = clampf((s - s_ref) / der, P.step_lo, P.step_hi);
+    T = clampf(T - step, P.T_lo, P.T_hi);
+  }
+  return T;
 }
 
 // thermo.lambertw_m1
@@ -153,9 +231,20 @@ __device__ float get_lcl(const Params& P, float p, float T, float r,
   return p * powf(T_lcl / T, cpm / Rm);
 }
 
-// thermo.calc_T_rho, select_thermo=1
+// thermo.calc_T_rho of the environment (rt = rv in both branches)
 __device__ __forceinline__ float t_rho(const Params& P, float T, float rv) {
   return (T * (1.0f + rv / P.eps)) / (1.0f + rv);
+}
+
+// thermo.calc_T_rho of a parcel: over 1 + rv (THERMO 1) or over the
+// column's 1 + r_t (THERMO 2)
+template <int THERMO>
+__device__ __forceinline__ float parcel_t_rho(const Params& P, float T,
+                                              float rv, float opr) {
+  if constexpr (THERMO == 1)
+    return t_rho(P, T, rv);
+  else
+    return (T * (1.0f + rv / P.eps)) / opr;
 }
 
 // interp._cell_and_weight: a NaN query reads cell 0 with a NaN weight
@@ -170,14 +259,17 @@ __device__ __forceinline__ int cell(float x, float x0, float dx, int n,
 
 // what the walk needs of one level, the same for every column: the
 // pressure, -dlnp, the dry-adiabat factor and the weight of the table's
-// pressure cell (a), and 1 - that weight with the cell's first row (b)
+// pressure cell (a), and 1 - that weight with the offset of the cell's
+// first row (b)
 struct Levels {
   const float4* a;   // pl, -dlnp, (pl / p_ns)^(Rd/cp), wy
-  const float2* b;   // 1 - wy, iy * ns (as int bits)
+  const float2* b;   // 1 - wy, iy * row (as int bits)
 };
 
 // the block prologue: one thread per level; the same operations, in the
-// same order, as the walk made on every level of every column
+// same order, as the walk made on every level of every column.  A table
+// row holds ns values (2-D) or ns * nrt (3-D); Newton reads no table
+template <int INV>
 __device__ void level_prologue(const Params& P, const float* __restrict__ p_env,
                                float4* la, float2* lb) {
   const int L = P.L;
@@ -191,24 +283,81 @@ __device__ void level_prologue(const Params& P, const float* __restrict__ p_env,
       dlnp = logf(__ldg(p_env + l + 1)) - lnp;
     else
       dlnp = (2.0f * lnp - logf(__ldg(p_env + L - 2))) - lnp;
-    float wy;
-    const int iy = cell(pl, P.p0, P.dp, P.np_, &wy);
+    float wy = 0.0f;
+    int iy = 0;
+    if constexpr (INV != kNewton)
+      iy = cell(pl, P.p0, P.dp, P.np_, &wy);
+    const int row = INV == kTable3 ? P.ns * P.nrt : P.ns;
     la[l] = make_float4(pl, -dlnp, powf(pl / p_ns, P.rd_cp), wy);
-    lb[l] = make_float2(1.0f - wy, __int_as_float(iy * P.ns));
+    lb[l] = make_float2(1.0f - wy, __int_as_float(iy * row));
   }
 }
 
-// EntropyTable.lookup at a level's pressure cell (iyns, wy, 1 - wy) and a
-// column's entropy cell (ix, wx, 1 - wx): interp.bilinear_scalar's blend
+// a parcel's column constants: its entropy and total water, and what its
+// inversion needs of them
+struct Parcel {
+  float s, rt;       // entropy, total water
+  float a_rt, opr;   // cp + r_t cl, 1 + r_t (THERMO 2)
+  int ix;            // the tables' entropy cell and weights
+  float wx, omwx;
+  int off;           // the 3-D table: ix * nrt + the r_t slab k
+  float wk;          // and the r_t weight
+};
+
+template <int THERMO, int INV>
+__device__ __forceinline__ Parcel make_parcel(const Params& P, float s,
+                                              float rt, float a_rt) {
+  Parcel pc = {};
+  pc.s = s;
+  pc.rt = rt;
+  if constexpr (THERMO == 2) {
+    pc.a_rt = a_rt;
+    pc.opr = 1.0f + rt;
+  }
+  if constexpr (INV != kNewton) {
+    pc.ix = cell(s, P.s0, P.ds, P.ns, &pc.wx);
+    pc.omwx = 1.0f - pc.wx;
+  }
+  if constexpr (INV == kTable3) {
+    // EntropyTable3.lookup's r_t slab: cell() on the r_t axis
+    const int k = cell(rt, P.rt0, P.drt, P.nrt, &pc.wk);
+    pc.off = pc.ix * P.nrt + k;
+  }
+  return pc;
+}
+
+// interp.bilinear_scalar's blend of the four corners c[iy0 + d, ix0 + e]
+// at offsets base, base + dx, base + dy, base + dy + dx
 __device__ __forceinline__ float blend(const float* __restrict__ table,
-                                       int ns, int iyns, float wy,
-                                       float omwy, int ix, float wx,
-                                       float omwx) {
-  const int base = iyns + ix;
-  const float c00 = __ldg(table + base), c01 = __ldg(table + base + 1);
-  const float c10 = __ldg(table + base + ns);
-  const float c11 = __ldg(table + base + ns + 1);
+                                       int base, int dx, int dy, float wy,
+                                       float omwy, float wx, float omwx) {
+  const float c00 = __ldg(table + base), c01 = __ldg(table + base + dx);
+  const float c10 = __ldg(table + base + dy);
+  const float c11 = __ldg(table + base + dy + dx);
   return omwy * (omwx * c00 + wx * c01) + wy * (omwx * c10 + wx * c11);
+}
+
+// the moist adiabat's temperature at a level (its pressure pl, the
+// table's row offset iy_row and weights) for one parcel
+template <int THERMO, int INV>
+__device__ __forceinline__ float invert(const Params& P,
+                                        const float* __restrict__ table,
+                                        float pl, int iy_row, float wy,
+                                        float omwy, const Parcel& pc) {
+  if constexpr (INV == kTable2) {
+    // EntropyTable.lookup: table [np, ns]
+    return blend(table, iy_row + pc.ix, 1, P.ns, wy, omwy, pc.wx, pc.omwx);
+  } else if constexpr (INV == kTable3) {
+    // EntropyTable3.lookup: table [np, ns, nrt], slabs k and k + 1
+    const int base = iy_row + pc.off, row = P.ns * P.nrt;
+    const float lo = blend(table, base, P.nrt, row, wy, omwy, pc.wx,
+                           pc.omwx);
+    const float hi = blend(table, base + 1, P.nrt, row, wy, omwy, pc.wx,
+                           pc.omwx);
+    return lo + pc.wk * (hi - lo);
+  } else {
+    return newton<THERMO>(P, pl, pc.s, pc.rt, pc.a_rt);
+  }
 }
 
 // pi.cape_pi outflow(): the sub-grid level of neutral buoyancy between the
@@ -226,10 +375,9 @@ __device__ __forceinline__ Outflow outflow(const Params& P, float p1,
 
 // one column's walk state and its per-column constants
 struct Walk {
-  // the column: the lifted parcel's start, its LCL and both entropy cells
+  // the column: the lifted parcel's start, its LCL and both parcels
   float T_ns, r_ns, pLCL;
-  int ix_a, ix_s;
-  float wx_a, omwx_a, wx_s, omwx_s;
+  Parcel a, s;
   // the running sums, the partial sum at the last buoyant level and the
   // outflow of the pair (last buoyant level, the level above)
   float sum_a, sum_s, cape_a, cape_s, area_a, area_s, T_out_s;
@@ -238,6 +386,7 @@ struct Walk {
   float prev_p, prev_Te, prev_dTa, prev_dTs;
 };
 
+template <int THERMO, int INV>
 __device__ __forceinline__ void walk_level(const Params& P, const Levels& lv,
                                            const float* __restrict__ table,
                                            const float* __restrict__ T_env,
@@ -248,7 +397,7 @@ __device__ __forceinline__ void walk_level(const Params& P, const Levels& lv,
   const float2 lb = lv.b[l];
   const float pl = la.x, neg_dlnp = la.y, dry = la.z, wy = la.w;
   const float omwy = lb.x;
-  const int iyns = __float_as_int(lb.y);
+  const int iy_row = __float_as_int(lb.y);
   const float Te = T_env[l * n + c];
   const float re = r_env[l * n + c];
   const float Trho_env = t_rho(P, Te, re);
@@ -261,14 +410,14 @@ __device__ __forceinline__ void walk_level(const Params& P, const Levels& lv,
     Ta = w.T_ns * dry;
     ra = w.r_ns;
   } else {
-    Ta = blend(table, P.ns, iyns, wy, omwy, w.ix_a, w.wx_a, w.omwx_a);
+    Ta = invert<THERMO, INV>(P, table, pl, iy_row, wy, omwy, w.a);
     ra = sat_rs(P, sat_es(P, Ta), pl);
   }
   // the surface-saturated parcel: a moist adiabat from the surface
-  const float Ts = blend(table, P.ns, iyns, wy, omwy, w.ix_s, w.wx_s,
-                         w.omwx_s);
+  const float Ts = invert<THERMO, INV>(P, table, pl, iy_row, wy, omwy, w.s);
   const float rsp = sat_rs(P, sat_es(P, Ts), pl);
-  const float Trho_a = t_rho(P, Ta, ra), Trho_s = t_rho(P, Ts, rsp);
+  const float Trho_a = parcel_t_rho<THERMO>(P, Ta, ra, w.a.opr);
+  const float Trho_s = parcel_t_rho<THERMO>(P, Ts, rsp, w.s.opr);
   const float dTa = Trho_a - Trho_env, dTs = Trho_s - Trho_env;
 
   w.sum_a = w.sum_a + (P.Rd * dTa) * neg_dlnp;
@@ -295,6 +444,7 @@ __device__ __forceinline__ void walk_level(const Params& P, const Levels& lv,
 
 constexpr int kThreads = 128;
 
+template <int THERMO, int INV>
 __global__ void __launch_bounds__(kThreads)
 cape_pi_kernel(const Params P, const float* __restrict__ sst,
                const float* __restrict__ p_surf,
@@ -306,7 +456,7 @@ cape_pi_kernel(const Params P, const float* __restrict__ sst,
   const int L = P.L;
   float4* la = smem;
   float2* lb = reinterpret_cast<float2*>(la + L);
-  level_prologue(P, p_env, la, lb);
+  level_prologue<INV>(P, p_env, la, lb);
   __syncthreads();
   const Levels lv = {la, lb};
   const int64_t n = P.n_col;
@@ -320,13 +470,13 @@ cape_pi_kernel(const Params P, const float* __restrict__ sst,
     const float rs = sat_rs(P, sat_es(P, sst_c), ps);
     const float rh = ((w.r_ns / rs) * (1.0f + rs / P.eps)) /
                      (1.0f + w.r_ns / P.eps);
-    const float s_ns = s_unsat(P, w.T_ns, p_ns, w.r_ns);
-    const float ss = s_sat(P, sst_c, ps);
+    // cp + cl r_t of the two parcels (THERMO 2): r_ns and rs
+    const float a_ns = P.cp + P.cl * w.r_ns, a_s = P.cp + rs * P.cl;
+    const float s_ns = s_unsat<THERMO>(P, w.T_ns, p_ns, w.r_ns, a_ns);
+    const float ss = s_sat<THERMO>(P, sst_c, ps, a_s);
     w.pLCL = get_lcl(P, p_ns, w.T_ns, w.r_ns, rh);
-    w.ix_a = cell(s_ns, P.s0, P.ds, P.ns, &w.wx_a);
-    w.ix_s = cell(ss, P.s0, P.ds, P.ns, &w.wx_s);
-    w.omwx_a = 1.0f - w.wx_a;
-    w.omwx_s = 1.0f - w.wx_s;
+    w.a = make_parcel<THERMO, INV>(P, s_ns, w.r_ns, a_ns);
+    w.s = make_parcel<THERMO, INV>(P, ss, rs, a_s);
 
     w.sum_a = w.sum_s = w.cape_a = w.cape_s = 0.0f;
     w.area_a = w.area_s = w.T_out_s = 0.0f;
@@ -334,7 +484,7 @@ cape_pi_kernel(const Params P, const float* __restrict__ sst,
     w.condensed = w.prev_buoy_a = w.prev_buoy_s = false;
     w.prev_p = w.prev_Te = w.prev_dTa = w.prev_dTs = 0.0f;
     for (int l = 0; l < L; ++l)
-      walk_level(P, lv, table, T_env, r_env, n, c, l, w);
+      walk_level<THERMO, INV>(P, lv, table, T_env, r_env, n, c, l, w);
 
     // never buoyant: the top level, with every level summed
     if (w.out_a < 0) { w.out_a = L - 1; w.cape_a = w.sum_a; }
@@ -354,6 +504,17 @@ cape_pi_kernel(const Params P, const float* __restrict__ sst,
   }
 }
 
+template <int THERMO, int INV>
+int launch(const Params& P, const float* sst, const float* p_surf,
+           const float* p_env, const float* T_env, const float* r_env,
+           const float* table, float* out, cudaStream_t stream) {
+  const int blocks = (P.n_col + kThreads - 1) / kThreads;
+  const size_t shared = (size_t)P.L * (sizeof(float4) + sizeof(float2));
+  cape_pi_kernel<THERMO, INV><<<blocks, kThreads, shared, stream>>>(
+      P, sst, p_surf, p_env, T_env, r_env, table, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int tc_cape_pi(const float* fparams, const int* iparams,
@@ -371,12 +532,28 @@ extern "C" int tc_cape_pi(const float* fparams, const int* iparams,
   P.e = *fp++; P.c11_72 = *fp++; P.log_floor = *fp++; P.w_switch = *fp++;
   P.rd_cp = *fp++; P.cecd = *fp++;
   P.s0 = *fp++; P.ds = *fp++; P.p0 = *fp++; P.dp = *fp++;
+  P.Lv = *fp++; P.cpv_cl = *fp++; P.t_lat = *fp++; P.cl = *fp++;
+  P.cpv = *fp++;
+  P.L0sq = *fp++; P.T0 = *fp++; P.step_lo = *fp++; P.step_hi = *fp++;
+  P.T_lo = *fp++; P.T_hi = *fp++;
+  P.rt0 = *fp++; P.drt = *fp++;
   const int* ip = iparams;
   P.ns = *ip++; P.np_ = *ip++; P.L = *ip++; P.n_col = *ip++;
+  P.nrt = *ip++; P.iters = *ip++;
+  const int thermo = *ip++, inv = *ip++;
 
-  const int blocks = (P.n_col + kThreads - 1) / kThreads;
-  const size_t shared = (size_t)P.L * (sizeof(float4) + sizeof(float2));
-  cape_pi_kernel<<<blocks, kThreads, shared, (cudaStream_t)stream>>>(
-      P, sst, p_surf, p_env, T_env, r_env, table, out);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto args = [&](auto kern) {
+    return kern(P, sst, p_surf, p_env, T_env, r_env, table, out, s);
+  };
+  if (thermo == 1) {
+    if (inv == kTable2) return args(launch<1, kTable2>);
+    if (inv == kTable3) return args(launch<1, kTable3>);
+    if (inv == kNewton) return args(launch<1, kNewton>);
+  } else if (thermo == 2) {
+    if (inv == kTable2) return args(launch<2, kTable2>);
+    if (inv == kTable3) return args(launch<2, kTable3>);
+    if (inv == kNewton) return args(launch<2, kNewton>);
+  }
+  return (int)cudaErrorInvalidValue;
 }

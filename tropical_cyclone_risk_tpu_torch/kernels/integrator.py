@@ -178,7 +178,8 @@ def _params(stacks, cfg: Namelist, bounds, m: int, n_steps: int,
           steering_swap(cfg), stride, n_blocks, n_steps, m,
           k0, sub, int(cfg.rk_exact_stage_fields), geo_layout(stacks),
           gl.nlon, gl.nlat, gb.nlon, gb.nlat,
-          int(cfg.time_interp_fields), int(analytic), *geometry]
+          int(cfg.time_interp_fields), int(analytic),
+          int(cfg.debug_fixed_position), *geometry]
     return (np.array([_f32(x) for x in fp], np.float32),
             np.array(ip, np.int32))
 
@@ -187,9 +188,6 @@ def _check(stacks, cfg: Namelist, tensors: dict, m: int, n_steps: int):
     """K1's (and K7's) checks: the options the kernels do not take raise
     NotImplementedError, tensors that are not on CUDA or not of the
     kernel's type, layout and shape raise ValueError."""
-    if cfg.debug_fixed_position:
-        raise NotImplementedError('debug_fixed_position is not in the '
-                                  'integrator kernel')
     layout = geo_layout(stacks)
     if (cfg.n_wind_levels != 4 or stacks.n_wind_ch != 14
             or stacks.cell4.shape[-1] != CELL_ROW[layout]):

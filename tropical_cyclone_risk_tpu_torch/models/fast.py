@@ -74,6 +74,16 @@ def color_winds(cfg: Namelist, stats, fourier: FourierSeries, t: float):
     return color_winds_given_f(cfg, stats, fourier.evaluate(t))
 
 
+def sample_env_winds(pack: F.FieldPack, cfg: Namelist, lon, lat, plane,
+                     fourier: FourierSeries, t: float):
+    """Winds [N, W] at (lon, lat) on each storm's plane and track time t,
+    gathered from the pack directly (one-shot callers such as the
+    uncoupled BAM, models/bam.py; the integration loop gathers through the
+    fused stacks instead)."""
+    stats = interp.bilinear(pack.wind, pack.grid, lon, lat, plane)
+    return color_winds(cfg, stats, fourier, t)
+
+
 def deep_layer_indices(cfg: Namelist):
     """Channel indices (iu250, iv250, iu850, iv850) of the deep-layer shear
     components in the (u_l1, v_l1, u_l2, v_l2, ...) wind vector."""

@@ -12,7 +12,9 @@ rounded division, so that the kernel reproduces it on the card.
 Entropy inversion uses a (p, s) -> T table interpolated bilinearly (the
 reference's RectBivariateSpline over entropy_table.npz,
 thermo/thermo.py:315-317), regenerated by Newton inversion
-(ops/thermo.generate_entropy_table).
+(ops/thermo.generate_entropy_table), a (p, s, r_t) -> T table for the
+reversible branch (EntropyTable3), or Newton inversion at every point
+(select_interp=1); K6 takes all three with either thermodynamic branch.
 """
 
 from __future__ import annotations
@@ -220,17 +222,12 @@ def cape_pi_plain(sst, p_surf, p_env, T_env, r_env, table,
 def cape_pi(sst, p_surf, p_env, T_env, r_env, table, cecd: float = 1.0,
             select_thermo: int = 1, select_interp: int = 2):
     """Potential intensity [m/s] per column (see cape_pi_plain).  CPU
-    tensors take the plain twin; CUDA tensors launch K6, which computes the
-    default configuration (select_thermo=1, select_interp=2, a 2-D
-    EntropyTable) and raises NotImplementedError for the other modes."""
+    tensors take the plain twin; CUDA tensors launch K6 in every mode the
+    JAX package's cape_pi takes: select_thermo 1 or 2 with a 2-D
+    EntropyTable, a 3-D EntropyTable3 or Newton (select_interp=1, the table
+    unused), each a template instance of the kernel."""
     if sst.device.type == 'cpu':
         return cape_pi_plain(sst, p_surf, p_env, T_env, r_env, table, cecd,
                              select_thermo, select_interp)
-    if (select_thermo, select_interp) != (1, 2) or \
-            not isinstance(table, EntropyTable):
-        raise NotImplementedError(
-            f'the CAPE-PI kernel computes select_thermo=1, select_interp=2 '
-            f'with a 2-D entropy table; select_thermo={select_thermo}, '
-            f'select_interp={select_interp} with {type(table).__name__} '
-            f'is not ported yet')
-    return k6.cape_pi_cuda(sst, p_surf, p_env, T_env, r_env, table, cecd)
+    return k6.cape_pi_cuda(sst, p_surf, p_env, T_env, r_env, table, cecd,
+                           select_thermo, select_interp)

@@ -151,8 +151,15 @@ def calc_T_rho(T, rv, rt, select_thermo: int = 1):
     return T * (1 + true_div(rv, pr.eps)) / (1 + rt)
 
 
+# invert_entropy_newton's start, steps and clamps (the CAPE-PI kernel's
+# Newton instances take the same, kernels/cape_pi.py params)
+NEWTON_T0, NEWTON_ITERS = 250.0, 25
+NEWTON_STEP, NEWTON_T_MIN, NEWTON_T_MAX = 30.0, 40.0, 400.0
+
+
 def invert_entropy_newton(p, s_ref, r_t=0.0, select_thermo: int = 1,
-                          T0=250.0, iters: int = 25, use_pog: bool = False):
+                          T0=NEWTON_T0, iters: int = NEWTON_ITERS,
+                          use_pog: bool = False):
     """Solve s_sat(T, p, r_t) = s_ref for T by damped Newton iteration from
     T0 (the JAX package's replacement for the reference's BFGS / Nelder-Mead
     inversions, thermo/thermo.py:214-221, 451-481)."""
@@ -163,8 +170,8 @@ def invert_entropy_newton(p, s_ref, r_t=0.0, select_thermo: int = 1,
     for _ in range(iters):
         f = s_sat(T, p, r_t, select_thermo, use_pog) - s_ref
         df = s_sat_der(T, p, r_t, select_thermo, use_pog)
-        step = torch.clamp(f / df, -30.0, 30.0)
-        T = torch.clamp(T - step, 40.0, 400.0)
+        step = torch.clamp(f / df, -NEWTON_STEP, NEWTON_STEP)
+        T = torch.clamp(T - step, NEWTON_T_MIN, NEWTON_T_MAX)
     return T
 
 
