@@ -7,10 +7,12 @@
 Phases (any failure raises, and the script exits non-zero):
 
 1. device    - require CUDA; print the card's name and power limit.
-2. build     - build the CUDA integrator and genesis gate (K1, K7), vmax
-               (K2), seeding (K3), compaction (K4), threefry (K5) and
-               CAPE-PI (K6) kernels with nvcc, one process each, all
-               started together; print the build times, nvcc's register,
+2. build     - build the CUDA integrator and genesis gate (K1, K7; one
+               library per unit: two and three steering levels, each with
+               and without the in-scan vmax), vmax (K2, with its
+               last-sample entry), seeding (K3), compaction (K4), threefry
+               (K5) and CAPE-PI (K6) kernels with nvcc, one process each,
+               all started together; print the build times, nvcc's register,
                stack and spill report and the SASS local-memory
                instructions of each kernel (and K3's and K6's SASS
                instruction and loop counts); K1's default instance must have
@@ -125,6 +127,31 @@ Phases (any failure raises, and the script exits non-zero):
                the reversible 3-D table), counters reset just before and
                read just after; the thermo and tracks files checked, the
                thermo stage's seconds.
+9d. in-scan  - the bench's launch with vmax_in_scan off and on from one
+               key, counters reset just before the in-scan launch and read
+               just after (K2's post-pass not launched, its last-sample
+               entry is): trajectories, verdicts, valid and the stitched
+               tracks bit-identical, vmax within 1e-4 m/s of the post-pass;
+               K1's in-scan instance bit-exact against its twin on the
+               first and last segment, the last-sample entry on every
+               segment; the same checks (tracks and verdicts against the
+               post-pass launch, K1 against its twin, the entry) with
+               time_interp_fields (K1 bit-exact), with rk_substeps=2 (K1
+               within the K1 bars, its vmax within 5e-2 m/s) and on the
+               three-level pack of 9e (K1 bit-exact, the entry at six
+               winds); the launch's wall time with and without.
+9e. levels   - steering_levels (250, 500, 850): a bench-width launch on a
+               12-plane 181x360 three-level pack, caps auto-tuned, K1 on
+               every segment bit-exact against its twin, K2 within 1e-4
+               m/s, K7, K5's row draw and K4's partitions and stitch
+               bit-exact; K1 on the first and last segment with
+               time_interp_fields (bit-exact), rk_exact_stage_fields and
+               rk_substeps=2 (within the K1 bars); each kernel's per-launch
+               time beside the two-level one of the same call, K1's
+               three-level registers; run_downscaling on that pack and
+               cli.main GL on a workspace with 250/500/850 hPa winds,
+               counters reset just before and read just after, their files
+               holding all six u/v winds, finite at genesis.
 10. times    - launch times, a torch.profiler trace of three launches
                (device kernels per launch, busy share, host time by
                stage, the genesis gate's among them, device time by
@@ -194,9 +221,13 @@ K3_K5_TOL = 0.0
 # retry caps whose 2048-wide rounds overflow at 131072 slots: unresolved
 # slots beyond a round's width are dropped (the twin's semantics)
 OVERFLOW_CAPS = (1 / 64,) * 15
-# the kernels a simulation (run_downscaling) launches
+# the kernels a simulation (run_downscaling) launches, those of the
+# workspace path (cli.main), and those of a launch with the in-scan vmax
 SIMULATION_KERNELS = ('integrator', 'vmax', 'seeding', 'threefry', 'compact',
                       'genesis')
+WORKSPACE_KERNELS = SIMULATION_KERNELS + ('cape_pi',)
+IN_SCAN_KERNELS = ('integrator', 'vmax_last', 'seeding', 'threefry',
+                   'compact', 'genesis')
 WS_YEAR = 2016      # the workspace: one year at one degree
 # repetitions of each K1 segment, K2 and K4 call when timed alone
 K1_REPS = 20
@@ -344,8 +375,10 @@ def pipe_bound(n_bytes, counts, clock_hz):
 def compare_k1(out, ref):
     """(share of storms with the same alive history, max abs error per
     field over samples alive in both, share of bit-exact lon samples) of
-    one segment integrated by K1 (out) and by its twin (ref)."""
-    (ko, (k_end, k_alive)), (po, (p_end, p_alive)) = out, ref
+    one segment integrated by K1 (out) and by its twin (ref); with the
+    in-scan vmax, its error too ('vmax')."""
+    (ko, kc), (po, pc) = out, ref
+    (k_end, k_alive), (p_end, p_alive) = kc[:2], pc[:2]
     agree = ((ko[5] == po[5]).all(dim=0) & (k_alive == p_alive))
     both = ko[5] & po[5]
     err = {}
@@ -353,6 +386,8 @@ def compare_k1(out, ref):
         msk = both if ko[i].dim() == 2 else both[..., None].expand_as(ko[i])
         err[nm] = float((ko[i] - po[i]).abs()[msk].max()) if msk.any() \
             else 0.0
+    if len(ko) > 6:
+        err['vmax'] = max_err(ko[6][both], po[6][both])
     end = k_alive & p_alive
     for nm, a, b in zip(('lon', 'lat', 'v', 'm'), k_end, p_end):
         if end.any():
@@ -409,48 +444,58 @@ def k1_bound(args, out):
     reads of the stacks).  Operations: at least 360 float32 operations per
     storm-step (four RHS evaluations, the RK4 combination, the wind
     coloring) and 150 per field gather (the 21-channel blend, the 4x4
-    Cholesky), counted from csrc/integrator.cu, a transcendental as one."""
+    Cholesky), counted from csrc/integrator.cu at two steering levels, a
+    transcendental as one (more levels do more; the count stays a lower
+    bound).  With the in-scan vmax the outputs and carry hold its leaves
+    too."""
     from tropical_cyclone_risk_tpu_torch.models import simulator
-    stacks, cfg, _, y0, alive0, params, _, n_steps = args
-    (outs, (end_y, end_alive)) = out
+    stacks, cfg, _, y0, alive0, params, _, n_steps = args[:8]
+    outs, carry = out
+    end_y, end_alive = carry[:2]
     m = y0.lon.shape[0]
     alive = outs[5]
     plane = params.plane.to(torch.int64)[None].expand_as(alive)[alive]
     stride, n_blocks = simulator.segment_plan(cfg, n_steps)
     gathers = n_blocks + (n_steps - n_blocks * stride)
     b = (gather_bytes(stacks, outs[0][alive], outs[1][alive], plane)
-         + n_steps * m * 4 * 4
+         + n_steps * m * 4 * cfg.n_wind_levels
          + nbytes(y0.lon, y0.lat, y0.v, y0.m, alive0, params.plane,
-                  params.h_bl) + nbytes(*outs, *end_y, end_alive))
+                  params.h_bl) + nbytes(*outs, *end_y, end_alive)
+         + sum(nbytes(*d) for d in (args[8:9] + carry[2:]) if d is not None))
     return bound(b, m * (360 * n_steps + 150 * gathers))
 
 
 def k1_launcher(args, entry=None):
     """A function that runs K1 on the arguments of one
-    simulator.integrate_segment call, with the F(t) grid that its
-    dispatcher builds: the launch function of kernels/integrator.py
-    launcher (the kernel alone), or, given an entry such as
-    integrator.integrate_segment_cuda, a call of it (the wrapper)."""
+    simulator.integrate_segment call (with its DiagState and t_last where
+    the call has them), with the F(t) grid that its dispatcher builds: the
+    launch function of kernels/integrator.py launcher (the kernel alone),
+    or, given an entry such as integrator.integrate_segment_cuda, a call
+    of it (the wrapper)."""
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
     from tropical_cyclone_risk_tpu_torch.models import simulator
-    stacks, cfg, bounds, y0, alive0, params, k0, n_steps = args
+    stacks, cfg, bounds, y0, alive0, params, k0, n_steps = args[:8]
     stride, n_blocks = simulator.segment_plan(cfg, n_steps)
     f_all = (None if simulator.analytic_fourier(cfg)
              else simulator.fourier_grid(cfg, params, k0, n_steps))
-    full = args + (f_all, stride, n_blocks)
+    full = args[:8] + (f_all, stride, n_blocks) + tuple(args[8:])
     if entry is None:
         return integrator.launcher(*full)[0]
     return lambda: entry(*full)
 
 
 def k2_bound(args, kw, out):
-    """K2's bound on one call: its inputs and outputs once each, against
-    at least 40 float32 operations per (step, storm) (the kernel's note)."""
-    ins = [a for a in args if isinstance(a, torch.Tensor)]
+    """K2's bound on one call: its inputs and outputs once each, of the
+    winds [T, N, W] the four shear components it reads (16 bytes a
+    sample, whatever W), against at least 40 float32 operations per
+    (step, storm) (the kernel's note)."""
+    wnds = args[4]
+    ins = [a for a in args if isinstance(a, torch.Tensor) and a is not wnds]
     ins += [t for v in kw.values() if v is not None
             for t in (v if isinstance(v, tuple) else (v,))
             if isinstance(t, torch.Tensor)]
-    return bound(nbytes(*ins, *out), 40 * args[0].numel())
+    return bound(nbytes(*ins, *out) + 16 * wnds[..., 0].numel(),
+                 40 * args[0].numel())
 
 
 def k2_launcher(args, kw):
@@ -675,7 +720,7 @@ def check_fixed(key, pack_y, cfg_t, plane0, card):
     k7_results('fixed', gates)
     frozen = True
     for args, _, out, _ in calls:
-        y0, (outs, (end_y, end_alive)) = args[3], out
+        y0, (outs, (end_y, end_alive)) = args[3], out[:1] + (out[1][:2],)
         alive = outs[5]
         for got, start, end in ((outs[0], y0.lon, end_y.lon),
                                 (outs[1], y0.lat, end_y.lat)):
@@ -826,7 +871,8 @@ def draw_pipes(lib_path):
         raise AssertionError('no cuobjdump: the threefry bounds count the '
                              'SASS')
     full = sass_pipes_of(pipes, 'rng_fourier_kernelILb0E')
-    return {'rows': sass_pipes_of(pipes, 'rng_fourier_kernelILb1E'),
+    # the row entry's instance of the main path: four wind channels
+    return {'rows': sass_pipes_of(pipes, 'rng_fourier_kernelILb1ELi4E'),
             'full': full, 'draw': {'alu': full.get('alu', 0)}}
 
 
@@ -884,7 +930,8 @@ def k3_times(key, pack, cfg, plane0):
     def call():
         return seeding.propose_seeds(key, pack, cfg, BASIN, N_SEEDS, plane0)
     ops, names = device_ops(call, 10)
-    return {'device_ms': device_ms(call, 20), 'event_ms': cuda_ms(call, 20),
+    return {'device_ms': device_ms(call, 20, entry='seeding'),
+            'event_ms': cuda_ms(call, 20),
             'host_ms': host_ms(call, 50), 'device_ops': ops,
             'device_op_names': names}
 
@@ -1163,8 +1210,8 @@ def stitch_bound(order, tms, segs, out):
     """K4's bound on one survivor stitch: what the k survivors need of the
     segment buffers (six fields and alive per survivor and step, their
     map entries) read once, and the [k, T] outputs written once."""
-    k, T = out[0]['lon'].shape
-    reads = k * T * (5 * 4 + 16 + 1) + nbytes(order) + 9 * k * len(segs)
+    k, T, W = out[0]['wnds'].shape
+    reads = k * T * (5 * 4 + 4 * W + 1) + nbytes(order) + 9 * k * len(segs)
     return bound(reads + nbytes(*out[0].values(), out[1]), 4 * k * T)
 
 
@@ -1272,10 +1319,11 @@ def check_k4(key, pack_y, cfg_t, plane0, card):
                                 kw.get('inv_len'))
         rows_k4.append({
             'n': mask.shape[0], 'w': w, 'rows': len(rows),
-            'ms': device_ms(launch, K4_REPS),
-            'library_ms': device_ms(lambda: sort_order(mask, w), K4_REPS),
+            'ms': device_ms(launch, K4_REPS, entry='compact'),
+            'library_ms': device_ms(lambda: sort_order(mask, w), K4_REPS,
+                                    entry='compact'),
             'sort_take_ms': device_ms(lambda: sort_take(mask, w, rows),
-                                      K4_REPS),
+                                      K4_REPS, entry='compact'),
             'bound_ms': partition_bound(mask, out, kw.get('a_prev'))[0]})
     launch_k4 = {k: sum(r[k] for r in rows_k4)
                  for k in ('ms', 'library_ms', 'sort_take_ms', 'bound_ms')}
@@ -1297,7 +1345,8 @@ def check_k4(key, pack_y, cfg_t, plane0, card):
     ms_call = cuda_ms(lambda: compact_ops.partition_take(mask, w, rows, **kw),
                       50)
     ms_order = device_ms(k4.launcher('partition', mask, w, (), None, False,
-                                     None, None)[0], K4_REPS)
+                                     None, None)[0], K4_REPS,
+                         entry='compact')
     ms_plain = cuda_ms(lambda: compact_ops.partition_take_plain(
         mask, w, rows, **kw), 20)
     b4, by4 = partition_bound(mask, out, kw.get('a_prev'))
@@ -1312,7 +1361,7 @@ def check_k4(key, pack_y, cfg_t, plane0, card):
     ms_ab = device_ms(k4.launcher('partition', mask, w, rows + ab,
                                   kw.get('acc'), kw.get('slot_rank', False),
                                   kw.get('a_prev'), kw.get('inv_len'))[0],
-                      K4_REPS)
+                      K4_REPS, entry='compact')
     b4_ab, _ = partition_bound(mask, out._replace(rows=out.rows + tuple(
         t[out.order] for t in ab)), kw.get('a_prev'))
     log(f'[K4] {card}: integrate compaction {N_SEEDS} -> {w}: kernels '
@@ -1596,6 +1645,577 @@ def profile_launches(run, reps, path):
     return n_kern / reps, busy / span, span / 1e3 / reps, stage_ms, top
 
 
+# three steering levels as JAX tests/test_simulator.py:421-425 runs them
+LEVELS3 = dict(steering_levels=(250, 500, 850), steering_coefs=(0.1, 0.2, 0.7),
+               y_alpha=(0.1, 0.2, 0.7), m_alpha=(0.001, 0.0, -0.001),
+               alpha_max=(0.4, 0.4, 0.9), alpha_min=(0.05, 0.05, 0.5))
+# K1's default-path instance of the three-level unit
+K1_L3_INSTANCE = 'integrate_segment_kernel<3,0,0,0,0>'
+# the modes the levels phase holds K1 in on its first and last segment, and
+# whether K1 is bit-exact against its twin there (the default path and
+# time_interp_fields are; the analytic modes within K1_TOL)
+LEVELS3_MODES = {'time_interp_fields': (dict(time_interp_fields=True), True),
+                 'rk_exact_stage_fields': (dict(rk_exact_stage_fields=True),
+                                           False),
+                 'rk_substeps=2': (dict(rk_substeps=2), False)}
+
+
+def k1_exact(out, ref):
+    """(bit-exact, the outputs that differ) of one K1 call against its
+    twin's: every output leaf and every carry element, the in-scan vmax
+    and DiagState among them where the call has them."""
+    (ko, kc), (po, pc) = out, ref
+    flat = lambda c: [x for e in c for x in (e if isinstance(e, tuple)
+                                            else (e,))]
+    diff = [f'out {i}' for i, (a, b) in enumerate(zip(ko, po))
+            if not same(a, b)]
+    diff += [f'carry {i}' for i, (a, b) in enumerate(zip(flat(kc), flat(pc)))
+             if not same(a, b)]
+    return not diff, diff
+
+
+def check_k1_exact(label, calls):
+    """Require K1 bit-exact against its twin on every call of `calls`
+    (captured with check k1_exact)."""
+    bad = [(i, c[3][1]) for i, c in enumerate(calls) if not c[3][0]]
+    log(f'[{label}] K1 against its twin on {len(calls)} segments (steps x '
+        f'storms {[(c[0][7], c[0][3].lon.shape[0]) for c in calls]}): '
+        f'bit-exact {not bad}')
+    if bad or not calls:
+        raise AssertionError(f'{label}: K1 differs from its twin: {bad}')
+
+
+def k5_rows_exact(out, *args, **kw):
+    """K5's draw against draw_fourier_plain on the same inputs, the twin
+    uncounted: bit-exact A and B."""
+    from tropical_cyclone_risk_tpu_torch.ops import fourier
+    ref = uncounted(fourier.draw_fourier_plain, *args, **kw)
+    return same(out.A, ref.A) and same(out.B, ref.B)
+
+
+def k4_exact(plain):
+    """A capture check: K4's call against its plain twin on the same
+    inputs, uncounted; the fields that differ."""
+    return lambda out, *a, **kw: same_parts(out, uncounted(plain, *a, **kw))
+
+
+def launch_kernel_times(k1_calls, k2_calls, k7_calls, draws, stitches,
+                        rng_lib, clock):
+    """Per launch, from the captured calls of one launch: each kernel
+    alone (K1 summed over the segments, event time; K2 over the segments,
+    K7's gate, K5's row draw and K4's stitch, device time), its bound as
+    the phases reckon it (K5's from the SASS of the row entry's instance
+    for the launch's channels), and its plain twin's time (K1's on
+    segment 0)."""
+    from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
+    from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    from tropical_cyclone_risk_tpu_torch.models import diagnostics, simulator
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+    from tropical_cyclone_risk_tpu_torch.ops import fourier
+    k1 = [(cuda_ms(k1_launcher(a), K1_REPS), k1_bound(a, out)[0])
+          for a, _, out, _ in k1_calls]
+    k2 = [(device_ms(k2_launcher(a, kw), K2_REPS, ('vmax_kernel',)),
+           k2_bound(a, kw, out)[0],
+           cuda_ms(lambda: uncounted(diagnostics.axi_to_max_wind_raw_plain,
+                                     *a, **kw), 1))
+          for a, kw, out, _ in k2_calls]
+    (g_args, _, g_out, _), = k7_calls
+    (d_args, d_kw, d_out, _), = draws
+    (s_args, _, s_out, _) = stitches[0]
+    C = d_out.A.shape[1]
+    per = sass_pipes_of(sass_pipes(rng_lib), f'rng_fourier_kernelILb1ELi{C}E')
+    n5 = d_out.A.numel()
+    return {
+        'K1': sum(r[0] for r in k1), 'K1_bound': sum(r[1] for r in k1),
+        'K1_segments': [r[0] for r in k1],
+        'K1_plain_segment0': cuda_ms(lambda: uncounted(
+            simulator.integrate_segment_plain, *k1_calls[0][0]), 1),
+        'K2': sum(r[0] for r in k2), 'K2_bound': sum(r[1] for r in k2),
+        'K2_plain': sum(r[2] for r in k2),
+        'K7': device_ms(integrator.gate_launcher(*g_args)[0], 20,
+                        ('genesis_gate_kernel',)),
+        'K7_bound': k7_bound(g_args, g_out)[0],
+        'K7_plain': cuda_ms(lambda: uncounted(simulator.genesis_alive_plain,
+                                              *g_args), 5),
+        'K5': device_ms(lambda: fourier.draw_fourier(*d_args, **d_kw), 20,
+                        ('rng_fourier',)),
+        'K5_bound': pipe_bound(nbytes(d_out.A, d_out.B, d_kw['rows']),
+                               {p: n * n5 for p, n in per.items()},
+                               clock)[0],
+        'K5_plain': cuda_ms(lambda: fourier.draw_fourier_plain(
+            *d_args, **d_kw), 5),
+        'K5_shape': list(d_out.A.shape),
+        'K4_stitch': device_ms(k4.launcher('stitch', *s_args)[0], 20,
+                               ('stitch_kernel',)),
+        'K4_stitch_bound': stitch_bound(*s_args[:3], s_out)[0],
+        'K4_stitch_plain': cuda_ms(lambda: uncounted(
+            compact_ops.stitch_survivors_plain, *s_args), 5),
+        'K4_stitch_shape': list(s_out[0]['wnds'].shape)}
+
+
+def check_tracks_levels(ds, cfg, label):
+    """A tracks file of a three-level run: check_tracks, and every
+    u/v{level}_trks present and finite at each survivor's first sample."""
+    n, peaks = check_tracks(ds, cfg)
+    names = [f'{c}{lv}_trks' for lv in cfg.steering_levels for c in 'uv']
+    missing = [nm for nm in names if nm not in ds.variables]
+    first = {nm: ds.variables[nm].data[:, 0] for nm in names
+             if nm not in missing}
+    bad = [nm for nm, a in first.items() if not np.isfinite(a).all()]
+    log(f'[{label}] {n} tracks with {names}; first samples finite: '
+        f'{not bad}; u500 at genesis {first.get("u500_trks", [])[:4]}')
+    if missing or bad or n < 1:
+        raise AssertionError(f'{label}: missing {missing}, not finite {bad}')
+    return n, peaks
+
+
+def levels_setup(dev):
+    """The three-level launch inputs: the namelist of LEVELS3 at N_SEEDS
+    seeds for one year, the 12-plane 181x360 synthetic pack of its winds,
+    and the namelist auto-tuned on it (integrate cap, re-compaction
+    schedule)."""
+    from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.config import Namelist
+    from tropical_cyclone_risk_tpu_torch.models import fast, fields, pipeline
+    cfg = Namelist(seed_batch=N_SEEDS, start_year=2016, end_year=2016,
+                   **LEVELS3)
+    if fast.deep_layer_indices(cfg) != (0, 1, 4, 5):
+        raise AssertionError(fast.deep_layer_indices(cfg))
+    pack = fields.synthetic_pack(cfg, 12, 181, 360, seed=0, device=dev)
+    cfg_t = pipeline.auto_integrate_cap(rng.fold_in(rng.key(0), 2016), pack,
+                                        cfg, BASIN)
+    return cfg, pack, cfg_t
+
+
+def check_levels(dev, card, tmp, libs, pack_y, cfg_t, clock, levels):
+    """Phase levels: steering_levels (250, 500, 850) at the bench's width.
+    One launch (_simulate_batch, k_max 64) on the 12-plane 181x360 pack of
+    three levels (levels: levels_setup's), caps auto-tuned, with K1 on
+    every segment bit-exact
+    against its twin, K2 on every segment within K2_TOL, K7, K5's row draw
+    and K4's partitions and stitch bit-exact; K1 on the first and last
+    segment of a launch in each of LEVELS3_MODES; the kernels' per-launch
+    times beside the two-level ones, timed alike on a launch of the
+    two-level pack pack_y at cfg_t; then
+    run_downscaling on that pack and cli.main GL on a workspace with 500
+    hPa winds, counters reset just before and read just after each, their
+    files holding every level's winds.  Returns the per-launch times and
+    the largest errors."""
+    from tropical_cyclone_risk_tpu_torch import cli, kernels, rng, runtime
+    from tropical_cyclone_risk_tpu_torch.config import load_namelist_py
+    from tropical_cyclone_risk_tpu_torch.io import netcdf
+    from tropical_cyclone_risk_tpu_torch.models import (diagnostics,
+                                                        pipeline, simulator)
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+    from tropical_cyclone_risk_tpu_torch.ops import fourier
+    from tropical_cyclone_risk_tpu_torch.utils import synthetic_era5
+    t_phase = time.perf_counter()
+    with captured(simulator, 'integrate_segment') as k1c, \
+            captured(diagnostics, 'axi_to_max_wind_raw') as k2c, \
+            captured(simulator, 'genesis_alive') as k7c, \
+            captured(fourier, 'draw_fourier') as draws, \
+            captured(compact_ops, 'stitch_survivors') as sts:
+        pipeline._simulate_batch(rng.key(94), pack_y, cfg_t, BASIN, N_SEEDS,
+                                 64, cfg_t.start_month - 1)
+    rng_lib = libs['threefry']['path']
+    base = launch_kernel_times(k1c, k2c, k7c, draws, sts, rng_lib, clock)
+    del k1c, k2c, k7c, draws, sts
+    rep = ptxas_report(libs['integrator L3']['log']).get(K1_L3_INSTANCE)
+    sass = sass_local_memory(libs['integrator L3']['path']).get(
+        K1_L3_INSTANCE, 'not read')
+    log(f'[levels] K1 {K1_L3_INSTANCE}: {rep or "no ptxas report"}; SASS '
+        f'local loads/stores {sass}')
+    cfg, pack, cfg_t = levels
+    plane0 = cfg.start_month - 1
+    log(f'[levels] pack winds {tuple(pack.wind.shape)}; integrate_cap '
+        f'{cfg_t.integrate_cap} schedule {cfg_t.recompact_schedule}')
+    with captured(simulator, 'integrate_segment',
+                  lambda out, *a: k1_exact(out, uncounted(
+                      simulator.integrate_segment_plain, *a))) as k1c, \
+            captured(diagnostics, 'axi_to_max_wind_raw',
+                     lambda out, *a, **kw: compare_k2(out, uncounted(
+                         diagnostics.axi_to_max_wind_raw_plain, *a, **kw),
+                         a[5])) as k2c, \
+            captured(simulator, 'genesis_alive', check_k7) as k7c, \
+            captured(fourier, 'draw_fourier', k5_rows_exact) as draws, \
+            captured(compact_ops, 'partition_take',
+                     k4_exact(compact_ops.partition_take_plain)) as parts, \
+            captured(compact_ops, 'stitch_survivors',
+                     k4_exact(compact_ops.stitch_survivors_plain)) as sts:
+        pipeline._simulate_batch(rng.key(94), pack, cfg_t, BASIN, N_SEEDS,
+                                 64, plane0)
+    torch.cuda.synchronize()
+    check_k1_exact('levels', k1c)
+    k2_err = max(c[3][0] for c in k2c)
+    k7_results('levels', k7c)
+    k4_bad = [c[3] for c in parts + sts if c[3]]
+    k5_ok = all(c[3] for c in draws)
+    W = tuple(k2c[0][0][4].shape)
+    log(f'[levels] K2 on {len(k2c)} segments (winds {W}): max abs err '
+        f'{k2_err:.3e}; K5 row draws {[tuple(c[2].A.shape) for c in draws]} '
+        f'bit-exact {k5_ok}; K4 {len(parts)} partitions and {len(sts)} '
+        f'stitch {tuple(sts[0][2][0]["wnds"].shape)} bit-exact '
+        f'{not k4_bad}')
+    if not (k2_err <= K2_TOL and all(c[3][1] for c in k2c) and k5_ok
+            and not k4_bad and W[-1] == 6):
+        raise AssertionError(f'levels: K2 err {k2_err}, K5 {k5_ok}, K4 '
+                             f'{k4_bad}')
+    t3 = launch_kernel_times(k1c, k2c, k7c, draws, sts, rng_lib, clock)
+    del k1c, k2c, k7c, draws, parts, sts
+    modes_err = {}
+    for name, (kw, exact) in LEVELS3_MODES.items():
+        calls, gates = mode_calls(rng.key(93), pack, cfg_t.replace(**kw),
+                                  plane0, gate=True)
+        k7_results(f'levels {name}', gates)
+        res = []
+        for args, _, out, _ in (calls[0], calls[-1]):
+            ref = uncounted(simulator.integrate_segment_plain, *args)
+            agree, err, _ = compare_k1(out, ref)
+            same_bits, diff = k1_exact(out, ref)
+            res.append((args[7], args[3].lon.shape[0], agree,
+                        max(err.values()), same_bits))
+            modes_err[name] = max(modes_err.get(name, 0.0),
+                                  max(err.values()))
+            if (exact and not same_bits) or agree < K1_ALIVE_AGREE or any(
+                    not err[nm] <= tol for nm, tol in K1_TOL.items()):
+                raise AssertionError(f'levels {name}: K1 alive agreement '
+                                     f'{agree}, errors {err}, differs in '
+                                     f'{diff}')
+        log(f'[levels] {name}: K1 against its twin on the first and last '
+            f'segment (steps, storms, alive agreement, max abs err, '
+            f'bit-exact) {res}')
+        del calls
+    log(f'[levels] {card}: per launch, the kernel alone, three levels '
+        f'against two (this call; bound, plain twin): ' + '; '.join(
+            f'{k} {t3[k]:.4f} / {base[k]:.4f} ms ({t3[k + "_bound"]:.5f}, '
+            f'{t3[k + "_plain"]:.3f} / {base[k + "_plain"]:.3f})'
+            for k in ('K2', 'K7', 'K5', 'K4_stitch')) +
+        f'; K1 {t3["K1"]:.4f} / {base["K1"]:.4f} ms (bound '
+        f'{t3["K1_bound"]:.5f} / {base["K1_bound"]:.5f}, plain twin on '
+        f'segment 0 {t3["K1_plain_segment0"]:.1f} / '
+        f'{base["K1_plain_segment0"]:.1f}); K5 rows {t3["K5_shape"]}, stitch '
+        f'{t3["K4_stitch_shape"]}')
+
+    # run_downscaling on the three-level pack
+    cfg_run = cfg.replace(output_directory=f'{tmp}/levels', exp_name='l3')
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    fn = runtime.run_downscaling(cfg_run, BASIN, pack, seed=4, device=dev)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    check_counts('levels run', dict(kernels.LAUNCHES),
+                 dict(kernels.PLAIN_ON_CUDA), SIMULATION_KERNELS)
+    n_run, _ = check_tracks_levels(netcdf.read(fn), cfg_run, 'levels run')
+    log(f'[levels] run_downscaling one year at three levels in {t_run:.2f} '
+        f's: {n_run} tracks')
+
+    # cli.main GL on a workspace with 250, 500 and 850 hPa winds
+    t0 = time.perf_counter()
+    nl = synthetic_era5.make_workspace(
+        f'{tmp}/ws_levels', WS_YEAR, WS_YEAR, nlat=181, nlon=360,
+        seed_batch=N_SEEDS, wind_levels=(250, 500, 850))
+    with open(nl, 'a') as f:
+        f.write(''.join(f'{k} = {v!r}\n' for k, v in LEVELS3.items()))
+    cfg_ws = load_namelist_py(nl)
+    t_write = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    cli.main(['GL', '--namelist', nl, '--seed', '0'])
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    check_counts('levels workspace', dict(kernels.LAUNCHES),
+                 dict(kernels.PLAIN_ON_CUDA), WORKSPACE_KERNELS)
+    n_ws, _ = check_tracks_levels(
+        netcdf.read(runtime.get_fn_tracks(cfg_ws, BASIN)), cfg_ws,
+        'levels workspace')
+    log(f'[levels] {card}: cli.main GL one year on a 250/500/850 hPa '
+        f'workspace (written in {t_write:.1f} s) in {t_cli:.2f} s: {n_ws} '
+        f'tracks; phase {time.perf_counter() - t_phase:.1f} s')
+    return {'ms': t3, 'two_levels_ms': base, 'k2_max_abs_err': k2_err,
+            'k1_modes_max_abs_err': modes_err, 'k1_l3_ptxas': rep,
+            'run_s': t_run, 'cli_s': t_cli}
+
+
+def fix_calls():
+    """A context that wraps diagnostics.fix_last_sample, which fixes its
+    first argument in place on the card: each call's input buffer is
+    copied first and the plain twin runs on the copy (uncounted); yields
+    the list of (args, kw, out, (bit-exact, max abs err of vmax_L))."""
+    from tropical_cyclone_risk_tpu_torch.models import diagnostics
+    fn, calls = diagnostics.fix_last_sample, []
+
+    def wrap(vmax_tm, *args, **kw):
+        before = vmax_tm.clone()
+        out = fn(vmax_tm, *args, **kw)
+        ref = uncounted(diagnostics.fix_last_sample_plain, before, *args,
+                        **kw)
+        exact = all(same(a, b) for a, b in zip(out, ref))
+        calls.append(((before,) + args, kw, out,
+                      (exact, max_err(out[1], ref[1]))))
+        return out
+
+    @contextlib.contextmanager
+    def ctx():
+        diagnostics.fix_last_sample = wrap
+        try:
+            yield calls
+        finally:
+            diagnostics.fix_last_sample = fn
+    return ctx()
+
+
+def last_bound(args, kw, out):
+    """The last-sample entry's bound on one call: per storm the rows L and
+    L-1 of lon and lat, v, the four shear winds and alive at L and
+    last_step read once, vmax_L and ok written once; pos_before read for
+    the storms whose last sample is the segment's first, and the fixed
+    sample written for those whose last sample is in the segment (this
+    call's data); ~45 float32 operations per storm (vmax_at and the
+    extrapolation)."""
+    lon, last = args[1], args[6]
+    N = lon.shape[1]
+    per = 4 * 4 + 4 + 16 + 1 + 8 + 4 + 1
+    extra = 4 * int(out[2].sum())
+    if kw.get('pos_before') is not None:
+        extra += 8 * int((last == 0).sum())
+    return bound(N * per + extra, 45 * N)
+
+
+# the in-scan instances the in-scan phase holds against their twins besides
+# the default path's: (steering levels of the pack, namelist fields,
+# whether K1 is bit-exact against its twin there, as LEVELS3_MODES)
+IN_SCAN_MODES = {'time_interp_fields': (2, dict(time_interp_fields=True),
+                                        True),
+                 'rk_substeps=2': (2, dict(rk_substeps=2), False),
+                 'three levels': (3, {}, True)}
+# K1's in-scan vmax against its twin where the integration is within
+# K1_TOL rather than bit-exact (the analytic modes): a sample's vmax is
+# its v plus a share of the translation speed, a centred difference of
+# positions two output steps apart, so it moves by the v error and a
+# small share of the position errors (1e-3 deg is ~111 m)
+K1_VMAX_TOL = 5e-2
+
+
+def same_launch(off, on):
+    """The fields in which two launches' (tracks, meta) of compact_survivors
+    differ, vmax aside, and the largest vmax difference of their tracks
+    (inf where their NaN masks differ)."""
+    (tr_off, meta_off), (tr_on, meta_on) = off, on
+    diff = [f for f in ('lon', 'lat', 'v', 'm', 'wnds', 'valid', 'month',
+                        'basin_idx') if not same(tr_off[f], tr_on[f])]
+    diff += [f for f in ('keep', 'scalars', 'spm_upto', 'spm_all')
+             if not same(meta_off[f], meta_on[f])]
+    nan_same = same(torch.isnan(tr_off['vmax']), torch.isnan(tr_on['vmax']))
+    return diff, (max_err(tr_off['vmax'], tr_on['vmax']) if nan_same
+                  else math.inf)
+
+
+def in_scan_k1(label, key, pack, cfg, plane0, exact):
+    """One full-width launch (_simulate_batch, k_max 64) on cfg with and
+    without vmax_in_scan (the same key): the tracks and verdicts
+    bit-identical and vmax within K2_TOL (same_launch); K1's in-scan
+    instance against its twin on the first and last segment, on the vmax
+    as K1 wrote it (the last-sample entry then fixes it in place):
+    bit-exact where `exact`, else K1_ALIVE_AGREE of the storms on the
+    same alive history, within K1_TOL and K1_VMAX_TOL; the last-sample
+    entry bit-exact against fix_last_sample_plain on every segment.
+    Returns ({field: K1's largest error}, the last-sample entry's largest
+    vmax_L error)."""
+    from tropical_cyclone_risk_tpu_torch.models import pipeline, simulator
+    off = pipeline._simulate_batch(key, pack, cfg, BASIN, N_SEEDS, 64,
+                                   plane0)
+    with captured(simulator, 'integrate_segment',
+                  lambda out, *a, **kw: out[0][6].clone()) as k1c, \
+            fix_calls() as fixes:
+        on = pipeline._simulate_batch(key, pack,
+                                      cfg.replace(vmax_in_scan=True), BASIN,
+                                      N_SEEDS, 64, plane0)
+    torch.cuda.synchronize()
+    diff, t_err = same_launch(off, on)
+    log(f'[in-scan] {label}: {int(on[1]["scalars"][0])} survivors, in-scan '
+        f'against post-pass: not bit-identical {diff or "none"}, stitched '
+        f'vmax max abs err {t_err:.3e}')
+    if diff or not t_err <= K2_TOL:
+        raise AssertionError(f'in-scan {label}: differs in {diff}, vmax '
+                             f'{t_err}')
+    res, worst = [], {}
+    for args, kw, out, raw in (k1c[0], k1c[-1]):
+        out = (out[0][:6] + (raw,), out[1])
+        ref = uncounted(simulator.integrate_segment_plain, *args, **kw)
+        same_bits, diff = k1_exact(out, ref)
+        agree, err, _ = compare_k1(out, ref)
+        worst = {k: max(worst.get(k, 0.0), v) for k, v in err.items()}
+        res.append((args[7], args[3].lon.shape[0], args[9], agree,
+                    max(err.values()), same_bits))
+        if (exact and not same_bits) or agree < K1_ALIVE_AGREE or any(
+                not err[nm] <= tol for nm, tol in K1_TOL.items()) \
+                or not err['vmax'] <= K1_VMAX_TOL:
+            raise AssertionError(f'in-scan {label}: K1 alive agreement '
+                                 f'{agree}, errors {err}, differs in {diff}')
+    fix_bad = [i for i, c in enumerate(fixes) if not c[3][0]]
+    fix_err = max((c[3][1] for c in fixes), default=0.0)
+    log(f'[in-scan] {label}: {len(k1c)} segments; K1 with the DiagState '
+        f'against its twin on the first and last (steps, storms, t_last, '
+        f'alive agreement, max abs err, bit-exact) {res}; the last-sample '
+        f'entry on {len(fixes)} segments (winds '
+        f'{tuple(fixes[0][0][4].shape) if fixes else None}) bit-exact '
+        f'against fix_last_sample_plain: {not fix_bad}')
+    if fix_bad or not fixes:
+        raise AssertionError(f'in-scan {label}: the last-sample entry '
+                             f'differs on segments {fix_bad} of '
+                             f'{len(fixes)}')
+    return worst, fix_err
+
+
+def check_in_scan(dev, card, pack_y, cfg_t, plane0, k1_base, levels):
+    """Phase in-scan: the bench's launch with vmax_in_scan off and on
+    (the same key): every segment's lon/lat/v/m/wnds/alive, the keep
+    verdicts and compact_survivors' valid and stitched tracks bit-identical,
+    vmax within K2_TOL of K2's post-pass on alive samples and the peaks'
+    verdicts equal; counters reset just before the in-scan launch and read
+    just after (K2's post-pass not launched, its last-sample entry is); K1's
+    in-scan instance bit-exact against its twin on the first and last
+    segment; the last-sample entry bit-exact against fix_last_sample_plain
+    on every segment; then the same checks of K1 and the last-sample entry
+    on a launch in each of IN_SCAN_MODES (in_scan_k1; the three-level one
+    on levels, levels_setup's pack and auto-tuned namelist); the launch's
+    wall time with and without, and the kernels' per-launch times.
+    Returns the phase's numbers."""
+    from tropical_cyclone_risk_tpu_torch import kernels, rng
+    from tropical_cyclone_risk_tpu_torch.kernels import vmax as k2
+    from tropical_cyclone_risk_tpu_torch.models import (diagnostics,
+                                                        pipeline, simulator)
+    t_phase = time.perf_counter()
+    m = pipeline.launch_width(cfg_t, N_SEEDS)
+    n_basins = len(cfg_t.basin_ids_sorted())
+    cfg_on = cfg_t.replace(vmax_in_scan=True)
+    key = rng.key(92)
+    body_off = pipeline.launch_body(key, pack_y, cfg_t, BASIN, N_SEEDS,
+                                    plane0)
+    tr_off, meta_off = pipeline.compact_survivors(body_off, m, 64, n_basins)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    # K1's vmax output as the kernel wrote it (the last-sample entry then
+    # fixes it in place)
+    with captured(simulator, 'integrate_segment',
+                  lambda out, *a, **kw: out[0][6].clone()) as k1c, \
+            fix_calls() as fixes:
+        body_on = pipeline.launch_body(key, pack_y, cfg_on, BASIN, N_SEEDS,
+                                       plane0)
+        tr_on, meta_on = pipeline.compact_survivors(body_on, m, 64,
+                                                    n_basins)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_counts('in-scan', launches, dict(kernels.PLAIN_ON_CUDA),
+                 IN_SCAN_KERNELS)
+    if launches['vmax'] != 0:
+        raise AssertionError(f'in-scan: K2\'s post-pass launched '
+                             f'{launches["vmax"]} times')
+    segs_off = (body_off['tm'],) + body_off.get('tms', ())
+    segs_on = (body_on['tm'],) + body_on.get('tms', ())
+    diff = [(i, f) for i, (a, b) in enumerate(zip(segs_off, segs_on))
+            for f in ('lon', 'lat', 'v', 'm', 'wnds', 'alive')
+            if not same(a[f], b[f])]
+    diff += [f for f in ('keep', 'month', 'basin_idx')
+             if not same(body_off['trk'][f], body_on['trk'][f])]
+    d_launch, t_err = same_launch((tr_off, meta_off), (tr_on, meta_on))
+    diff += d_launch
+    v_err = max(max_err(a['vmax'][a['alive']], b['vmax'][a['alive']])
+                for a, b in zip(segs_off, segs_on))
+    v_exact = min(float((a["vmax"] == b["vmax"])[a["alive"]].double().mean())
+                  for a, b in zip(segs_off, segs_on))
+    log(f'[in-scan] {len(segs_on)} segments, {int(meta_on["scalars"][0])} '
+        f'survivors: not bit-identical {diff or "none"}; vmax against K2\'s '
+        f'post-pass on alive samples max abs err {v_err:.3e} (bit-exact '
+        f'share >= {v_exact:.6f}), stitched vmax {t_err:.3e} (inf: NaN '
+        f'masks differ); kernel launches {launches}')
+    if diff or not (v_err <= K2_TOL and t_err <= K2_TOL):
+        raise AssertionError(f'in-scan: differs in {diff}, vmax {v_err}, '
+                             f'{t_err}')
+    # K1's in-scan instance against its twin on the first and last segment
+    res = []
+    for args, kw, out, raw in (k1c[0], k1c[-1]):
+        out = (out[0][:6] + (raw,), out[1])
+        ref = uncounted(simulator.integrate_segment_plain, *args, **kw)
+        same_bits, d = k1_exact(out, ref)
+        res.append((args[7], args[3].lon.shape[0], args[9], same_bits, d))
+        if not same_bits:
+            vk, vp, alive = out[0][6], ref[0][6], out[0][5]
+            bad = ~((vk == vp) | (torch.isnan(vk) & torch.isnan(vp)))
+            idx = bad.nonzero()[:6].tolist()
+            log(f'[in-scan] K1 vmax differs from its twin on '
+                f'{int(bad.sum())} samples ({int((bad & alive).sum())} '
+                f'alive); max abs err alive {max_err(vk[alive], vp[alive])}'
+                f', all {max_err(vk, vp)}; (row, storm, kernel, twin, lon, '
+                f'lat, v, alive): ' + '; '.join(
+                    f'{t} {n} {float(vk[t, n])!r} {float(vp[t, n])!r} '
+                    f'{float(out[0][0][t, n])!r} {float(out[0][1][t, n])!r} '
+                    f'{float(out[0][2][t, n])!r} {bool(alive[t, n])}'
+                    for t, n in idx))
+            raise AssertionError(f'in-scan: K1 differs from its twin in {d}')
+    fix_bad = [i for i, c in enumerate(fixes) if not c[3][0]]
+    fix_err = max(c[3][1] for c in fixes)
+    log(f'[in-scan] K1 with the DiagState against its twin (steps, storms, '
+        f't_last, bit-exact, differing) {res}; the last-sample entry on '
+        f'{len(fixes)} segments bit-exact against fix_last_sample_plain: '
+        f'{not fix_bad} (max abs err of vmax_L {fix_err:.3e})')
+    if fix_bad:
+        raise AssertionError(f'in-scan: the last-sample entry differs on '
+                             f'segments {fix_bad}')
+    # K1's other in-scan instances and the last-sample entry at W = 6
+    cfg3, pack3, cfg3_t = levels
+    modes = {}
+    for name, (n_levels, kw_mode, exact) in IN_SCAN_MODES.items():
+        pack, cfg, p0 = ((pack3, cfg3_t, cfg3.start_month - 1)
+                         if n_levels == 3 else (pack_y, cfg_t, plane0))
+        modes[name], f_err = in_scan_k1(name, rng.key(91), pack,
+                                        cfg.replace(**kw_mode), p0, exact)
+        fix_err = max(fix_err, f_err)
+    # times: K1's in-scan instance per launch (every segment, the kernel
+    # alone) beside the post-pass instance's from the K1 phase; the
+    # last-sample entry per launch (device time) beside its twin; the
+    # launch's wall time with and without, in turns
+    k1_on = sum(cuda_ms(k1_launcher(a), K1_REPS) for a, _, _, _ in k1c)
+    k1_on_bound = sum(k1_bound(a, out)[0] for a, _, out, _ in k1c)
+    fix_ms = sum(device_ms(k2.last_launcher(
+        a[0].clone(), *a[1:8], diagnostics._shear_channels(a[8]),
+        kw.get('pos_before'))[0], 20, ('last_sample_kernel',))
+        for a, kw, _, _ in fixes)
+    fix_plain = sum(cuda_ms(lambda a=a, kw=kw: uncounted(
+        diagnostics.fix_last_sample_plain, *a, **kw), 5)
+        for a, kw, _, _ in fixes)
+    fix_bound = [last_bound(a, kw, o) for a, kw, o, _ in fixes]
+    wall = {False: [], True: []}
+    for i in range(5):
+        for flag in (False, True, True, False):
+            c = cfg_on if flag else cfg_t
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipeline._simulate_batch(rng.key(200 + i), pack_y, c, BASIN,
+                                     N_SEEDS, 64, plane0)
+            torch.cuda.synchronize()
+            wall[flag].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in wall.items()}
+    log(f'[in-scan] {card}: K1 per launch, the kernel alone: in-scan '
+        f'{k1_on:.4f} ms (bound {k1_on_bound:.5f} ms), post-pass instance '
+        f'{k1_base:.4f} ms (K1 phase); '
+        f'the last-sample entry per launch {fix_ms:.4f} ms device (plain '
+        f'twin {fix_plain:.3f} ms, bound '
+        f'{sum(b for b, _ in fix_bound):.5f} ms); launch wall time, median '
+        f'of 10 in turns: in-scan {med[True]:.2f} ms, post-pass '
+        f'{med[False]:.2f} ms; phase {time.perf_counter() - t_phase:.1f} s')
+    return {'launches': launches, 'vmax_max_abs_err': v_err,
+            'vmax_exact_share': v_exact, 'k1_ms': k1_on,
+            'k1_bound_ms': k1_on_bound,
+            'fix_ms': fix_ms, 'fix_plain_ms': fix_plain,
+            'fix_bound_ms': sum(b for b, _ in fix_bound),
+            'fix_bound_by': fix_bound[0][1], 'fix_max_abs_err': fix_err,
+            'k1_modes_max_abs_err': modes,
+            'launch_ms': med[True], 'launch_post_pass_ms': med[False]}
+
+
 def card_line():
     return subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
@@ -1604,8 +2224,10 @@ def card_line():
 
 
 def build_all(dev):
-    """nvcc for K1 with K7, K2, K3, K4, K5 and K6 in six threads (six
-    processes at once); logs the build seconds, each kernel's registers,
+    """nvcc for K1 with K7 (a library per unit: two and three steering
+    levels, each with and without the in-scan vmax), K2, K3, K4, K5 and K6
+    in nine threads (nine processes at once); logs the wall time of the
+    builds, each build's seconds, each kernel's registers,
     stack frame, spills and SASS local-memory instructions (K1's and K7's
     instances of every stack layout among them); requires K1's default
     instance to have neither a stack frame nor spills, and K1's sin and
@@ -1626,17 +2248,23 @@ def build_all(dev):
         except Exception as e:        # noqa: BLE001 — raised below
             errors.append(e)
 
+    units = [(('integrator' + (f' L{lv}' if lv != 2 else '')
+                + (' diag' if diag else '')),
+              lambda lv=lv, diag=diag: integrator.build(lv, diag))
+             for lv, diag in integrator.units()]
     threads = [threading.Thread(target=nvcc, args=a)
-               for a in (('integrator', integrator.build),
-                         ('vmax', vmax_kernel.build),
+               for a in (*units, ('vmax', vmax_kernel.build),
                          ('seeding', k3.build), ('compact', k4.build),
                          ('threefry', k5.build), ('cape_pi', k6.build))]
+    t_all = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
+    log(f'[build] {len(threads)} nvcc processes at once: '
+        f'{time.perf_counter() - t_all:.1f} s of wall time')
     for name, (info, secs) in builds.items():
         sass = sass_local_memory(info['path'])
         for fn, rep in ptxas_report(info['log']).items():
@@ -1668,7 +2296,7 @@ def build_all(dev):
 # the K1 instance of the default path, and the float32 bit patterns on
 # which its sin and cos path must equal CUDA's sinf and cosf: |x| < 105615
 # of both signs, the infinities and every NaN
-K1_DEFAULT_INSTANCE = 'integrate_segment_kernel<0,0,0>'
+K1_DEFAULT_INSTANCE = 'integrate_segment_kernel<2,0,0,0,0>'
 TRIG_CHECK_RANGES = ((0x00000000, 0x47ce4780), (0x80000000, 0x47ce4780),
                     (0x7f800000, 0x00800000), (0xff800000, 0x00800000))
 
@@ -2149,7 +2777,7 @@ def main():
             f'stages (s) {json.dumps({k: round(v, 3) for k, v in stage_s.items()})}'
             f' (winds and thermo overlap)')
         check_counts('slice 2', launches, dict(kernels.PLAIN_ON_CUDA),
-                     kernels.NAMES)
+                     WORKSPACE_KERNELS)
         check_thermo_file(thermo_driver.get_fn_thermo(cfg_ws), netcdf,
                           synthetic_era5)
         fn_ws = runtime.get_fn_tracks(cfg_ws, BASIN)
@@ -2192,7 +2820,7 @@ def main():
         torch.cuda.synchronize()
         t_cli_geo = time.perf_counter() - t0
         check_counts('geo workspace', dict(kernels.LAUNCHES),
-                     dict(kernels.PLAIN_ON_CUDA), kernels.NAMES)
+                     dict(kernels.PLAIN_ON_CUDA), WORKSPACE_KERNELS)
         k7_results('geo workspace', k7_runs)
         (_, _, pack_geo, _), = built
         stacks_geo = fields.build_stacks(pack_geo)
@@ -2241,7 +2869,7 @@ def main():
         torch.cuda.synchronize()
         t_cli_t2 = time.perf_counter() - t0
         check_counts('thermo2', dict(kernels.LAUNCHES),
-                     dict(kernels.PLAIN_ON_CUDA), kernels.NAMES)
+                     dict(kernels.PLAIN_ON_CUDA), WORKSPACE_KERNELS)
         modes_t2 = sorted({c[3] for c in t2_calls})
         if modes_t2 != [('EntropyTable3', 2, 2)]:
             raise AssertionError(f'thermo2: cape_pi called as {modes_t2}')
@@ -2258,6 +2886,16 @@ def main():
             f'{json.dumps({k: round(v, 3) for k, v in stage_t2.items()})}; '
             f'{n_t2} tracks, peak v {peaks_t2.min():.1f}..'
             f'{peaks_t2.max():.1f} m/s')
+
+        # ---- 9d. in-scan: the vmax computed in K1, against the post-pass --
+        levels_in = levels_setup(dev)
+        in_scan = check_in_scan(dev, card, pack_y, cfg_t, plane0, ms_k1,
+                                levels_in)
+
+        # ---- 9e. levels: three steering levels through every kernel ------
+        levels = check_levels(dev, card, tmp, libs, pack_y, cfg_t, clock,
+                              levels_in)
+        del levels_in
 
         # ---- 10. times ----------------------------------------------------
         per_launch, share, traced_ms, stage_ms, top = profile_launches(
@@ -2326,7 +2964,9 @@ def main():
          'per': 'launch (every segment, the kernel alone)',
          'segment0_dispatch_ms': ms_k1_call, 'segments': k1_segs,
          'modes_max_abs_err': modes_err, 'modes_ms': modes_ms,
-         'geo': geo, 'fixed_max_abs_err': fixed_err},
+         'geo': geo, 'fixed_max_abs_err': fixed_err,
+         'levels3': levels, 'in_scan': {k: v for k, v in in_scan.items()
+                                        if not k.startswith('fix')}},
         {'name': 'vmax', 'route': 'cuda', 'source': src + 'csrc/vmax.cu',
          'replaces': 'tropical_cyclone_risk_tpu/models/diagnostics.py:193',
          'launches': launches['vmax'], 'max_abs_err': k2_err, 'ms': ms_k2,
@@ -2346,6 +2986,16 @@ def main():
          'instance': 'cape_pi_kernel<1,0> (select_thermo=1, 2-D table)',
          'instances': k6_modes,
          'thermo2_cli_thermo_s': stage_t2['thermo']},
+        {'name': 'vmax_last', 'route': 'cuda',
+         'source': src + 'csrc/vmax.cu',
+         'replaces': 'tropical_cyclone_risk_tpu/models/diagnostics.py:148',
+         'launches': in_scan['launches']['vmax_last'],
+         'max_abs_err': in_scan['fix_max_abs_err'], 'ms': in_scan['fix_ms'],
+         'plain_ms': in_scan['fix_plain_ms'],
+         'bound_ms': in_scan['fix_bound_ms'],
+         'bound_by': in_scan['fix_bound_by'], 'library_ms': None,
+         'per': 'in-scan launch (every segment, the kernel alone, device '
+                'time); launches from the in-scan phase\'s launch'},
         {'name': 'genesis', 'route': 'cuda',
          'source': src + 'csrc/integrator.cu',
          'replaces': 'tropical_cyclone_risk_tpu/models/simulator.py:295',
@@ -2358,6 +3008,7 @@ def main():
          'device_kernels_per_launch': per_launch}]
     for k in entries:
         k['bench_launches'] = bench_launches[k['name']]
+        k['ms_timing'] = ms_timing(k['name'])
     log(f'[summary] {card}: host synchronisations per launch {n_sync}; '
         f'BAM {json.dumps(bam_res)}; '
         f'bench peak {bench_peak:.2f} MiB; bench sim-years/min '
@@ -2725,18 +3376,25 @@ def compare_drivers(card, n_years=8, reps=3):
 
 # profiles taken per measurement before giving up: the card's tracer now
 # and then hands torch.profiler a session with no device activity at all
-PROFILE_TRIES = 3
+# (at times several in a row), so a retry waits a little longer each time
+PROFILE_TRIES = 5
+
+
+class ProfilerLost(AssertionError):
+    """torch.profiler recorded no device activity in PROFILE_TRIES
+    profiles."""
 
 
 def profiled(fn, reps):
     """(profile, its key_averages, the device-time attribute) of
     torch.profiler over reps runs of fn(), after one run to warm up.  A
     profile that recorded no device time at all is taken again, up to
-    PROFILE_TRIES times."""
+    PROFILE_TRIES times, else ProfilerLost."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
+    for attempt in range(PROFILE_TRIES):
+        time.sleep(0.2 * attempt)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -2748,15 +3406,32 @@ def profiled(fn, reps):
                 else 'self_cuda_time_total')
         if any(getattr(e, attr) > 0 for e in avg):
             return prof, avg, attr
-    raise AssertionError(f'torch.profiler recorded no device time in '
-                         f'{PROFILE_TRIES} profiles')
+    raise ProfilerLost(f'torch.profiler recorded no device time in '
+                       f'{PROFILE_TRIES} profiles')
 
 
-def device_ms(fn, reps, names=None):
+# the device_ms calls that returned CUDA-event time because torch.profiler
+# was lost, each as its entry of the kernels line or its kernel names; the
+# kernels line says which of its times they are (ms_timing)
+EVENT_TIMED = set()
+
+
+def device_ms(fn, reps, names=None, entry=None):
     """Milliseconds of device time per fn() in the kernels whose names
     contain one of `names` (None: every kernel), from torch.profiler over
-    reps runs (so the host's dispatch between launches is not counted)."""
-    _, avg, attr = profiled(fn, reps)
+    reps runs (so the host's dispatch between launches is not counted);
+    where the card's tracer records nothing at all, the CUDA-event time
+    over reps runs (launch gaps included), logged as such and recorded in
+    EVENT_TIMED as `entry` (the kernels line's entry the time belongs to)
+    or, without one, as `names`."""
+    try:
+        _, avg, attr = profiled(fn, reps)
+    except ProfilerLost as e:
+        ms = cuda_ms(fn, reps)
+        EVENT_TIMED.add(entry or tuple(names or ()))
+        log(f'[profiler] {e}; CUDA-event time {ms:.4f} ms per call instead '
+            f'({names or "every kernel"})')
+        return ms
     total = sum(getattr(e, attr) for e in avg
                 if names is None and e.device_type.name == 'CUDA'
                 or names is not None and any(n in e.key for n in names))
@@ -2764,6 +3439,31 @@ def device_ms(fn, reps, names=None):
         return total / 1e3 / reps
     raise AssertionError(f'torch.profiler recorded no device time in '
                          f'{names or "any kernel"}')
+
+
+# the kernel names by which device_ms times each entry of the kernels
+# line, besides the calls that name the entry (K3's and K4's); K1's times
+# are CUDA-event times throughout
+TIMED_AS = {'vmax': ('vmax_kernel',), 'seeding': ('seed_kernel',),
+            'threefry': ('rng_fourier',), 'compact': ('stitch_kernel',),
+            'cape_pi': ('cape_pi_kernel',),
+            'vmax_last': ('last_sample_kernel',),
+            'genesis': ('genesis_gate_kernel',)}
+
+
+def ms_timing(name):
+    """How the times of the kernels line's entry `name` were taken: device
+    time under torch.profiler, or CUDA events (launch gaps included) for
+    K1, and for the entry's times where EVENT_TIMED holds one of its
+    measurements (then the entry says so, naming them)."""
+    if name not in TIMED_AS:
+        return 'CUDA events'
+    lost = sorted(str(k) for k in EVENT_TIMED
+                  if k == name or isinstance(k, tuple)
+                  and any(n in TIMED_AS[name] for n in k))
+    return ('device time (torch.profiler)' if not lost else
+            f'device time (torch.profiler); CUDA events where the profiler '
+            f'was lost: {", ".join(lost)}')
 
 
 def device_ops(fn, reps):
@@ -2839,8 +3539,9 @@ def kernel_times(root):
     after one more); and a torch.profiler trace of three launches
     (profile_launches: device kernels per launch, busy share, host and
     device-span ms per stage, the genesis gate's among them); prints one
-    JSON line.  Run on two trees, a parent commit and its change, in one
-    chip call, it compares the two on one card."""
+    JSON line, with the registers, stack and spills of K1's default
+    instance (k1_frame).  Run on two trees, a parent commit and its change,
+    in one chip call, it compares the two on one card."""
     import concurrent.futures
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device')
@@ -2862,7 +3563,8 @@ def kernel_times(root):
         built = [pool.submit(b) for b in (integrator.build, k4.build,
                                           k3_kernel.build, k5_kernel.build,
                                           cape_pi.build)]
-        *_, k5_lib, k6_lib = [f.result()['path'] for f in built]
+        k1_info, _, _, k5_info, k6_info = [f.result() for f in built]
+    k5_lib, k6_lib = k5_info['path'], k6_info['path']
     dev = torch.device('cuda', 0)
     cfg, _, pack_y, cfg_t = launch_setup(dev)
     plane0 = cfg.start_month - 1
@@ -2937,7 +3639,8 @@ def kernel_times(root):
             lambda: pipeline._simulate_batch(rng.key(98), pack_y, cfg_t,
                                              BASIN, N_SEEDS, 64, plane0),
             3, f'{tmp}/launches.json')
-    res = {'kernel_times': root, 'card': card_line(), 'k1': k1, 'k2': k2,
+    res = {'kernel_times': root, 'card': card_line(),
+           'k1_default_instance': k1_frame(k1_info)[0], 'k1': k1, 'k2': k2,
            'k3': k3, 'k4': k4_rows, 'k5': k5, 'k6': k6,
            'k1_modes_segment0_device_ms': k1_modes,
            'launch_ms': launch_ms[1:], 'launch_peak_mib': peak_mib,

@@ -117,9 +117,8 @@ def test_gate_params_are_the_twins_constants(packs, order):
                                                       g.dlat]))
     assert fp[14] == np.float32(1.0 - 1e-5)
     assert ip[:3].tolist() == [g.nlon, g.nlat, stacks.cell4.shape[0]]
-    swap = list(fast.deep_layer_indices(cfg)) == [2, 3, 0, 1]
-    assert ip[4] == int(swap) == integrator.steering_swap(cfg)
-    assert ip[7] == 0 and ip[8] == m
+    assert ip[4:8].tolist() == list(fast.deep_layer_indices(cfg))
+    assert ip[10] == 0 and ip[11] == m
     assert ip[-3:].tolist() == [integrator.GATE_THREADS,
                                 integrator.GATE_THREADS,
                                 -(-m // integrator.GATE_THREADS)]
@@ -134,7 +133,8 @@ def test_gate_wrapper_refuses_what_k1_refuses(packs):
     """CPU tensors (ValueError), and every option K1 raises on
     (NotImplementedError): a cell row that does not fit the stack layout
     (84 channels where land and bathymetry have a grid of their own, which
-    takes 76), three steering levels; nothing is launched or counted.
+    takes 76), four steering levels (the kernels are built for two and
+    three); nothing is launched or counted.
     Land and bathymetry on their own grids are K1's and K7's since they
     take those layouts (tests/test_torch_geo.py); fixed positions too, so
     with debug_fixed_position the wrapper refuses only the CPU tensors."""
@@ -154,7 +154,7 @@ def test_gate_wrapper_refuses_what_k1_refuses(packs):
                                      ty, tp, keep_in)
     with pytest.raises(NotImplementedError, match='steering levels'):
         integrator.genesis_gate_cuda(
-            stacks, Namelist(steering_levels=(250, 500, 850),
-                             steering_coefs=(0.3, 0.3, 0.4)), ty, tp,
+            stacks, Namelist(steering_levels=(250, 500, 700, 850),
+                             steering_coefs=(0.2, 0.2, 0.2, 0.4)), ty, tp,
             keep_in)
     assert not any(kernels.LAUNCHES.values())

@@ -126,7 +126,7 @@ def test_stacks_are_the_jax_stacks(packs):
     assert not ts.geo_in_cell and not js.geo_in_cell
     assert ts.fused_geo == js.fused_geo == (layout == 'fused')
     assert integrator.geo_layout(ts) == LAYOUTS[layout]
-    assert ts.cell4.shape[-1] == integrator.CELL_ROW[LAYOUTS[layout]]
+    assert ts.cell4.shape[-1] == integrator.cell_row(LAYOUTS[layout], 2)
     for name in ('cell4', 'land_geo4', 'bathy4'):
         np.testing.assert_array_equal(getattr(ts, name).numpy(),
                                       np.asarray(getattr(js, name)), name)
@@ -247,7 +247,7 @@ def test_kernel_params_carry_each_grid(packs):
         np.testing.assert_array_equal(f[:4], f32(stacks.grid))
         np.testing.assert_array_equal(f[-8:-4], f32(stacks.land_grid))
         np.testing.assert_array_equal(f[-4:], f32(stacks.bathy_grid))
-        assert i[12:17].tolist() == [
+        assert i[15:20].tolist() == [
             LAYOUTS[layout], stacks.land_grid.nlon, stacks.land_grid.nlat,
             stacks.bathy_grid.nlon, stacks.bathy_grid.nlat]
     # the kernels read land_geo4 in both layouts, bathy4 in the separate one

@@ -4,6 +4,7 @@ tensors the kernel dispatchers take the plain twins (no kernel is counted)
 while the kernel wrappers refuse CPU tensors instead of falling back."""
 
 import ast
+import math
 import os
 import pkgutil
 import subprocess
@@ -68,7 +69,7 @@ def test_every_cuda_source_has_a_wrapper(source):
     """Each csrc/*.cu is built by one kernel wrapper (kernels/build.py
     library), so chip_smoke.py's build phase and the main path reach it."""
     wrappers = [p for p in (PKG / 'kernels').glob('*.py')
-                if f"library('{source}')" in p.read_text()]
+                if f"library('{source}'" in p.read_text()]
     assert len(wrappers) == 1, (source, wrappers)
 
 
@@ -162,7 +163,22 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize('option', ['vmax_in_scan'])
 def test_unported_options_raise(option):
+    """The options the port once refused run now: with vmax_in_scan, a
+    DiagState carry through integrate_segment on the CPU gives the 7th
+    output leaf (vmax) and the carry's DiagState, through the plain twin
+    (nothing launched, no twin counted on CUDA)."""
     stacks, cfg, bounds, y, alive, params = _small_segment()
-    with pytest.raises(NotImplementedError, match=option):
-        simulator.integrate_segment(stacks, cfg.replace(**{option: True}),
-                                    bounds, y, alive, params, 0, 3)
+    cfg = cfg.replace(**{option: True})
+    n = y.lon.shape[0]
+    diag = simulator.DiagState(y.lon, y.lat, torch.full((n,), -math.inf))
+    kernels.reset_counts()
+    outs, carry = simulator.integrate_segment(stacks, cfg, bounds, y, alive,
+                                              params, 0, 3, diag, 2)
+    assert len(outs) == 7 and outs[6].shape == (3, n)
+    assert bool(torch.isfinite(outs[6]).all())
+    # the run's last row (t_last = 2) stays out of the running peak
+    peak = torch.where(outs[5][:2], outs[6][:2], -math.inf).amax(0)
+    assert torch.equal(carry[2].peak[carry[1]], peak[carry[1]])
+    assert torch.equal(carry[2].prev_lon, outs[0][-1])
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.NAMES, 0)
+    assert kernels.PLAIN_ON_CUDA == dict.fromkeys(kernels.NAMES, 0)

@@ -2,7 +2,7 @@
 gather plan (word sizes, words per row, block offsets, and a grid that
 writes every output byte exactly once from the row the order picks), K1's
 launch geometry (every segment width spread over the SMs, blocks within
-the kernel's __launch_bounds__) and its steering-order flag against
+the kernel's __launch_bounds__) and its deep-layer shear channels against
 fast.deep_layer_indices.  The constants the wrappers share with the CUDA
 sources are read back from csrc/.  The kernels themselves run only on the
 card (chip_smoke.py holds them against their twins)."""
@@ -170,17 +170,29 @@ def _stacks():
                            geo_in_cell=True, land_grid=grid, bathy_grid=grid)
 
 
+def _read_order(var='ip'):
+    """The targets of csrc/integrator.cu read_params' `X = *{var}++;`
+    reads, in order."""
+    src = (CSRC / 'integrator.cu').read_text()
+    body = src[src.index('void read_params('):]
+    body = body[:body.index('\n}\n')]
+    return re.findall(rf'([\w.\[\]]+) = \*{var}\+\+;', body)
+
+
 @pytest.mark.parametrize('levels', [(250, 850), (850, 250)])
 def test_k1_steering_order(levels):
-    """The kernel's flag selects the deep-layer shear components that
-    fast.deep_layer_indices names, for both orders of steering_levels, and
-    goes into the parameter block beside the launch geometry."""
+    """The deep-layer shear's four channels of fast.deep_layer_indices go
+    into the parameter block where read_params reads them, beside the
+    launch geometry; with two levels read_params derives the kernel's flag
+    from them, and csrc/integrator.cu deep_shear's flag selects the same
+    components, for both orders of steering_levels."""
     cfg = Namelist(steering_levels=levels)
-    swap = integrator.steering_swap(cfg)
+    idx = fast.deep_layer_indices(cfg)
+    swap = idx[0] == 2       # read_params: p.swap = p.iu2 == 2
     assert swap == (levels[0] == 850)
     w = np.random.default_rng(3).standard_normal((5, 4)).astype(np.float32)
-    iu2, iv2, iu8, iv8 = fast.deep_layer_indices(cfg)
-    # csrc/integrator.cu make_flow: (u2, v2, u8, v8) by the flag
+    iu2, iv2, iu8, iv8 = idx
+    # csrc/integrator.cu deep_shear: (u2, v2, u8, v8) by the flag
     u2, v2 = (w[:, 2], w[:, 3]) if swap else (w[:, 0], w[:, 1])
     u8, v8 = (w[:, 0], w[:, 1]) if swap else (w[:, 2], w[:, 3])
     np.testing.assert_array_equal(u2 - u8, w[:, iu2] - w[:, iu8])
@@ -188,7 +200,11 @@ def test_k1_steering_order(levels):
     geometry = integrator.launch_geometry(4097, H100_SMS)
     fp, ip = integrator._params(_stacks(), cfg, (0.0, -60.0, 360.0, 60.0),
                                 4097, 60, 3, 20, 0, 1.0, False, geometry)
-    assert ip[4] == swap and tuple(ip[-3:]) == geometry
+    order = _read_order()
+    at = order.index('p.iu2')
+    assert order[at:at + 4] == ['p.iu2', 'p.iv2', 'p.iu8', 'p.iv8']
+    assert tuple(ip[at:at + 4]) == idx and tuple(ip[-3:]) == geometry
+    assert ip[order.index('l.levels')] == 2
     assert fp.dtype == np.float32 and ip.dtype == np.int32
 
 
@@ -201,10 +217,7 @@ def test_k1_fixed_position_flag(fixed):
     geometry = integrator.launch_geometry(4097, H100_SMS)
     fp, ip = integrator._params(_stacks(), cfg, (0.0, -60.0, 360.0, 60.0),
                                 4097, 60, 3, 20, 0, 1.0, False, geometry)
-    src = (CSRC / 'integrator.cu').read_text()
-    body = src[src.index('void read_params('):]
-    body = body[:body.index('\n}\n')]
-    order = re.findall(r'([\w.\[\]]+) = \*ip\+\+;', body)
+    order = _read_order()
     assert len(order) == ip.size and order.index('p.fixed') == ip.size - 4
     assert ip[-4] == int(fixed) and tuple(ip[-3:]) == geometry
     _, gate_ip = integrator.gate_params(_stacks(), cfg, 1000)
@@ -212,10 +225,13 @@ def test_k1_fixed_position_flag(fixed):
 
 
 def test_k1_steering_order_refuses_other_levels():
-    with pytest.raises(NotImplementedError, match='two steering levels'):
-        integrator.steering_swap(Namelist(steering_levels=(250, 500, 850)))
+    """Four steering levels, the first count the kernels are not built
+    for, raise NotImplementedError naming the counts they take; levels
+    without 250 and 850 hPa raise fast.deep_layer_indices' ValueError."""
+    with pytest.raises(NotImplementedError, match='2 or 3 steering levels'):
+        integrator.levels(Namelist(steering_levels=(250, 500, 700, 850)))
     with pytest.raises(ValueError, match='250 and 850'):
-        integrator.steering_swap(Namelist(steering_levels=(500, 850)))
+        integrator.levels(Namelist(steering_levels=(500, 850)))
 
 
 def test_k1_fourier_phases_within_the_fast_trig_range():

@@ -31,8 +31,10 @@
 //   stitch_kernel    one thread per (survivor, output step): the segment
 //                    holding the step, the survivor's column there (its own
 //                    slot, or the segment's inverse map), the six track
-//                    fields NaN-masked where not alive, time second; and
-//                    the survivor mask put back on the slot axis.
+//                    fields NaN-masked where not alive, time second (the
+//                    W = 2 x steering levels winds as one 16-byte word at
+//                    W = 4, else as 8-byte pairs); and the survivor mask
+//                    put back on the slot axis.
 //
 // What bounds it on this card: bytes.  Each input (mask, rows, time-major
 // buffers) is read once and each output written once; the arithmetic is a
@@ -117,6 +119,7 @@ struct StitchParams {
   int n_segs;
   float* out[kFields];
   float* out_wnds;
+  int W;                    // winds per sample
   const int64_t* rank;      // may be null
   const uint8_t* keep;
   uint8_t* keep_full;
@@ -274,6 +277,8 @@ gather_kernel(const __grid_constant__ GatherParams p) {
   }
 }
 
+// kVec4: four winds per sample (one 16-byte word), else p.W as 8-byte pairs
+template <bool kVec4>
 __global__ void __launch_bounds__(kThreads)
 stitch_kernel(const __grid_constant__ StitchParams p) {
   const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
@@ -302,9 +307,17 @@ stitch_kernel(const __grid_constant__ StitchParams p) {
   const float nan = __int_as_float(0x7fc00000);
 #pragma unroll
   for (int f = 0; f < kFields; ++f) p.out[f][g] = alive ? sg.f[f][o] : nan;
-  const float4 w = __ldg(reinterpret_cast<const float4*>(sg.wnds) + o);
-  reinterpret_cast<float4*>(p.out_wnds)[g] =
-      alive ? w : make_float4(nan, nan, nan, nan);
+  if constexpr (kVec4) {
+    const float4 w = __ldg(reinterpret_cast<const float4*>(sg.wnds) + o);
+    reinterpret_cast<float4*>(p.out_wnds)[g] =
+        alive ? w : make_float4(nan, nan, nan, nan);
+  } else {
+    const int pairs = p.W / 2;
+    const float2* src = reinterpret_cast<const float2*>(sg.wnds) + o * pairs;
+    float2* dst = reinterpret_cast<float2*>(p.out_wnds) + g * pairs;
+    for (int c = 0; c < pairs; ++c)
+      dst[c] = alive ? __ldg(src + c) : make_float2(nan, nan);
+  }
 }
 
 }  // namespace
@@ -361,9 +374,9 @@ extern "C" int tc_k4_partition(const int64_t* ip, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ip: k, T, n, n_segs, order, out (lon, lat, v, m, vmax), out_wnds, rank,
-// keep, keep_full, then per segment: edge, width, the five fields, wnds,
-// alive, inv, sel
+// ip: k, T, n, n_segs, W, order, out (lon, lat, v, m, vmax), out_wnds,
+// rank, keep, keep_full, then per segment: edge, width, the five fields,
+// wnds, alive, inv, sel
 extern "C" int tc_k4_stitch(const int64_t* ip, void* stream) {
   StitchParams p;
   int q = 0;
@@ -371,7 +384,9 @@ extern "C" int tc_k4_stitch(const int64_t* ip, void* stream) {
   p.T = ip[q++];
   p.n = ip[q++];
   p.n_segs = (int)ip[q++];
-  if (p.n_segs < 1 || p.n_segs > kMaxSegs) return (int)cudaErrorInvalidValue;
+  p.W = (int)ip[q++];
+  if (p.n_segs < 1 || p.n_segs > kMaxSegs || p.W < 2 || p.W % 2 != 0)
+    return (int)cudaErrorInvalidValue;
   p.order = reinterpret_cast<const int64_t*>(ip[q++]);
   for (int f = 0; f < kFields; ++f) p.out[f] = reinterpret_cast<float*>(ip[q++]);
   p.out_wnds = reinterpret_cast<float*>(ip[q++]);
@@ -391,6 +406,7 @@ extern "C" int tc_k4_stitch(const int64_t* ip, void* stream) {
   const int64_t threads = p.k * p.T + (p.rank != nullptr ? p.n : 0);
   if (threads == 0) return (int)cudaSuccess;
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
-  stitch_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  auto kern = p.W == 4 ? stitch_kernel<true> : stitch_kernel<false>;
+  kern<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

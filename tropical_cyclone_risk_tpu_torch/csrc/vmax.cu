@@ -5,6 +5,9 @@
 // _translation_tm and :69 _vmax_from_inc, called per re-compaction segment
 // of a launch (models/pipeline.py, nine segments on the bench's launch).
 // Its plain PyTorch twin is models/diagnostics.py axi_to_max_wind_raw_plain.
+// The file's second entry, the last-sample fix of the in-scan vmax
+// (models/diagnostics.py:148 fix_last_sample; twin fix_last_sample_plain),
+// is at the end.
 //
 // Per sample (t, n) of a segment's [T, N] buffers: the centred-chord
 // translation speed on the sphere from the neighbouring rows (the samples
@@ -16,9 +19,9 @@
 // v / 2), and each storm's alive-masked lifetime peak.
 //
 // What bounds it on this card: bytes.  Per (step, storm) it reads 29 bytes
-// (lon, lat, v, the four winds, alive) and writes 4 (vmax), against ~40
-// float32 operations (a transcendental as one), far below the card's ~20
-// operations per byte.
+// (lon, lat, v, the four shear winds, alive) and writes 4 (vmax), against
+// ~40 float32 operations (a transcendental as one), far below the card's
+// ~20 operations per byte.
 //
 // Design.  A storm's samples depend on each other only through the
 // neighbouring rows and the running peak, so the pass splits T as well as
@@ -32,8 +35,11 @@
 // one is loaded before the current one is computed, so its latency leaves
 // the chain.  The extrapolation at L needs rows L and L-1, which lie in the
 // chunk that holds L or in its halo.  Every load is coalesced across the
-// storm axis; the four winds of a sample are one 16-byte load (the wrapper
-// checks the alignment).
+// storm axis.  The winds are a template argument kW = 2 x steering levels:
+// with two levels a sample's four winds are one 16-byte load; with more,
+// the deep-layer shear's two (u, v) pairs are two 8-byte loads, the other
+// levels unread (the wrapper checks the alignment and that each shear pair
+// is an aligned (u, v)).
 //
 // The peak is a reduction across the chunks of a storm: each block writes
 // its storms' alive-masked partial peaks to a [chunks, N] scratch, fences,
@@ -45,12 +51,12 @@
 //
 // Numerics: built without --use_fast_math and with -fmad=false (the zonal
 // chord differences two longitudes near 3 rad, and a contracted product
-// there moves ut by up to 1e-3 m/s); CUDA's accurate sinf / cosf / tanhf
-// (no __sinf: the zonal chord's half-step angles are tiny), IEEE sqrtf and
-// true divisions, in the twin's operation order.  The twin's torch kernels
-// divide by a Python-scalar divisor as a product with its reciprocal on the
-// card, so the two agree to a few ulps, inside the JAX package's own
-// width-dependent vmax noise (atol 1e-4).
+// there moves ut by up to 1e-3 m/s); each sample is vmaxc::vmax_at of
+// csrc/vmax_common.cuh, which K1's in-scan diagnostic shares: CUDA's
+// accurate sinf / cosf (their fast path, sincos_rad) and tanhf (no __sinf:
+// the zonal chord's half-step angles are tiny), IEEE sqrtf, and the twin's
+// products with float32 reciprocals where it divides by a Python number,
+// in the twin's operation order.
 //
 // The C entry returns cudaGetLastError() after the launch; the wrapper
 // (kernels/vmax.py) raises if it is not cudaSuccess.
@@ -58,6 +64,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "vmax_common.cuh"
 
 namespace {
 
@@ -68,52 +76,49 @@ struct Params {
   int T, N, chunk;
   int has_before, has_after;
   int iu2, iv2, iu8, iv8;         // deep-layer shear channels of the winds
-  float dt_s, km2, deg2rad;       // float32 roundings of the twin's values
+  vmaxc::Consts c;                // float32 roundings of the twin's values
 };
 
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (isnan(a) || isnan(b)) ? a + b : fminf(a, b);
-}
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
-}
-// torch.sign: 0 for a zero or NaN difference
-__device__ __forceinline__ float sgn(float d) {
-  return d > 0.0f ? 1.0f : (d < 0.0f ? -1.0f : 0.0f);
 }
 __device__ __forceinline__ float pick(float4 w, int i) {
   return i == 0 ? w.x : (i == 1 ? w.y : (i == 2 ? w.z : w.w));
 }
 
-// diagnostics._translation_tm and vmax_step for one sample at (lon, lat)
-// with neighbours b (before) and a (after); lon itself is not read
+// the deep-layer shear's winds (u250, v250, u850, v850) of sample o of a
+// [.., kW] wind buffer: one 16-byte load of all four winds at kW = 4, else
+// the two aligned (u, v) pairs
+template <int kW>
+__device__ __forceinline__ float4 shear_winds(const float* __restrict__ wnds,
+                                              int64_t o, const Params& p) {
+  if constexpr (kW == 4) {
+    const float4 w = __ldg(reinterpret_cast<const float4*>(wnds) + o);
+    return make_float4(pick(w, p.iu2), pick(w, p.iv2), pick(w, p.iu8),
+                       pick(w, p.iv8));
+  } else {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(wnds + o * kW +
+                                                           p.iu2));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(wnds + o * kW +
+                                                           p.iu8));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+}
+
+// vmax_at of one sample from its shear winds
 __device__ __forceinline__ float vmax_at(const Params& p, float lat,
                                          float b_lon, float b_lat,
                                          float a_lon, float a_lat, float v,
-                                         float4 w) {
-  const float s = cosf(lat * p.deg2rad) *
-                  fabsf(sinf((b_lon * p.deg2rad - a_lon * p.deg2rad) * 0.5f));
-  const float s2 = s * s;
-  const float hav_lon =
-      p.km2 * (s * (1.0f + s2 * (0.16666666666666666f + s2 * 0.075f)));
-  const float hav_lat =
-      p.km2 * fabsf((b_lat * p.deg2rad - a_lat * p.deg2rad) * 0.5f);
-  const float ut = (0.5f * (sgn(a_lon - b_lon) * hav_lon)) * 1000.0f / p.dt_s;
-  const float vt = (0.5f * (sgn(a_lat - b_lat) * hav_lat)) * 1000.0f / p.dt_s;
-  const float G =
-      nan_min(0.8f + 0.35f * (1.0f + tanhf((lat - 35.0f) / 10.0f)), 1.0f);
-  const float u_shr = pick(w, p.iu2) - pick(w, p.iu8);
-  const float v_shr = pick(w, p.iv2) - pick(w, p.iv8);
-  const float U = G * ut + 0.1f * u_shr * v / 15.0f;
-  const float V = G * vt + 0.1f * v_shr * v / 15.0f;
-  const float mag = sqrtf(U * U + V * V);
-  return v + nan_min(mag, 0.5f * v);
+                                         float4 s) {
+  return vmaxc::vmax_at(p.c, lat, b_lon, b_lat, a_lon, a_lat, v, s.x - s.z,
+                        s.y - s.w);
 }
 
+template <int kW>
 __global__ void __launch_bounds__(kThreads)
 vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
             const float* __restrict__ lat, const float* __restrict__ tc_v,
-            const float4* __restrict__ wnds,
+            const float* __restrict__ wnds,
             const uint8_t* __restrict__ alive,
             const int64_t* __restrict__ last,
             const float* __restrict__ before,
@@ -161,7 +166,7 @@ vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
       nxt_lat = end_lat;
     }
     float v = tc_v[t0 * N + n];
-    float4 w = wnds[t0 * N + n];
+    float4 w = shear_winds<kW>(wnds, t0 * N + n, p);
     bool live = alive[t0 * N + n] != 0;
     for (int t = t0; t < t1; ++t) {
       // row t+1's samples and row t+2's position, loaded ahead
@@ -171,7 +176,7 @@ vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
       if (t + 1 < t1) {
         const int64_t o = (int64_t)(t + 1) * N + n;
         v_n = tc_v[o];
-        w_n = wnds[o];
+        w_n = shear_winds<kW>(wnds, o, p);
         live_n = alive[o] != 0;
       }
       if (t + 2 < T && t + 1 < t1) {
@@ -234,12 +239,68 @@ vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
   if (threadIdx.x == 0) count[blockIdx.x] = 0u;
 }
 
+// The last-sample entry (diagnostics.fix_last_sample_plain): one thread per
+// storm re-derives the sample at its segment-local last step L with the
+// reference's edge extrapolation, next = pos[L] + (pos[L] - pos[L-1])
+// (pos[L-1] from pos_before where L is 0), writes vmax_L and ok (L in the
+// segment and alive there), and where ok writes vmax_L into the in-scan
+// buffer in place.  It reads one sample per storm and is bound by launch
+// latency at the launch's widths; it exists so that the vmax of the card's
+// in-scan path is vmax_at throughout.
+template <int kW>
+__global__ void __launch_bounds__(kThreads)
+last_sample_kernel(const __grid_constant__ Params p,
+                   const float* __restrict__ lon,
+                   const float* __restrict__ lat,
+                   const float* __restrict__ tc_v,
+                   const float* __restrict__ wnds,
+                   const uint8_t* __restrict__ alive,
+                   const int64_t* __restrict__ last,
+                   const float* __restrict__ before,
+                   float* __restrict__ vmax, float* __restrict__ vmax_L,
+                   uint8_t* __restrict__ ok) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= p.N) return;
+  const int64_t N = p.N, T = p.T, L = last[n];
+  const int64_t Lc = min(max(L, (int64_t)0), T - 1);
+  const int64_t Lm1 = min(max(L - 1, (int64_t)0), T - 1);
+  const float lon_L = lon[Lc * N + n], lat_L = lat[Lc * N + n];
+  float lon_P = lon[Lm1 * N + n], lat_P = lat[Lm1 * N + n];
+  if (p.has_before && L == 0) {
+    lon_P = before[n];
+    lat_P = before[N + n];
+  }
+  const float vm = vmax_at(p, lat_L, lon_P, lat_P, lon_L + (lon_L - lon_P),
+                           lat_L + (lat_L - lat_P), tc_v[Lc * N + n],
+                           shear_winds<kW>(wnds, Lc * N + n, p));
+  const bool good = L >= 0 && L < T && alive[Lc * N + n] != 0;
+  vmax_L[n] = vm;
+  ok[n] = good;
+  if (good) vmax[Lc * N + n] = vm;
+}
+
+// the shared parameter block of both entries; false if it is not valid
+bool read_params(const int* ip, const float* fp, Params* p) {
+  p->T = ip[0]; p->N = ip[1]; p->chunk = ip[2];
+  p->has_before = ip[3]; p->has_after = ip[4];
+  p->iu2 = ip[5]; p->iv2 = ip[6]; p->iu8 = ip[7]; p->iv8 = ip[8];
+  p->c = vmaxc::Consts{fp[0], fp[1], fp[2]};
+  const int W = ip[12];
+  if (W != 4 && W != 6) return false;
+  const int shear[4] = {p->iu2, p->iv2, p->iu8, p->iv8};
+  for (int i : shear)
+    if (i < 0 || i >= W) return false;
+  // the pairs of the 8-byte loads
+  return W == 4 || (p->iu2 % 2 == 0 && p->iv2 == p->iu2 + 1 &&
+                    p->iu8 % 2 == 0 && p->iv8 == p->iu8 + 1);
+}
+
 }  // namespace
 
 // ip: T, N, chunk, has_before, has_after, iu2, iv2, iu8, iv8, threads,
-// storm blocks, chunks; fp: dt_s, km2, deg2rad.  partial [chunks, N] and
-// count [storm blocks] (zeroed) are the wrapper's scratch, unread with one
-// chunk.
+// storm blocks, chunks, W; fp: 1 / dt_s, km2, deg2rad.  partial [chunks, N]
+// and count [storm blocks] (zeroed) are the wrapper's scratch, unread with
+// one chunk.
 extern "C" int tc_vmax(const int* ip, const float* fp, const float* lon,
                        const float* lat, const float* tc_v, const float* wnds,
                        const uint8_t* alive, const int64_t* last,
@@ -247,21 +308,38 @@ extern "C" int tc_vmax(const int* ip, const float* fp, const float* lon,
                        float* peak, float* partial, unsigned* count,
                        void* stream) {
   Params p;
-  p.T = ip[0]; p.N = ip[1]; p.chunk = ip[2];
-  p.has_before = ip[3]; p.has_after = ip[4];
-  p.iu2 = ip[5]; p.iv2 = ip[6]; p.iu8 = ip[7]; p.iv8 = ip[8];
+  const bool ok = read_params(ip, fp, &p);
   const int threads = ip[9], sblocks = ip[10], chunks = ip[11];
-  p.dt_s = fp[0]; p.km2 = fp[1]; p.deg2rad = fp[2];
-  if (p.T < 1 || p.N < 1 || p.chunk < 1 || threads < 32 ||
+  if (!ok || p.T < 1 || p.N < 1 || p.chunk < 1 || threads < 32 ||
       threads > kThreads || threads % 32 != 0 ||
       (int64_t)sblocks * threads < p.N || chunks < 1 ||
       chunks > kMaxChunks || (int64_t)chunks * p.chunk < p.T ||
-      (int64_t)(chunks - 1) * p.chunk >= p.T ||
-      (p.T < 2 && !p.has_before) || (unsigned)p.iu2 > 3u ||
-      (unsigned)p.iv2 > 3u || (unsigned)p.iu8 > 3u || (unsigned)p.iv8 > 3u)
+      (int64_t)(chunks - 1) * p.chunk >= p.T || (p.T < 2 && !p.has_before))
     return (int)cudaErrorInvalidValue;
-  vmax_kernel<<<dim3(sblocks, chunks), threads, 0, (cudaStream_t)stream>>>(
-      p, lon, lat, tc_v, reinterpret_cast<const float4*>(wnds), alive, last,
-      before, after, vmax, peak, partial, count);
+  auto kern = ip[12] == 4 ? vmax_kernel<4> : vmax_kernel<6>;
+  kern<<<dim3(sblocks, chunks), threads, 0, (cudaStream_t)stream>>>(
+      p, lon, lat, tc_v, wnds, alive, last, before, after, vmax, peak,
+      partial, count);
+  return (int)cudaGetLastError();
+}
+
+// The last-sample entry on the parameter block of tc_vmax (chunk, has_after
+// and the storm blocks by chunks unread; threads per block and blocks of
+// storms): vmax [T, N] updated in place, vmax_L [N], ok [N].
+extern "C" int tc_vmax_last(const int* ip, const float* fp, const float* lon,
+                            const float* lat, const float* tc_v,
+                            const float* wnds, const uint8_t* alive,
+                            const int64_t* last, const float* before,
+                            float* vmax, float* vmax_L, uint8_t* ok,
+                            void* stream) {
+  Params p;
+  const bool good = read_params(ip, fp, &p);
+  const int threads = ip[9], blocks = ip[10];
+  if (!good || p.T < 1 || p.N < 1 || threads < 32 || threads > kThreads ||
+      threads % 32 != 0 || (int64_t)blocks * threads < p.N)
+    return (int)cudaErrorInvalidValue;
+  auto kern = ip[12] == 4 ? last_sample_kernel<4> : last_sample_kernel<6>;
+  kern<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      p, lon, lat, tc_v, wnds, alive, last, before, vmax, vmax_L, ok);
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,11 @@
 
 - ``integrator`` (K1): the fused track integrator, CUDA C++ for sm_90a
   (csrc/integrator.cu), with land and bathymetry in the cell row or on
-  grids of their own.
+  grids of their own, two or three steering levels, and the in-scan vmax.
 - ``vmax`` (K2): the vmax diagnostic pass, CUDA C++ for sm_90a
   (csrc/vmax.cu).
+- ``vmax_last``: K2's second entry, the in-scan vmax's re-derivation of
+  each track's final sample (csrc/vmax.cu).
 - ``seeding`` (K3): genesis seeding in one launch, lazily drawn proposal
   rounds shared over each warp's lanes, the stream keys derived on the
   card, CUDA C++ for sm_90a (csrc/seeding.cu).
@@ -29,7 +31,7 @@ twin).
 """
 
 NAMES = ('integrator', 'vmax', 'seeding', 'threefry', 'compact', 'cape_pi',
-         'genesis')
+         'genesis', 'vmax_last')
 LAUNCHES = dict.fromkeys(NAMES, 0)
 PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
 

@@ -3,9 +3,11 @@
 Each library has a plain C interface (no PyTorch headers), which keeps a
 build to seconds; the wrappers bind it with ctypes.  It goes to ``build/``
 at the repository root, named by a hash of the source, every header of
-csrc/ and the flags, so a changed source or shared header is rebuilt and a
-built one is reused.  Different sources build independently, so callers
-may build them in parallel threads.
+csrc/, the flags and the unit's definitions, so a changed source or shared
+header is rebuilt and a built one is reused.  A source may build into
+several libraries, one per set of preprocessor definitions (K1's units of
+a steering-level count and the in-scan vmax).  Different libraries build
+independently, so callers may build them in parallel threads.
 """
 
 from __future__ import annotations
@@ -39,21 +41,24 @@ def _nvcc() -> str:
 
 
 @functools.cache
-def library(name: str) -> dict:
-    """Compile csrc/{name}.cu if it is not built yet.  Returns {'path',
-    'seconds', 'log'}: the library, the build time (0 when it was already
-    built) and nvcc's register/spill report."""
+def library(name: str, defines: tuple = ()) -> dict:
+    """Compile csrc/{name}.cu with the definitions ((macro, value), ...) if
+    it is not built yet.  Returns {'path', 'seconds', 'log'}: the library,
+    the build time (0 when it was already built) and nvcc's register/spill
+    report."""
     source = PKG / 'csrc' / f'{name}.cu'
     headers = sorted((PKG / 'csrc').glob('*.cuh'))
+    flags = NVCC_FLAGS + tuple(f'-D{k}={v}' for k, v in defines)
     tag = hashlib.sha256(b''.join(p.read_bytes() for p in [source, *headers])
-                         + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f'libtc_{name}_{tag}.so'
+                         + ' '.join(flags).encode()).hexdigest()[:16]
+    unit = ''.join(f'_{v}' for _, v in defines)
+    out = BUILD_DIR / f'libtc_{name}{unit}_{tag}.so'
     if out.exists():
         return {'path': out, 'seconds': 0.0, 'log': ''}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
     t0 = time.perf_counter()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(source)],
+    res = subprocess.run([_nvcc(), *flags, '-o', str(tmp), str(source)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f'nvcc failed on {source.name} '

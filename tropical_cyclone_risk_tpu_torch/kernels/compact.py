@@ -183,14 +183,18 @@ def _stitch(dev, order, tms, segs, keep, slot_rank):
     scalar, wnd = FIELDS[:-1], FIELDS[-1]
     T = sum(tm[scalar[0]].shape[0] for tm in tms)
     f32 = dict(dtype=torch.float32, device=dev)
+    W = tms[0][wnd].shape[-1]
+    if W < 2 or W % 2:
+        raise ValueError(f'{W} winds per sample: the stitch copies (u, v) '
+                         f'pairs')
     out = {f: torch.empty((k, T), **f32) for f in scalar}
-    out[wnd] = torch.empty((k, T, 4), **f32)
+    out[wnd] = torch.empty((k, T, W), **f32)
     keep_full = keep
     if slot_rank is not None:
         n = slot_rank.shape[0]
         _need('slot_rank', slot_rank, dev, torch.int64, (n,))
         keep_full = torch.empty((n,), dtype=torch.bool, device=dev)
-    ip = [k, T, 0 if slot_rank is None else slot_rank.shape[0], len(tms),
+    ip = [k, T, 0 if slot_rank is None else slot_rank.shape[0], len(tms), W,
           order.data_ptr(), *(out[f].data_ptr() for f in FIELDS),
           _ptr(slot_rank), keep.data_ptr(),
           0 if slot_rank is None else keep_full.data_ptr()]
@@ -200,10 +204,11 @@ def _stitch(dev, order, tms, segs, keep, slot_rank):
         for f in scalar:
             _need(f'segment {i} {f}', tm[f], dev, torch.float32, (T_s, w_s))
         _need(f'segment {i} {wnd}', tm[wnd], dev, torch.float32,
-              (T_s, w_s, 4))
+              (T_s, w_s, W))
         _need(f'segment {i} alive', tm['alive'], dev, torch.bool, (T_s, w_s))
-        if tm[wnd].data_ptr() % 16:
-            raise ValueError(f'segment {i} {wnd}: not 16-byte aligned')
+        if tm[wnd].data_ptr() % (16 if W == 4 else 8):
+            raise ValueError(f'segment {i} {wnd}: not aligned for its '
+                             f'{16 if W == 4 else 8}-byte loads')
         inv = sel = None
         if i > 0:
             inv, sel = segs[i - 1]['inv'], segs[i - 1]['selected']

@@ -13,6 +13,11 @@ the storms' Fourier rows with w_n from ops/fourier._omega.  The launch's
 shape follows the segment's width and the card's SM count
 (launch_geometry).
 
+The source builds into one library per unit: a steering-level count of
+LEVELS_TAKEN, with or without the in-scan vmax (Namelist.vmax_in_scan,
+the DiagState carry of models/simulator.py); the launch takes the unit of
+its configuration.
+
 K7, the genesis gate (genesis_gate_cuda), is the file's second kernel:
 the step-0 keep mask from K1's gather, Cholesky and coloring at t = 0.
 Its plain twin is models/simulator.py genesis_alive_plain.
@@ -32,7 +37,7 @@ from tropical_cyclone_risk_tpu_torch.kernels import build as kbuild
 from tropical_cyclone_risk_tpu_torch.models import fast
 from tropical_cyclone_risk_tpu_torch.ops import fourier
 
-N_POINTERS = 24          # device pointers of tc_integrate_segment
+N_POINTERS = 31          # device pointers of tc_integrate_segment
 MAX_SUB = 8              # csrc/integrator.cu kMaxSub
 MAX_THREADS = 64         # csrc/integrator.cu kMaxThreads (__launch_bounds__)
 GATE_THREADS = 128       # csrc/integrator.cu kGateThreads (K7)
@@ -40,25 +45,45 @@ GATE_POINTERS = 9        # device pointers of tc_genesis_gate
 # csrc/integrator.cu sincos_rad: CUDA's sinf/cosf fast path below this |x|
 FAST_TRIG_LIMIT = 105615.0
 WARP = 32
-# fast.deep_layer_indices of the two steering orders -> the kernel's flag
-STEERING_SWAP = {(0, 1, 2, 3): 0, (2, 3, 0, 1): 1}
-# csrc/integrator.cu's stack layouts (kInCell, kFusedGeo, kSeparateGeo) and
-# the channels of each layout's cell row (21 or 19 channels x 4 corners)
+# the steering-level counts csrc/integrator.cu is built for (TC_K1_LEVELS)
+LEVELS_TAKEN = (2, 3)
+# csrc/integrator.cu's stack layouts (kInCell, kFusedGeo, kSeparateGeo)
 IN_CELL, FUSED_GEO, SEPARATE_GEO = 0, 1, 2
-CELL_ROW = {IN_CELL: 84, FUSED_GEO: 76, SEPARATE_GEO: 76}
 
 
-def build() -> dict:
-    """Build (or find) the kernel library; see kernels/build.py."""
-    return kbuild.library('integrator')
+def wind_channels(levels: int) -> int:
+    """Wind-stat channels of `levels` steering levels: 2 L means and the
+    2 L (2 L + 1) / 2 packed lower-triangle covariance entries."""
+    W = 2 * levels
+    return W + W * (W + 1) // 2
+
+
+def cell_row(layout: int, levels: int) -> int:
+    """Floats of a corner-packed cell row (csrc/integrator.cu Ch): the wind
+    statistics, five env channels and, in the cell, land and bathymetry,
+    times four corners (84 or 76 at two levels, 136 or 128 at three)."""
+    return 4 * (wind_channels(levels) + (7 if layout == IN_CELL else 5))
+
+
+def units():
+    """Every (levels, diag) unit of csrc/integrator.cu."""
+    return tuple((lv, d) for lv in LEVELS_TAKEN for d in (False, True))
+
+
+def build(levels: int = 2, diag: bool = False) -> dict:
+    """Build (or find) the library of one unit; see kernels/build.py."""
+    return kbuild.library('integrator', (('TC_K1_LEVELS', int(levels)),
+                                         ('TC_K1_DIAG', int(diag))))
 
 
 @functools.cache
-def _lib():
-    lib = ctypes.CDLL(str(build()['path']))
+def _lib(levels: int = 2, diag: bool = False):
+    lib = ctypes.CDLL(str(build(levels, diag)['path']))
     lib.tc_integrate_segment.argtypes = [ctypes.c_void_p] * (
         2 + N_POINTERS + 1)
     lib.tc_integrate_segment.restype = ctypes.c_int
+    if diag:
+        return lib
     lib.tc_k1_trig_check.argtypes = [ctypes.c_uint32, ctypes.c_uint32] + [
         ctypes.c_void_p] * 3
     lib.tc_k1_trig_check.restype = ctypes.c_int
@@ -88,14 +113,17 @@ def launch_geometry(width: int, n_sm: int):
     return per, threads, -(-width // per)
 
 
-def steering_swap(cfg: Namelist) -> int:
-    """The kernel's steering-order flag: 0 for steering_levels (250, 850),
-    1 for (850, 250) (fast.deep_layer_indices (2, 3, 0, 1))."""
-    idx = tuple(fast.deep_layer_indices(cfg))
-    if idx not in STEERING_SWAP:
-        raise NotImplementedError('the integrator kernel takes two '
-                                  f'steering levels, got {idx}')
-    return STEERING_SWAP[idx]
+def levels(cfg: Namelist) -> int:
+    """cfg's steering-level count, one of LEVELS_TAKEN; raises for the
+    counts fast.deep_layer_indices refuses (ValueError) and for those the
+    kernels are not built for (NotImplementedError)."""
+    fast.deep_layer_indices(cfg)
+    n = cfg.n_steering_levels
+    if n not in LEVELS_TAKEN:
+        raise NotImplementedError(f'the integrator kernel takes '
+                                  f'{" or ".join(map(str, LEVELS_TAKEN))} '
+                                  f'steering levels, got {n}')
+    return n
 
 
 def trig_check(lo: int, count: int, device) -> tuple:
@@ -149,11 +177,16 @@ def _omega(T_s: float, analytic: bool) -> tuple:
 
 def _params(stacks, cfg: Namelist, bounds, m: int, n_steps: int,
             stride: int, n_blocks: int, k0: int, T_s: float,
-            analytic: bool, geometry):
+            analytic: bool, geometry, diag: bool = False, t_last: int = -1):
     """The kernel's scalar parameters, each float the float32 rounding of
-    the constant the plain twin uses (see csrc/integrator.cu Params); the
-    land and bathymetry grids are the stacks' own (the cell grid's in the
-    in-cell layout, which does not read them)."""
+    the constant the plain twin uses (see csrc/integrator.cu Params and
+    read_params): the per-level steering coefficients, the deep-layer
+    shear's four channels, the unit (levels, diag), the run's last sample
+    t_last of the in-scan vmax, and the float32 reciprocal of the output
+    interval that vmax_at multiplies by; the land and bathymetry grids are
+    the stacks' own (the cell grid's in the in-cell layout, which does not
+    read them)."""
+    from tropical_cyclone_risk_tpu_torch.models.diagnostics import KM2
     g, gl, gb = stacks.grid, stacks.land_grid, stacks.bathy_grid
     dt_out = float(cfg.output_interval_s)
     sub = max(1, int(cfg.rk_substeps))
@@ -172,14 +205,15 @@ def _params(stacks, cfg: Namelist, bounds, m: int, n_steps: int,
           *cfg.y_alpha, *cfg.m_alpha, *cfg.alpha_min, *cfg.alpha_max,
           *cfg.steering_coefs, *omega,
           fast.SECONDS_PER_MONTH, dt_out,
+          np.float32(1.0) / np.float32(dt_out), KM2,
           gl.lon0, gl.dlon, gl.lat0, gl.dlat,
           gb.lon0, gb.dlon, gb.lat0, gb.dlat]
     ip = [g.nlon, g.nlat, stacks.cell4.shape[0], int(cfg.coupled_track),
-          steering_swap(cfg), stride, n_blocks, n_steps, m,
+          *fast.deep_layer_indices(cfg), stride, n_blocks, n_steps, m,
           k0, sub, int(cfg.rk_exact_stage_fields), geo_layout(stacks),
           gl.nlon, gl.nlat, gb.nlon, gb.nlat,
-          int(cfg.time_interp_fields), int(analytic),
-          int(cfg.debug_fixed_position), *geometry]
+          int(cfg.time_interp_fields), int(analytic), levels(cfg),
+          int(diag), t_last, int(cfg.debug_fixed_position), *geometry]
     return (np.array([_f32(x) for x in fp], np.float32),
             np.array(ip, np.int32))
 
@@ -189,19 +223,23 @@ def _check(stacks, cfg: Namelist, tensors: dict, m: int, n_steps: int):
     NotImplementedError, tensors that are not on CUDA or not of the
     kernel's type, layout and shape raise ValueError."""
     layout = geo_layout(stacks)
-    if (cfg.n_wind_levels != 4 or stacks.n_wind_ch != 14
-            or stacks.cell4.shape[-1] != CELL_ROW[layout]):
-        raise NotImplementedError(f'the integrator kernel takes two '
-                                  f'steering levels ({CELL_ROW[layout]}-'
-                                  f'channel cell rows)')
+    lv = levels(cfg)
+    row = cell_row(layout, lv)
+    if (stacks.n_wind_ch != wind_channels(lv)
+            or stacks.cell4.shape[-1] != row):
+        raise NotImplementedError(f'the integrator kernel takes {row}-'
+                                  f'channel cell rows at {lv} steering '
+                                  f'levels in this stack layout, got '
+                                  f'{stacks.cell4.shape[-1]}')
     if not 1 <= int(cfg.rk_substeps) <= MAX_SUB:
         raise NotImplementedError(f'the integrator kernel takes 1 to '
                                   f'{MAX_SUB} RK4 substeps')
     dev = stacks.cell4.device
     if dev.type != 'cuda':
         raise ValueError(f'integrator kernel needs CUDA tensors, got {dev}')
-    rows = (m, 4, fourier.N_FOURIER)
-    shapes = {'cell4': None, 'f_all': (n_steps, m, 4), 'A': rows, 'B': rows,
+    W = cfg.n_wind_levels
+    rows = (m, W, fourier.N_FOURIER)
+    shapes = {'cell4': None, 'f_all': (n_steps, m, W), 'A': rows, 'B': rows,
               'geo4': (stacks.land_grid.nlat, stacks.land_grid.nlon,
                        8 if layout == FUSED_GEO else 4),
               'bathy4': (stacks.bathy_grid.nlat, stacks.bathy_grid.nlon, 4)}
@@ -220,21 +258,24 @@ def _check(stacks, cfg: Namelist, tensors: dict, m: int, n_steps: int):
 
 def integrate_segment_cuda(stacks, cfg: Namelist, bounds, y0, alive0,
                            params: fast.SeedParams, k0: int, n_steps: int,
-                           f_all, stride: int, n_blocks: int):
-    """Launch K1 for samples k0 .. k0+n_steps-1.  f_all [n_steps, m, 4] is
+                           f_all, stride: int, n_blocks: int, diag=None,
+                           t_last: int = -1):
+    """Launch K1 for samples k0 .. k0+n_steps-1.  f_all [n_steps, m, W] is
     F(t) on the segment's sample times, or None where the mode evaluates
     F(t) in the kernel from params.fourier (rk_exact_stage_fields,
     rk_substeps > 1).  Returns ((lon, lat, v, m, wnds, alive) time-major,
-    (y_end, alive_end)) as models/simulator.py integrate_segment_plain."""
+    (y_end, alive_end)) as models/simulator.py integrate_segment_plain;
+    with a DiagState diag, (lon, lat, v, m, wnds, alive, vmax) and
+    (y_end, alive_end, diag_end)."""
     launch, result = launcher(stacks, cfg, bounds, y0, alive0, params, k0,
-                              n_steps, f_all, stride, n_blocks)
+                              n_steps, f_all, stride, n_blocks, diag, t_last)
     launch()
     return result
 
 
 def launcher(stacks, cfg: Namelist, bounds, y0, alive0,
              params: fast.SeedParams, k0: int, n_steps: int, f_all,
-             stride: int, n_blocks: int):
+             stride: int, n_blocks: int, diag=None, t_last: int = -1):
     """(launch, result): a function that launches K1 on these inputs (as
     integrate_segment_cuda), writing the tensors of ``result``.  The
     checks, the outputs, the launch shape and the parameter block are made
@@ -247,23 +288,33 @@ def launcher(stacks, cfg: Namelist, bounds, y0, alive0,
            'alive0': alive0,
            'plane': params.plane.to(torch.int32).contiguous(),
            'h_bl': params.h_bl}
-    _check(stacks, cfg, ins, m, n_steps)
+    # the in-scan vmax carry, in the pointer list after the end state
+    d_ins = dict(zip(('prev_lon', 'prev_lat', 'peak'),
+                     diag if diag is not None else (None,) * 3))
+    _check(stacks, cfg, {**ins, **d_ins}, m, n_steps)
     dev = stacks.cell4.device
     f32 = dict(dtype=torch.float32, device=dev)
     out = [torch.empty((n_steps, m), **f32) for _ in range(4)]
-    out += [torch.empty((n_steps, m, 4), **f32),
+    out += [torch.empty((n_steps, m, cfg.n_wind_levels), **f32),
             torch.empty((n_steps, m), dtype=torch.bool, device=dev)]
     end = [torch.empty((m,), **f32) for _ in range(4)]
     end += [torch.empty((m,), dtype=torch.bool, device=dev)]
-    result = tuple(out), (fast.State(*end[:4]), end[4])
+    carry = (fast.State(*end[:4]), end[4])
+    d_out = [None] * 4          # vmax and the DiagState at the end
+    if diag is not None:
+        d_out = [torch.empty((n_steps, m), **f32)]
+        d_out += [torch.empty((m,), **f32) for _ in range(3)]
+        carry += (type(diag)(*d_out[1:]),)
+    result = tuple(out) + tuple(d_out[:1] if diag is not None else ()), carry
     if m == 0:
         return (lambda: None), result
     geometry = launch_geometry(m, _sm_count(dev.index))
     fp, ip = _params(stacks, cfg, bounds, m, n_steps, stride, n_blocks, k0,
-                     fs.T_s, f_all is None, geometry)
+                     fs.T_s, f_all is None, geometry, diag is not None,
+                     t_last)
     ptrs = [0 if t is None else t.data_ptr()
-            for t in list(ins.values()) + out + end]
-    entry = _lib().tc_integrate_segment
+            for t in [*ins.values(), *out, *end, *d_ins.values(), *d_out]]
+    entry = _lib(levels(cfg), diag is not None).tc_integrate_segment
 
     def launch():
         with torch.cuda.device(dev):
@@ -317,7 +368,7 @@ def gate_launcher(stacks, cfg: Namelist, y0, params: fast.SeedParams,
     ptrs = [0 if t is None else t.data_ptr()
             for name, t in ins.items() if name != 'f_all']
     ptrs.append(keep.data_ptr())
-    entry = _lib().tc_genesis_gate
+    entry = _lib(levels(cfg)).tc_genesis_gate
 
     def launch():
         with torch.cuda.device(dev):

@@ -25,7 +25,7 @@ MODES = {'bits': (0, torch.int64), 'uniform': (1, torch.float32),
          'normal': (2, torch.float32), 'randint': (3, torch.int32)}
 TWO_PI_F32 = float(np.float32(2 * math.pi))
 N_FOURIER = 15          # csrc/rng.cu kNF
-ROW_CHANNELS = 4        # csrc/rng.cu kRowCh: channels of the rows entry
+ROW_CHANNELS = (4, 6)   # csrc/rng.cu's row-entry instances: wind channels
 PHASES = 1 << 23        # uniforms on [0, 1): the float32 mantissas
 INT32_MAX = 2 ** 31 - 1
 
@@ -48,7 +48,8 @@ def _entries():
     four.argtypes = [u32, u32, i64, ptr, f32, ptr, ptr, ptr]
     four.restype = ctypes.c_int
     rows = lib.tc_rng_fourier_rows
-    rows.argtypes = [u32, u32, i64, ptr, ptr, f32, ptr, ptr, ptr]
+    rows.argtypes = [u32, u32, i64, ctypes.c_int, ptr, ptr, f32, ptr, ptr,
+                     ptr]
     rows.restype = ctypes.c_int
     table = lib.tc_rng_phase_table
     table.argtypes = [f32, ptr, ptr, ptr]
@@ -127,15 +128,17 @@ def fourier_cuda(key, shape, amp: torch.Tensor):
 
 
 def fourier_rows_cuda(key, shape, rows: torch.Tensor, amp: torch.Tensor):
-    """Launch K5's row entry: (A, B) [k, 4, 15], row j the draw of
+    """Launch K5's row entry: (A, B) [k, C, 15], row j the draw of
     ``fourier_cuda(key, shape, amp)`` at source row rows[j], without the
-    full draw.  shape: (n, 4); rows [k] int64 on the card, each in [0, n)
-    (not checked on the card: the caller's partition order)."""
-    dev = _amp(amp)
+    full draw.  shape: (n, C), C the wind channels, one of ROW_CHANNELS
+    (NotImplementedError otherwise); rows [k] int64 on the card, each in
+    [0, n) (not checked on the card: the caller's partition order)."""
     n, C = (int(s) for s in shape)
-    if C != ROW_CHANNELS:
+    if C not in ROW_CHANNELS:
         raise NotImplementedError(f'the Fourier row entry takes '
-                                  f'{ROW_CHANNELS} channels, got {C}')
+                                  f'{ROW_CHANNELS} wind channels (two or '
+                                  f'three steering levels), got {C}')
+    dev = _amp(amp)
     if rows.device != dev or rows.dtype != torch.int64 or rows.dim() != 1 \
             or not rows.is_contiguous():
         raise ValueError(f'rows: need a contiguous 1-D int64 tensor on '
@@ -153,7 +156,7 @@ def fourier_rows_cuda(key, shape, rows: torch.Tensor, amp: torch.Tensor):
     entry = _entries()[2]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = entry(key[0], key[1], A.numel(), rows.data_ptr(),
+        err = entry(key[0], key[1], A.numel(), C, rows.data_ptr(),
                     amp.data_ptr(), TWO_PI_F32, A.data_ptr(), B.data_ptr(),
                     stream)
     _check(err, 'fourier rows')

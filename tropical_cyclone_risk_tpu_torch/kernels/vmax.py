@@ -6,7 +6,10 @@ The kernel replaces the JAX package's XLA-fused vmax pass
 the source.  Its plain twin is models/diagnostics.py
 axi_to_max_wind_raw_plain.  The launch is a 2-D grid of storm blocks by
 chunks of rows whose shape follows the segment's length, width and the
-card's SM count (launch_geometry).
+card's SM count (launch_geometry).  The source's second entry, the in-scan
+vmax's last-sample fix (fix_last_sample_cuda), has the twin
+diagnostics.fix_last_sample_plain.  Both take winds of W_TAKEN components
+(two or three steering levels).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from tropical_cyclone_risk_tpu_torch import kernels
 from tropical_cyclone_risk_tpu_torch.kernels import build as kbuild
 
 N_POINTERS = 12          # device pointers of tc_vmax
+LAST_POINTERS = 10       # device pointers of tc_vmax_last
+W_TAKEN = (4, 6)         # csrc/vmax.cu's instances: winds per sample
 THREADS = 128            # csrc/vmax.cu kThreads (__launch_bounds__)
 MAX_CHUNKS = 65535       # csrc/vmax.cu kMaxChunks (gridDim.y)
 WARP = 32
@@ -40,6 +45,8 @@ def _lib():
     lib = ctypes.CDLL(str(build()['path']))
     lib.tc_vmax.argtypes = [ctypes.c_void_p] * (2 + N_POINTERS + 1)
     lib.tc_vmax.restype = ctypes.c_int
+    lib.tc_vmax_last.argtypes = [ctypes.c_void_p] * (2 + LAST_POINTERS + 1)
+    lib.tc_vmax_last.restype = ctypes.c_int
     return lib
 
 
@@ -70,6 +77,43 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f'{name}: shape {tuple(t.shape)} != {tuple(shape)}')
 
 
+def _check_winds(env_wnds, T, N, shear_channels, dev):
+    """The winds [T, N, W] the kernels read: W one of W_TAKEN, the shear
+    channels the deep-layer (u, v) pairs among them, aligned for the
+    kernels' loads (16 bytes for four winds, 8 for each pair)."""
+    W = env_wnds.shape[-1] if env_wnds.dim() == 3 else -1
+    if W not in W_TAKEN:
+        raise NotImplementedError(f'the vmax kernels take {W_TAKEN} winds '
+                                  f'per sample, got {tuple(env_wnds.shape)}')
+    _check('env_wnds', env_wnds, torch.float32, (T, N, W), dev)
+    iu2, iv2, iu8, iv8 = shear_channels
+    if not (all(0 <= i < W for i in shear_channels) and iu2 % 2 == 0
+            and iu8 % 2 == 0 and iv2 == iu2 + 1 and iv8 == iu8 + 1
+            and iu2 != iu8):
+        raise ValueError(f'shear channels {shear_channels} are not two '
+                         f'(u, v) pairs of the {W} winds')
+    align = 16 if W == 4 else 8
+    if env_wnds.data_ptr() % align:
+        raise ValueError(f'env_wnds: the kernels read the shear winds as '
+                         f'{align}-byte loads; need that alignment')
+    return W
+
+
+def _block(T, N, chunk, pos_before, pos_after, shear_channels, geometry,
+           W, dt_track):
+    """The parameter blocks (ip, fp) of csrc/vmax.cu read_params: fp holds
+    the float32 reciprocal of the output interval, as torch multiplies by
+    it where the twin divides by it."""
+    from tropical_cyclone_risk_tpu_torch.models.diagnostics import (
+        DEG2RAD, KM2)
+    ip = np.array([T, N, chunk, pos_before is not None,
+                   pos_after is not None, *shear_channels, *geometry, W],
+                  np.int32)
+    fp = np.array([np.float32(1.0) / np.float32(dt_track), KM2, DEG2RAD],
+                  np.float32)
+    return ip, fp
+
+
 def axi_to_max_wind_raw_cuda(lon, lat, dt_track, tc_v, env_wnds, alive,
                              last_step, shear_channels, pos_before=None,
                              pos_after=None):
@@ -89,8 +133,6 @@ def launcher(lon, lat, dt_track, tc_v, env_wnds, alive, last_step,
     outputs, the scratch and the parameter block are made here, once, so
     that repeated launches time the kernel alone (the kernel leaves its
     counters at zero)."""
-    from tropical_cyclone_risk_tpu_torch.models.diagnostics import (
-        DEG2RAD, KM2)
     dev = lon.device
     if dev.type != 'cuda':
         raise ValueError(f'vmax kernel needs CUDA tensors, got {dev}')
@@ -98,10 +140,7 @@ def launcher(lon, lat, dt_track, tc_v, env_wnds, alive, last_step,
     f32 = torch.float32
     for name, t in (('lon', lon), ('lat', lat), ('tc_v', tc_v)):
         _check(name, t, f32, (T, N), dev)
-    _check('env_wnds', env_wnds, f32, (T, N, 4), dev)
-    if env_wnds.data_ptr() % 16:
-        raise ValueError('env_wnds: the kernel reads each sample\'s four '
-                         'winds as one 16-byte load; need 16-byte alignment')
+    W = _check_winds(env_wnds, T, N, shear_channels, dev)
     _check('alive', alive, torch.bool, (T, N), dev)
     last = last_step.to(torch.int64).contiguous()
     _check('last_step', last, torch.int64, (N,), dev)
@@ -110,9 +149,6 @@ def launcher(lon, lat, dt_track, tc_v, env_wnds, alive, last_step,
             _check(name, p, f32, (2, N), dev)
     if T < 1 or (T < 2 and pos_before is None):
         raise ValueError('the start-edge extrapolation needs two rows')
-    if sorted(shear_channels) != [0, 1, 2, 3]:
-        raise ValueError(f'shear channels {shear_channels} are not the '
-                         f'four winds')
     vmax = torch.empty((T, N), dtype=f32, device=dev)
     peak = torch.empty((N,), dtype=f32, device=dev)
     if N == 0:
@@ -123,10 +159,8 @@ def launcher(lon, lat, dt_track, tc_v, env_wnds, alive, last_step,
                           device=dev)
     count = torch.zeros((blocks if chunks > 1 else 0,), dtype=torch.int32,
                         device=dev)
-    ip = np.array([T, N, chunk, pos_before is not None,
-                   pos_after is not None, *shear_channels, threads, blocks,
-                   chunks], np.int32)
-    fp = np.array([dt_track, KM2, DEG2RAD], np.float32)
+    ip, fp = _block(T, N, chunk, pos_before, pos_after, shear_channels,
+                    (threads, blocks, chunks), W, dt_track)
     ptrs = [t.data_ptr() if t is not None else 0
             for t in (lon, lat, tc_v, env_wnds, alive, last, pos_before,
                       pos_after, vmax, peak, partial, count)]
@@ -142,3 +176,60 @@ def launcher(lon, lat, dt_track, tc_v, env_wnds, alive, last_step,
 
     launch.inputs = (last, partial, count)   # alive as long as the launch
     return launch, (vmax, peak)
+
+
+def fix_last_sample_cuda(vmax_tm, lon, lat, tc_v, env_wnds, alive,
+                         last_step, dt_s, shear_channels, pos_before=None):
+    """Launch K2's last-sample entry: (vmax_tm fixed in place, vmax_L [N],
+    ok [N]) as models/diagnostics.py fix_last_sample_plain."""
+    launch, result = last_launcher(vmax_tm, lon, lat, tc_v, env_wnds, alive,
+                                   last_step, dt_s, shear_channels,
+                                   pos_before)
+    launch()
+    return result
+
+
+def last_launcher(vmax_tm, lon, lat, tc_v, env_wnds, alive, last_step, dt_s,
+                  shear_channels, pos_before=None):
+    """(launch, (vmax_tm, vmax_L, ok)): a function that launches the
+    last-sample entry on these inputs, one thread per storm in blocks of
+    THREADS; the checks, the outputs and the parameter block are made
+    here, once."""
+    dev = lon.device
+    if dev.type != 'cuda':
+        raise ValueError(f'vmax kernel needs CUDA tensors, got {dev}')
+    T, N = lon.shape
+    f32 = torch.float32
+    for name, t in (('vmax', vmax_tm), ('lon', lon), ('lat', lat),
+                    ('tc_v', tc_v)):
+        _check(name, t, f32, (T, N), dev)
+    W = _check_winds(env_wnds, T, N, shear_channels, dev)
+    _check('alive', alive, torch.bool, (T, N), dev)
+    last = last_step.to(torch.int64).contiguous()
+    _check('last_step', last, torch.int64, (N,), dev)
+    if pos_before is not None:
+        _check('pos_before', pos_before, f32, (2, N), dev)
+    vmax_L = torch.empty((N,), dtype=f32, device=dev)
+    ok = torch.empty((N,), dtype=torch.bool, device=dev)
+    if N == 0 or T == 0:
+        ok.zero_()
+        return (lambda: None), (vmax_tm, vmax_L, ok)
+    threads = min(THREADS, -(-N // WARP) * WARP)
+    ip, fp = _block(T, N, 1, pos_before, None, shear_channels,
+                    (threads, -(-N // threads), 1), W, dt_s)
+    ptrs = [t.data_ptr() if t is not None else 0
+            for t in (lon, lat, tc_v, env_wnds, alive, last, pos_before,
+                      vmax_tm, vmax_L, ok)]
+    entry = _lib().tc_vmax_last
+
+    def launch():
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = entry(ip.ctypes.data, fp.ctypes.data, *ptrs, stream)
+        if err != 0:
+            raise RuntimeError(f'vmax last-sample kernel launch failed: CUDA '
+                               f'error {err}')
+        kernels.LAUNCHES['vmax_last'] += 1
+
+    launch.inputs = (last,)      # alive as long as the launch
+    return launch, (vmax_tm, vmax_L, ok)

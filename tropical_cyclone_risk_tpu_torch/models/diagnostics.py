@@ -3,9 +3,11 @@ tropical_cyclone_risk_tpu/models/diagnostics.py).
 
 ``axi_to_max_wind``, ``_extrapolate_nan_tail`` and ``vmax_filter`` are the
 per-track API of one-shot callers, in plain torch.  ``axi_to_max_wind_raw``
-is the launch's vmax pass and runs over every launch row.  On a CUDA tensor it
-launches the CUDA kernel of csrc/vmax.cu (kernels/vmax.py); on a CPU tensor
-it runs ``axi_to_max_wind_raw_plain``, the same arithmetic in torch ops.
+is the launch's vmax pass and runs over every launch row; with the in-scan
+vmax (Namelist.vmax_in_scan) ``fix_last_sample`` re-derives each track's
+final sample instead.  On a CUDA tensor each launches its entry of
+csrc/vmax.cu (kernels/vmax.py); on a CPU tensor it runs its ``*_plain``
+twin, the same arithmetic in torch ops.
 """
 
 from __future__ import annotations
@@ -106,6 +108,63 @@ def _take_rows(x, i):
     return torch.gather(x, 0, i.clamp(0, x.shape[0] - 1)[None, :])[0]
 
 
+def _last_sample(lon, lat, tc_v, env_wnds, last_step, dt_s, cfg,
+                 pos_before):
+    """(vmax, clipped row) of each track's sample L = last_step with the
+    reference's linear edge extrapolation: next position pos[L] + (pos[L]
+    - pos[L-1]), pos[L-1] being pos_before's sample where L is 0."""
+    L = last_step
+    lon_L, lat_L = _take_rows(lon, L), _take_rows(lat, L)
+    Lm1 = L - 1
+    lon_P, lat_P = _take_rows(lon, Lm1), _take_rows(lat, Lm1)
+    if pos_before is not None:
+        lon_P = torch.where(L == 0, pos_before[0], lon_P)
+        lat_P = torch.where(L == 0, pos_before[1], lat_P)
+    ut, vt = _translation_tm(lon_L, lat_L, lon_P, lat_P,
+                             lon_L + (lon_L - lon_P),
+                             lat_L + (lat_L - lat_P), dt_s)
+    Lc = L.clamp(0, lon.shape[0] - 1)
+    wnds_L = torch.gather(env_wnds, 0, Lc[None, :, None].expand(
+        1, -1, env_wnds.shape[-1]))[0]
+    return vmax_step(cfg, lat_L, _take_rows(tc_v, L), wnds_L, ut, vt), Lc
+
+
+def fix_last_sample_plain(vmax_tm, lon, lat, tc_v, env_wnds, alive,
+                          last_step, dt_s, cfg=None, pos_before=None):
+    """The reference's edge extrapolation at each track's final valid
+    sample of an in-scan vmax buffer [T, N] (segment-local last_step; a
+    value outside [0, T) means the track ends in another segment, and its
+    column is left as it is).  The in-scan value there used the real next
+    position; the reference's valid window ends at L, so its centred
+    difference extrapolates (util/sphere.py:66-69).  Returns (vmax fixed,
+    vmax_L [N], ok [N]), ok flagging the tracks whose final sample is in
+    this segment (their vmax_L joins the lifetime peak)."""
+    if lon.is_cuda:
+        kernels.PLAIN_ON_CUDA['vmax_last'] += 1
+    T = lon.shape[0]
+    vmax_L, Lc = _last_sample(lon, lat, tc_v, env_wnds, last_step, dt_s, cfg,
+                              pos_before)
+    ok = (last_step >= 0) & (last_step < T) & _take_rows(alive, last_step)
+    cols = torch.arange(lon.shape[1], device=lon.device)
+    fixed = vmax_tm.clone()
+    fixed[Lc, cols] = torch.where(ok, vmax_L, vmax_tm[Lc, cols])
+    return fixed, vmax_L, ok
+
+
+def fix_last_sample(vmax_tm, lon, lat, tc_v, env_wnds, alive, last_step,
+                    dt_s, cfg=None, pos_before=None):
+    """fix_last_sample_plain on CPU tensors; on any other device K2's
+    last-sample entry, which writes the fixed samples into vmax_tm in
+    place (the launch's own buffer: a copy of it would move every row)
+    and returns it."""
+    if lon.device.type == 'cpu':
+        return fix_last_sample_plain(vmax_tm, lon, lat, tc_v, env_wnds,
+                                     alive, last_step, dt_s, cfg, pos_before)
+    return vmax_kernel.fix_last_sample_cuda(
+        vmax_tm, lon, lat, tc_v, env_wnds, alive, last_step, dt_s,
+        _shear_channels(cfg), pos_before)
+
+
 def axi_to_max_wind_raw_plain(lon, lat, dt_track, tc_v, env_wnds, alive,
                               last_step, cfg=None, pos_before=None,
                               pos_after=None):
@@ -129,24 +188,13 @@ def axi_to_max_wind_raw_plain(lon, lat, dt_track, tc_v, env_wnds, alive,
     lon_a = torch.cat([lon[1:], after[0][None]])
     lat_a = torch.cat([lat[1:], after[1][None]])
     ut, vt = _translation_tm(lon, lat, lon_b, lat_b, lon_a, lat_a, dt_track)
-
-    # the last valid sample L: next position pos[L] + (pos[L] - pos[L-1])
-    L = last_step
-    Lm1 = torch.clamp_min(L - 1, 0)
-    lon_L, lat_L = _take_rows(lon, L), _take_rows(lat, L)
-    lon_P, lat_P = _take_rows(lon, Lm1), _take_rows(lat, Lm1)
-    if pos_before is not None:
-        lon_P = torch.where(L == 0, pos_before[0], lon_P)
-        lat_P = torch.where(L == 0, pos_before[1], lat_P)
-    ut_L, vt_L = _translation_tm(lon_L, lat_L, lon_P, lat_P,
-                                 lon_L + (lon_L - lon_P),
-                                 lat_L + (lat_L - lat_P), dt_track)
-    rows = torch.arange(lon.shape[0], device=lon.device)
-    at_L = rows[:, None] == L[None, :]
-    ut = torch.where(at_L, ut_L[None, :], ut)
-    vt = torch.where(at_L, vt_L[None, :], vt)
-
     vmax = vmax_step(cfg, lat, tc_v, env_wnds, ut, vt)
+    # the last valid sample L takes the edge extrapolation
+    vmax_L, _ = _last_sample(lon, lat, tc_v, env_wnds, last_step, dt_track,
+                             cfg, pos_before)
+    rows = torch.arange(lon.shape[0], device=lon.device)
+    vmax = torch.where(rows[:, None] == last_step[None, :], vmax_L[None, :],
+                       vmax)
     peak = torch.where(alive, vmax, -math.inf).amax(dim=0)
     return vmax, peak
 

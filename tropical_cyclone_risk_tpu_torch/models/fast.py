@@ -198,8 +198,12 @@ def bam_velocity(cfg: Namelist, lat, v, wnds_raw):
     wnds = torch.where(polar[:, None], 0.0, wnds_raw)
     coefs = steering_coefs(cfg, v)
     w_lat = torch.cos(lat * DEG2RAD)
-    u_steer = (wnds[:, 0::2] * coefs).sum(dim=1)
-    v_steer = (wnds[:, 1::2] * coefs).sum(dim=1)
+    # the levels summed in order, as the integrator kernel adds them
+    u_steer = wnds[:, 0] * coefs[:, 0]
+    v_steer = wnds[:, 1] * coefs[:, 0]
+    for lv in range(1, coefs.shape[1]):
+        u_steer = u_steer + wnds[:, 2 * lv] * coefs[:, lv]
+        v_steer = v_steer + wnds[:, 2 * lv + 1] * coefs[:, lv]
     u_bam = torch.where(polar, 0.0, u_steer + cfg.u_beta * w_lat)
     v_bam = torch.where(polar, 0.0,
                         v_steer + torch.sign(lat) * cfg.v_beta * w_lat)

@@ -266,7 +266,6 @@ def launch_inputs(key: rng.Key, pack: FieldPack, cfg: Namelist,
     per-seed row).  The Fourier flow is drawn at the compacted slots alone
     (the draw of a slot does not depend on the others), so survivor tracks
     are identical to an uncapped launch's."""
-    simulator.check_supported(cfg)
     dev = pack.device
     k_seed, k_fourier = rng.split(key)
     prop = seeding.propose_seeds(k_seed, pack, cfg, basin_id, n,
@@ -306,6 +305,12 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
     each boundary (frozen-state segments compose exactly); with no schedule
     it is one segment.
 
+    vmax is the post-pass diagnostics.axi_to_max_wind_raw per segment, or
+    with cfg.vmax_in_scan the integrator's in-scan value: its DiagState
+    carry rides the boundary compactions, each segment's running peak is
+    banked on the m axis (a storm dropped at a boundary keeps its peak), and
+    diagnostics.fix_last_sample re-derives each track's final sample.
+
     Returns {'seed': full-width [n] metadata, 'slot_rank': the integrate
     compaction's [n] ranks (None when m == n), 'trk': compacted [m] track
     metadata, 'tm': segment 0's time-major buffers, 'overflow': [2]
@@ -326,25 +331,41 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
     bnd_states = []  # per segment: carry state AT its end boundary
     over2 = torch.zeros_like(li.overflow)   # alive storms beyond a boundary
     state_k, params_k, alive_k, a_idx = li.state, li.params, li.alive0, None
+    dstate = peak_acc = None
+    if cfg.vmax_in_scan:
+        f32 = dict(dtype=torch.float32, device=li.alive0.device)
+        dstate = simulator.DiagState(torch.zeros((m,), **f32),
+                                     torch.zeros((m,), **f32),
+                                     torch.full((m,), -math.inf, **f32))
+        peak_acc = dstate.peak
     for k, w in enumerate(widths):
         if k > 0:
             fs = params_k.fourier
             part = compact_ops.partition_take(
                 alive_k, w, (params_k.plane, params_k.h_bl, fs.A, fs.B,
-                             *state_k, alive_k),
+                             *state_k, alive_k, *(dstate or ())),
                 acc=over2, a_prev=a_idx, inv_len=m)
-            plane, h_bl, A, B, lon, lat, v, m_k, alive_k = part.rows
+            plane, h_bl, A, B, lon, lat, v, m_k, alive_k = part.rows[:9]
             params_k = fast.SeedParams(plane, h_bl, fs._replace(A=A, B=B))
             state_k = fast.State(lon, lat, v, m_k)
+            if dstate is not None:
+                dstate = simulator.DiagState(*part.rows[9:])
             over2, a_idx = part.overflow, part.a_idx
             orders.append(part.order)
             a_idxs.append(a_idx)
             segs.append({'inv': part.inv, 'selected': part.selected})
-        outs_k, (state_k, alive_k) = simulator.integrate_segment(
+        outs_k, carry = simulator.integrate_segment(
             stacks, cfg, bounds, state_k, alive_k, params_k, edges[k],
-            edges[k + 1] - edges[k])
-        raws.append(dict(zip(('lon', 'lat', 'v', 'm', 'wnds', 'alive'),
-                             outs_k)))
+            edges[k + 1] - edges[k], dstate,
+            edges[-1] - 1 if k + 1 == len(widths) else -1)
+        raws.append(dict(zip(('lon', 'lat', 'v', 'm', 'wnds', 'alive',
+                              'vmax'), outs_k)))
+        state_k, alive_k = carry[:2]
+        if dstate is not None:
+            # bank the segment's running peak on the m axis: a storm dropped
+            # at the next boundary keeps its lifetime maximum
+            dstate = carry[2]
+            peak_acc = _bank(peak_acc, dstate.peak, a_idx)
         bnd_states.append(state_k)
 
     # stitched per-slot reductions on the m axis
@@ -375,15 +396,25 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
             prev = raws[k - 1]
             pos_before = torch.stack([prev['lon'][-1][orders[k - 1]],
                                       prev['lat'][-1][orders[k - 1]]])
+        a_prev = a_idxs[k - 1] if k else None
+        if peak_acc is not None:
+            # in-scan: only each track's final valid sample is re-derived
+            # (edge extrapolation); it joins the banked running peaks
+            r['vmax'], vmax_L, ok = diagnostics.fix_last_sample(
+                r['vmax'], r['lon'], r['lat'], r['v'], r['wnds'], r['alive'],
+                ls_k, dt_out, cfg, pos_before=pos_before)
+            peak_acc = _bank(peak_acc, torch.where(ok, vmax_L, -math.inf),
+                             a_prev)
+            continue
         # the carry at this segment's end is the sample after its last row
         pos_after = (torch.stack([bnd_states[k].lon, bnd_states[k].lat])
                      if k + 1 < len(raws) else None)
         r['vmax'], peak_k = diagnostics.axi_to_max_wind_raw(
             r['lon'], r['lat'], dt_out, r['v'], r['wnds'], r['alive'], ls_k,
             cfg, pos_before=pos_before, pos_after=pos_after)
-        peak = peak_k if k == 0 else torch.maximum(
-            peak, compact_ops.scatter_fill(m, a_idxs[k - 1], peak_k,
-                                           -math.inf))
+        peak = peak_k if k == 0 else _bank(peak, peak_k, a_prev)
+    if peak_acc is not None:
+        peak = peak_acc
     keep = is_tc & (peak >= cfg.seed_vmax_threshold_ms)
 
     body = {
@@ -400,6 +431,16 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
         # per later segment: column of each m-axis slot in that segment
         body['segs'] = tuple(segs)
     return body
+
+
+def _bank(peak, values, a_idx):
+    """max(peak, values) on the m axis: values [w] of a segment whose
+    slots a_idx [w] (injective; None for the m axis itself) are on it
+    (jnp's .at[a_idx].max)."""
+    if a_idx is None:
+        return torch.maximum(peak, values)
+    return torch.maximum(peak, compact_ops.scatter_fill(
+        peak.shape[0], a_idx, values, -math.inf))
 
 
 def _count_all_body(counted, basin_idx, month, n_basins: int):

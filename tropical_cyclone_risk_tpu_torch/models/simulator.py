@@ -9,13 +9,16 @@ or v <= 4 m/s, coupled_fast.py:246-256); dead storms freeze in place.
 hand-written integrator kernel (kernels/integrator.py, csrc/integrator.cu),
 which keeps each storm's state in registers across the whole segment; on a
 CPU tensor it runs ``integrate_segment_plain``, the same arithmetic as a
-Python loop of torch ops (``lax.scan`` in the JAX package).  The genesis
-gate ``genesis_alive`` dispatches the same way, to the same file's gate
-kernel or to ``genesis_alive_plain``.
+Python loop of torch ops (``lax.scan`` in the JAX package).  With a
+``DiagState`` carry (Namelist.vmax_in_scan) both also compute each step's
+vmax and the running lifetime peak (``_diag_step``).  The genesis gate
+``genesis_alive`` dispatches the same way, to the same file's gate kernel
+or to ``genesis_alive_plain``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -24,7 +27,7 @@ import torch
 from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch import kernels
 from tropical_cyclone_risk_tpu_torch.kernels import integrator
-from tropical_cyclone_risk_tpu_torch.models import fast
+from tropical_cyclone_risk_tpu_torch.models import diagnostics, fast
 from tropical_cyclone_risk_tpu_torch.models.fields import GatherStacks
 from tropical_cyclone_risk_tpu_torch.utils import basins
 
@@ -41,10 +44,14 @@ class RawTracks(NamedTuple):
     last_step: torch.Tensor   # [N] index of last valid sample
 
 
-def check_supported(cfg: Namelist) -> None:
-    """Raise for the integration options this port does not implement."""
-    if cfg.vmax_in_scan:
-        raise NotImplementedError('not ported yet: vmax_in_scan')
+class DiagState(NamedTuple):
+    """In-scan vmax carry (Namelist.vmax_in_scan): the previous output
+    sample's position (the centred difference's left neighbour) and the
+    running alive-masked lifetime vmax peak, which excludes each track's
+    final valid sample (diagnostics.fix_last_sample re-derives that one)."""
+    prev_lon: torch.Tensor    # [N]
+    prev_lat: torch.Tensor    # [N]
+    peak: torch.Tensor        # [N], -inf at the start
 
 
 def analytic_fourier(cfg: Namelist) -> bool:
@@ -104,8 +111,43 @@ def _advance(cfg, bounds, y, y_next, alive):
     return y1, alive & _events_alive(cfg, bounds, y1)
 
 
+def _diag_step(cfg, dstate: DiagState, y: fast.State, y1: fast.State, wnds0,
+               alive, alive1, k: int, t_last: int, dt_out: float):
+    """One in-scan vmax sample: the centred-difference translation between
+    the carried previous position and the post-step position y1 (frozen for
+    dead storms, as the output buffer records it at k+1), then the closed
+    form.  At the global first sample the left neighbour is the start-edge
+    extrapolation 2 pos[0] - pos[1].  The running peak takes every valid
+    sample but a track's final one: a storm that dies in this step, or the
+    run's last output row (k == t_last)."""
+    if k == 0:
+        p_lon, p_lat = 2.0 * y.lon - y1.lon, 2.0 * y.lat - y1.lat
+    else:
+        p_lon, p_lat = dstate.prev_lon, dstate.prev_lat
+    ut, vt = diagnostics._translation_tm(y.lon, y.lat, p_lon, p_lat, y1.lon,
+                                         y1.lat, dt_out)
+    vmax_k = diagnostics.vmax_step(cfg, y.lat, y.v, wnds0, ut, vt)
+    incl = alive & alive1 if k != t_last else torch.zeros_like(alive)
+    peak = torch.maximum(dstate.peak, torch.where(incl, vmax_k, -math.inf))
+    return vmax_k, DiagState(y.lon, y.lat, peak)
+
+
+def _record(outs, y, wnds, alive, y1, alive1, cfg, dstate, k, t_last,
+            dt_out):
+    """Append sample k (and its in-scan vmax with a DiagState carry) to
+    outs; returns the carry's DiagState."""
+    out = (y.lon, y.lat, y.v, y.m, wnds, alive)
+    if dstate is not None:
+        vmax_k, dstate = _diag_step(cfg, dstate, y, y1, wnds, alive, alive1,
+                                    k, t_last, dt_out)
+        out = out + (vmax_k,)
+    outs.append(out)
+    return dstate
+
+
 def _integrate_blocks(stacks, cfg, bounds, y, alive, params, f_all, k0: int,
-                      n_blocks: int, stride: int, dt: float):
+                      n_blocks: int, stride: int, dt: float, dstate=None,
+                      t_last: int = -1):
     """Strided steps: one field gather at each block's start position and
     time, reused for the block's `stride` steps; the Fourier flow, wind
     coloring and ODEs stay per step.  Records the colored winds."""
@@ -122,9 +164,11 @@ def _integrate_blocks(stacks, cfg, bounds, y, alive, params, f_all, k0: int,
                 lambda tt, yy, w=wnds: fast.rhs_given_winds(
                     cfg, yy, params, smp, w, drv),
                 _f32(t0 + j * dt), y, dt)
-            outs.append((y.lon, y.lat, y.v, y.m, wnds, alive))
-            y, alive = _advance(cfg, bounds, y, y_next, alive)
-    return outs, (y, alive)
+            y1, alive1 = _advance(cfg, bounds, y, y_next, alive)
+            dstate = _record(outs, y, wnds, alive, y1, alive1, cfg, dstate,
+                             k0 + b * stride + j, t_last, dt)
+            y, alive = y1, alive1
+    return outs, (y, alive, dstate)
 
 
 def segment_plan(cfg: Namelist, n_steps: int) -> Tuple[int, int]:
@@ -147,7 +191,8 @@ def fourier_grid(cfg: Namelist, params: fast.SeedParams, k0: int,
 
 def integrate_segment_plain(stacks: GatherStacks, cfg: Namelist, bounds,
                             y0: fast.State, alive0: torch.Tensor,
-                            params: fast.SeedParams, k0: int, n_steps: int):
+                            params: fast.SeedParams, k0: int, n_steps: int,
+                            diag: DiagState = None, t_last: int = -1):
     """Samples k0 .. k0+n_steps-1 from the carry (y0, alive0), in torch ops.
 
     Returns ((lon, lat, v, m, wnds, alive) time-major, (y_end, alive_end)),
@@ -157,8 +202,13 @@ def integrate_segment_plain(stacks: GatherStacks, cfg: Namelist, bounds,
     With rk_substeps > 1 each output step runs that many RK4 substeps
     (dead storms frozen per substep, the events checked once per output
     step); with rk_exact_stage_fields every RK stage gathers and colors
-    at its own position and time."""
-    check_supported(cfg)
+    at its own position and time.
+
+    diag (Namelist.vmax_in_scan): a DiagState carry; the outputs then gain
+    a 7th leaf vmax [n_steps, N] (_diag_step on the recorded winds) and
+    the carry a 3rd element, the DiagState at the segment's end.  t_last:
+    the global index of the run's final output sample, or -1 when this
+    segment does not hold it."""
     if y0.lon.is_cuda:
         kernels.PLAIN_ON_CUDA['integrator'] += 1
     dt_out = float(cfg.output_interval_s)
@@ -167,9 +217,9 @@ def integrate_segment_plain(stacks: GatherStacks, cfg: Namelist, bounds,
     stride, n_blocks = segment_plan(cfg, n_steps)
     f_all = (None if analytic_fourier(cfg)
              else fourier_grid(cfg, params, k0, n_steps))
-    outs, (y, alive) = _integrate_blocks(stacks, cfg, bounds, y0, alive0,
-                                         params, f_all, k0, n_blocks, stride,
-                                         dt_out)
+    outs, (y, alive, dstate) = _integrate_blocks(
+        stacks, cfg, bounds, y0, alive0, params, f_all, k0, n_blocks, stride,
+        dt_out, diag, t_last)
     for j in range(n_blocks * stride, n_steps):
         t = _step_time(k0 + j, dt_out)
         y1, wnds0 = y, None
@@ -186,28 +236,31 @@ def integrate_segment_plain(stacks: GatherStacks, cfg: Namelist, bounds,
                 wnds0 = wnds
             y1 = fast.State(*(torch.where(alive, a, b)
                               for a, b in zip(y_next, y1)))
-        outs.append((y.lon, y.lat, y.v, y.m, wnds0, alive))
-        y, alive = y1, alive & _events_alive(cfg, bounds, y1)
-    return tuple(torch.stack(ch) for ch in zip(*outs)), (y, alive)
+        alive1 = alive & _events_alive(cfg, bounds, y1)
+        dstate = _record(outs, y, wnds0, alive, y1, alive1, cfg, dstate,
+                         k0 + j, t_last, dt_out)
+        y, alive = y1, alive1
+    carry = (y, alive) if diag is None else (y, alive, dstate)
+    return tuple(torch.stack(ch) for ch in zip(*outs)), carry
 
 
 def integrate_segment(stacks: GatherStacks, cfg: Namelist, bounds,
                       y0: fast.State, alive0: torch.Tensor,
-                      params: fast.SeedParams, k0: int, n_steps: int):
+                      params: fast.SeedParams, k0: int, n_steps: int,
+                      diag: DiagState = None, t_last: int = -1):
     """integrate_segment_plain on CPU tensors; on any other device the CUDA
     integrator kernel, which raises on what it does not take.  The kernel
     reads F(t) from the per-step grid, or evaluates it from the storm's
     Fourier rows where the mode needs it at other times."""
     if y0.lon.device.type == 'cpu':
         return integrate_segment_plain(stacks, cfg, bounds, y0, alive0,
-                                       params, k0, n_steps)
-    check_supported(cfg)
+                                       params, k0, n_steps, diag, t_last)
     stride, n_blocks = segment_plan(cfg, n_steps)
     f_all = (None if analytic_fourier(cfg)
              else fourier_grid(cfg, params, k0, n_steps))
     return integrator.integrate_segment_cuda(
         stacks, cfg, bounds, y0, alive0, params, k0, n_steps, f_all, stride,
-        n_blocks)
+        n_blocks, diag, t_last)
 
 
 def genesis_alive_plain(stacks: GatherStacks, cfg: Namelist,

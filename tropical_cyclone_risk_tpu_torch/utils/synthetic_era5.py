@@ -5,12 +5,15 @@ scripts/download_era5.py:20-22).
 
     python -m tropical_cyclone_risk_tpu_torch.utils.synthetic_era5 WS \
         [Y0 [Y1]] [--nlat 181 --nlon 360 --seed-batch N] \
-        [--land-res 0.5] [--bathy-res 0.25]
+        [--land-res 0.5] [--bathy-res 0.25] [--wind-levels 250 500 850]
 
-writes WS/raw (monthly sst/sp/t/q and twice-daily 250/850 hPa u/v per
-year), WS/static (land, mld, strat, and with --bathy-res bathymetry) and
-WS/namelist.py, which ``python -m tropical_cyclone_risk_tpu_torch.cli GL
---namelist WS/namelist.py`` reads.
+writes WS/raw (monthly sst/sp/t/q and twice-daily u/v at the wind levels,
+250 and 850 hPa by default, per year), WS/static (land, mld, strat, and
+with --bathy-res bathymetry) and WS/namelist.py, which ``python -m
+tropical_cyclone_risk_tpu_torch.cli GL --namelist WS/namelist.py`` reads.
+A namelist that steers at other levels than the default names them, with
+their coefficients (steering_levels, steering_coefs, y_alpha, m_alpha,
+alpha_max, alpha_min); every one of them must be among the wind levels.
 
 By default the land mask is on the wind grid and there is no bathymetry
 file (the pack builder then puts its land-derived proxy on the land grid),
@@ -69,9 +72,10 @@ def _hours(t: np.ndarray) -> np.ndarray:
     return (t - np.datetime64('1900-01-01', 's')) / np.timedelta64(1, 'h')
 
 
-def write_year(base: str, year: int, lon, lat, rng) -> None:
+def write_year(base: str, year: int, lon, lat, rng,
+               wind_levels=(250, 850)) -> None:
     """One year of raw files: monthly sst/sp/t/q on LEVELS_HPA and
-    twice-daily u/v at 250 and 850 hPa."""
+    twice-daily u/v at wind_levels (hPa)."""
     nlat, nlon = lat.size, lon.size
     land = land_2d(lon, lat)
     LA = lat[:, None] + 0 * lon[None, :]
@@ -108,25 +112,29 @@ def write_year(base: str, year: int, lon, lat, rng) -> None:
                      var_attrs={'time': _T_UNITS,
                                 'level': {'units': 'millibars'}})
 
-    # twice-daily winds: jets, a seasonal cycle and AR(1) synoptic noise
+    # twice-daily winds: jets, a seasonal cycle and AR(1) synoptic noise;
+    # the jet's shape moves linearly in pressure from 250 to 850 hPa
     t_w = (np.datetime64(f'{year}-01-01', 's') + np.arange(
         2 * (366 if calendar.isleap(year) else 365)) * np.timedelta64(12, 'h'))
     season = np.cos(2 * np.pi * ((t_w - np.datetime64(f'{year}-01-01', 's'))
                                  / np.timedelta64(1, 'D') / 365.0 - 0.6))
-    jets = {'u': np.stack([-8.0 + 20.0 * np.sin(np.deg2rad(LA)) ** 2,
-                           -5.0 + 6.0 * np.sin(np.deg2rad(LA)) ** 2]),
-            'v': np.zeros((2, nlat, nlon))}
+    n_lv = len(wind_levels)
+    frac = [(p_hpa - 250.0) / 600.0 for p_hpa in wind_levels]
+    jets = {'u': np.stack([(-8.0 + 3.0 * f) + (20.0 - 14.0 * f)
+                           * np.sin(np.deg2rad(LA)) ** 2 for f in frac]),
+            'v': np.zeros((n_lv, nlat, nlon))}
     for nm in ('u', 'v'):
-        arr = np.zeros((t_w.size, 2, nlat, nlon), np.float32)
-        noise = rng.standard_normal((2, nlat, nlon)).astype(np.float32) * 3
+        arr = np.zeros((t_w.size, n_lv, nlat, nlon), np.float32)
+        noise = rng.standard_normal((n_lv, nlat, nlon)).astype(
+            np.float32) * 3
         for it in range(t_w.size):
             noise = 0.9 * noise + 0.44 * rng.standard_normal(
-                (2, nlat, nlon)).astype(np.float32) * 3
+                (n_lv, nlat, nlon)).astype(np.float32) * 3
             arr[it] = jets[nm] + 2.0 * season[it] + noise
         netcdf.write(f'{base}/era5_{nm}_daily_{year}.nc',
                      {nm: (('time', 'level', 'latitude', 'longitude'), arr)},
                      coords={'time': _hours(t_w),
-                             'level': np.array([250.0, 850.0]),
+                             'level': np.array(wind_levels, np.float64),
                              'latitude': lat, 'longitude': lon},
                      var_attrs={'time': _T_UNITS,
                                 'level': {'units': 'millibars'}})
@@ -170,17 +178,19 @@ def write_static(ws: str, lon, lat, land_res: float | None = None,
 def make_workspace(ws: str, y0: int = 2016, y1: int = 2016, nlat: int = 181,
                    nlon: int = 360, tracks_per_year: int = 20,
                    seed_batch: int = 16384, land_res: float | None = None,
-                   bathy_res: float | None = None) -> str:
+                   bathy_res: float | None = None,
+                   wind_levels=(250, 850)) -> str:
     """Write the workspace and its namelist (random fields from seed 0);
     returns the namelist's path.  land_res / bathy_res: see
-    write_static."""
+    write_static; wind_levels: the pressure levels (hPa) of the raw
+    winds."""
     os.makedirs(f'{ws}/raw', exist_ok=True)
     os.makedirs(f'{ws}/out', exist_ok=True)
     lon, lat = axes(nlat, nlon)
     rng = np.random.default_rng(0)
     write_static(ws, lon, lat, land_res, bathy_res)
     for year in range(y0, y1 + 1):
-        write_year(f'{ws}/raw', year, lon, lat, rng)
+        write_year(f'{ws}/raw', year, lon, lat, rng, tuple(wind_levels))
     path = f'{ws}/namelist.py'
     with open(path, 'w') as f:
         f.write(f"""
@@ -218,10 +228,15 @@ def main(argv=None) -> int:
     ap.add_argument('--bathy-res', type=float, default=None,
                     help='write a bathymetry file on a grid of this '
                          'spacing in degrees (default: none)')
+    ap.add_argument('--wind-levels', type=float, nargs='+',
+                    default=[250.0, 850.0],
+                    help='pressure levels (hPa) of the raw winds (default: '
+                         '250 850)')
     a = ap.parse_args(argv)
     print(make_workspace(a.ws, a.y0, a.y1 if a.y1 is not None else a.y0,
                          a.nlat, a.nlon, seed_batch=a.seed_batch,
-                         land_res=a.land_res, bathy_res=a.bathy_res))
+                         land_res=a.land_res, bathy_res=a.bathy_res,
+                         wind_levels=a.wind_levels))
     return 0
 
 
