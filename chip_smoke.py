@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernel-times ROOT    (see kernel_times)
     python3 chip_smoke.py --drivers ROOT         (see drivers_times)
+    python3 chip_smoke.py --ranks N              (see ranks_times; N cards)
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -152,6 +153,22 @@ Phases (any failure raises, and the script exits non-zero):
                cli.main GL on a workspace with 250/500/850 hPa winds,
                counters reset just before and read just after, their files
                holding all six u/v winds, finite at genesis.
+9f. mesh     - seed-axis sharding on the card: 4 virtual shards on the
+               one card at the bench launch's width (131072 seeds, 32768 a
+               shard), simulate_batch_sharded through the kernels (counters
+               reset just before and read just after, K4's partitions and
+               stitch and K7 held against their twins call by call) and
+               through the twins on the card: keep, scalars, seed tables,
+               valid and the tracks bit for bit; its wall time beside the
+               one-device launch's, the shard-major partition and stitch
+               timed beside their bounds; run_tracks_years_fused on the mesh
+               against the per-year loop on the mesh, bit for bit;
+               run_downscaling in a one-rank NCCL group
+               (distributed.initialize, global_seed_mesh) against the
+               one-process one-shard mesh, the same file bit for bit;
+               cli.main GL --devices 2 raising make_mesh's 'devices' error;
+               _simulate_batches against three _simulate_batch calls;
+               simulator.integrate (K7, K1) against its CPU twin.
 10. times    - launch times, a torch.profiler trace of three launches
                (device kernels per launch, busy share, host time by
                stage, the genesis gate's among them, device time by
@@ -168,7 +185,8 @@ Phases (any failure raises, and the script exits non-zero):
                share.
 
 The line before the card line is a JSON object with each kernel's route,
-source, launches on the workspace path (and in the bench run), error
+source, launches on the workspace path (and in the bench run and the mesh
+launch), error
 against its twin, times and bound; the last line is {"ok": true,
 "device": {...}}.  Builds go to build/.  Every time printed stands beside
 the card's name and power limit.
@@ -2897,6 +2915,10 @@ def main():
                               levels_in)
         del levels_in
 
+        # ---- 9f. mesh: seed-axis sharding on the card ---------------------
+        mesh_res, mesh_launches = check_mesh(dev, card, tmp, cfg_t, pack24,
+                                             pack_y, plane0)
+
         # ---- 10. times ----------------------------------------------------
         per_launch, share, traced_ms, stage_ms, top = profile_launches(
             lambda: pipeline._simulate_batch(rng.key(98), pack_y, cfg_t,
@@ -3008,7 +3030,9 @@ def main():
          'device_kernels_per_launch': per_launch}]
     for k in entries:
         k['bench_launches'] = bench_launches[k['name']]
+        k['mesh_launches'] = mesh_launches[k['name']]
         k['ms_timing'] = ms_timing(k['name'])
+    k4_entry['mesh'] = mesh_res
     log(f'[summary] {card}: host synchronisations per launch {n_sync}; '
         f'BAM {json.dumps(bam_res)}; '
         f'bench peak {bench_peak:.2f} MiB; bench sim-years/min '
@@ -3195,6 +3219,324 @@ def host_syncs(fn):
             inside[0] = False
             torch.cuda.set_sync_debug_mode(0)
     return sum(where.values()), dict(where)
+
+
+MESH_SHARDS = 4      # the [mesh] phase's virtual shards on the one card
+MESH_K_MAX = 4096    # holds every survivor of a bench-width launch
+
+
+@contextlib.contextmanager
+def twins_on_card():
+    """Within the block, every kernel dispatcher of a launch runs its plain
+    twin, on the card, and the launch and twin counters are left as they
+    were: a launch through the twins only to compare the kernels' with."""
+    from tropical_cyclone_risk_tpu_torch import kernels
+    from tropical_cyclone_risk_tpu_torch.models import (diagnostics, seeding,
+                                                        simulator)
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+    from tropical_cyclone_risk_tpu_torch.ops import fourier
+    swaps = [(seeding, 'propose_seeds'), (fourier, 'draw_fourier'),
+             (simulator, 'genesis_alive'), (simulator, 'integrate_segment'),
+             (diagnostics, 'axi_to_max_wind_raw'),
+             (compact_ops, 'partition_take'),
+             (compact_ops, 'stitch_survivors')]
+    originals = [getattr(mod, nm) for mod, nm in swaps]
+    saved = dict(kernels.LAUNCHES), dict(kernels.PLAIN_ON_CUDA)
+    for mod, nm in swaps:
+        setattr(mod, nm, getattr(mod, nm + '_plain'))
+    try:
+        yield
+    finally:
+        for (mod, nm), fn in zip(swaps, originals):
+            setattr(mod, nm, fn)
+        kernels.LAUNCHES.update(saved[0])
+        kernels.PLAIN_ON_CUDA.update(saved[1])
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def wall_ms(fn, reps=5):
+    """Median wall milliseconds of fn() to a synchronised end, after a
+    warm call."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), ts
+
+
+def files_differ(fn_a, fn_b):
+    """The variables of two tracks files that differ (NaN equal to NaN)."""
+    from tropical_cyclone_risk_tpu_torch.io import netcdf
+    a, b = netcdf.read(fn_a), netcdf.read(fn_b)
+    return sorted(set(a.variables) ^ set(b.variables)) + [
+        k for k, v in a.variables.items() if k in b.variables
+        and not (v.data.dtype == b.variables[k].data.dtype and np.array_equal(
+            v.data, b.variables[k].data, equal_nan=v.data.dtype.kind == 'f'))]
+
+
+def check_mesh(dev, card, tmp, cfg_t, pack24, pack_y, plane0):
+    """Phase 'mesh': seed-axis sharding on the card, MESH_SHARDS virtual
+    shards on one card at the bench launch's full width.  The sharded
+    launch through the kernels, counters reset just before and read just
+    after, with K4's partitions and stitch and K7 held against their twins
+    call by call, against the same launch through the twins on the card:
+    keep, the scalars, the seed tables and valid bit for bit, the tracks
+    within K1_TOL (vmax K2_TOL); its wall time beside the one-device
+    launch's, and the shard-major partition and stitch timed beside their
+    bounds.  The fused driver on the mesh against the per-year loop on the
+    mesh, bit for bit; run_downscaling in a one-rank NCCL group
+    (distributed.initialize, global_seed_mesh) writes the file of the
+    one-process one-shard mesh; cli.main GL --devices 2 raises make_mesh's
+    'devices' error; _simulate_batches against three _simulate_batch
+    calls; simulator.integrate on the card against its CPU twin.  Returns
+    (the kernels line's mesh numbers, launches per kernel in the sharded
+    launch)."""
+    from tropical_cyclone_risk_tpu_torch import cli, kernels, rng, runtime
+    from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
+    from tropical_cyclone_risk_tpu_torch.models import (fast, pipeline,
+                                                        seeding, simulator)
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+    from tropical_cyclone_risk_tpu_torch.ops import fourier
+    from tropical_cyclone_risk_tpu_torch.parallel import (distributed,
+                                                          sharding)
+    t_phase = time.perf_counter()
+    mesh = sharding.local_mesh([dev] * MESH_SHARDS)
+    n_local = N_SEEDS // MESH_SHARDS
+    m_local = pipeline.launch_width(cfg_t, n_local)
+    key = rng.key(61)
+
+    def launch():
+        return sharding.simulate_batch_sharded(mesh, key, pack_y, cfg_t,
+                                               BASIN, N_SEEDS, MESH_K_MAX,
+                                               plane0)
+
+    def k4_twin(plain):
+        return lambda out, *a, **kw: same_parts(out, uncounted(plain, *a,
+                                                                **kw))
+
+    launch()                                  # warm
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with captured(compact_ops, 'partition_take',
+                  k4_twin(compact_ops.partition_take_plain)) as parts, \
+            captured(compact_ops, 'stitch_survivors',
+                     k4_twin(compact_ops.stitch_survivors_plain)) as sts, \
+            captured(simulator, 'genesis_alive', check_k7,
+                     keep=False) as k7_runs:
+        tr, meta = launch()
+        torch.cuda.synchronize()
+    mesh_launches = dict(kernels.LAUNCHES)
+    check_counts('mesh', mesh_launches, dict(kernels.PLAIN_ON_CUDA),
+                 SIMULATION_KERNELS)
+    k7_results('mesh', k7_runs)
+    bad = [(i, c[3]) for i, c in enumerate(parts + sts) if c[3]]
+    sizes = [(c[0][0].shape[0], c[0][1]) for c in parts]
+    log(f'[mesh] {MESH_SHARDS} shards of {n_local} seeds on {dev} (width '
+        f'{m_local} a shard): {len(parts)} partitions (n, w) {sizes} and '
+        f'{len(sts)} stitch against their twins, not bit-exact: '
+        f'{bad or "none"}')
+    if bad or len(sts) != 1 or sizes[-1] != (MESH_SHARDS * m_local,
+                                             MESH_K_MAX):
+        raise AssertionError(f'mesh: K4 against its twins {bad}, partitions '
+                             f'{sizes}')
+    with twins_on_card():
+        tr_p, meta_p = launch()
+    torch.cuda.synchronize()
+    n_surv = int(meta['scalars'][0])
+    exact = {k: same(meta[k], meta_p[k]) for k in meta}
+    exact.update((k, same(tr[k], tr_p[k])) for k in ('valid', 'month',
+                                                      'basin_idx'))
+    tol = dict(K1_TOL, vmax=K2_TOL)
+    errs = {}
+    for k, t in tol.items():
+        a, b = tr[k], tr_p[k]
+        fin = torch.isfinite(a)
+        errs[k] = (float((a - b).abs()[fin].max()) if fin.any() else 0.0,
+                   bool((fin == torch.isfinite(b)).all()), same(a, b))
+    shard_surv = meta['keep'].reshape(MESH_SHARDS, -1).sum(dim=1).tolist()
+    log(f'[mesh] the sharded launch through the kernels and through the '
+        f'twins on the card: {n_surv} survivors (per shard {shard_surv}), '
+        f'scalars {meta["scalars"].tolist()}; bit-exact {exact}; tracks '
+        f'(max abs err, same NaN, bit-exact) {errs}')
+    if not (all(exact.values()) and 0 < n_surv <= MESH_K_MAX
+            and min(shard_surv) > 0
+            and all(e <= tol[k] and nan_ok for k, (e, nan_ok, _)
+                    in errs.items())):
+        raise AssertionError(f'mesh launch differs from its twins: {exact} '
+                             f'{errs}')
+    del tr_p, meta_p
+
+    # times: the mesh launch beside the one-device launch; the shard-major
+    # partition (compact_survivors', the last) and the stitch
+    ms_mesh, ts_mesh = wall_ms(launch)
+    ms_one, ts_one = wall_ms(lambda: pipeline._simulate_batch(
+        key, pack_y, cfg_t, BASIN, N_SEEDS, MESH_K_MAX, plane0))
+    (mask, w, rows), kw, pout, _ = parts[-1]
+    ms_part = device_ms(k4.launcher('partition', mask, w, rows, kw.get('acc'),
+                                    kw.get('slot_rank', False),
+                                    kw.get('a_prev'), kw.get('inv_len'))[0],
+                        K4_REPS, entry='compact')
+    ms_part_lib = device_ms(lambda: sort_order(mask, w), K4_REPS,
+                            entry='compact')
+    ms_part_plain = cuda_ms(lambda: uncounted(
+        compact_ops.partition_take_plain, mask, w, rows, **kw), 5)
+    b_part, by_part = partition_bound(mask, pout, kw.get('a_prev'))
+    sargs, _, sout, _ = sts[0]
+    ms_st = device_ms(k4.launcher('stitch', *sargs)[0], K4_REPS,
+                      entry='compact')
+    ms_st_plain = cuda_ms(lambda: uncounted(
+        compact_ops.stitch_survivors_plain, *sargs), 5)
+    b_st, by_st = stitch_bound(sargs[0], sargs[1], sargs[2], sout)
+    log(f'[mesh] {card}: launch {ms_mesh:.2f} ms wall on the mesh (median '
+        f'of {[round(t, 2) for t in ts_mesh]}) against {ms_one:.2f} ms on '
+        f'one device ({[round(t, 2) for t in ts_one]}); shard-major '
+        f'partition {mask.shape[0]} -> {w} ({len(rows)} row tensors): '
+        f'kernels {ms_part:.4f} ms device, torch.sort {ms_part_lib:.4f} ms, '
+        f'plain twin {ms_part_plain:.4f} ms, bound {b_part:.5f} ms '
+        f'({by_part}); stitch {tuple(sout[0]["lon"].shape)} over '
+        f'{len(sargs[1])} segments of width {[tm["lon"].shape[1] for tm in sargs[1]]}: '
+        f'kernel {ms_st:.4f} ms device, plain twin {ms_st_plain:.4f} ms, '
+        f'bound {b_st:.5f} ms ({by_st})')
+    del parts, sts, tr, meta, mask, rows, sargs, sout, pout
+
+    # the fused driver on the mesh against the per-year loop on the mesh
+    years = list(cfg_t.years())
+    ykey = rng.key(62)
+    t0 = time.perf_counter()
+    ref = [pipeline.run_tracks_year(rng.fold_in(ykey, yr), pack24, cfg_t,
+                                    BASIN, yi, mesh=mesh)
+           for yi, yr in enumerate(years)]
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with captured(pipeline, '_simulate_years', keep=False) as groups:
+        fused = pipeline.run_tracks_years_fused(ykey, pack24, cfg_t, BASIN,
+                                                years, k_fuse=2, mesh=mesh)
+    torch.cuda.synchronize()
+    t_fused = time.perf_counter() - t0
+    check_counts('mesh, fused years', dict(kernels.LAUNCHES),
+                 dict(kernels.PLAIN_ON_CUDA), SIMULATION_KERNELS)
+    equal = same_years(ref, fused)
+    log(f'[mesh] {card}: {len(years)} years on the mesh: fused driver '
+        f'{t_fused:.2f} s ({len(groups)} group), per-year loop {t_loop:.2f} '
+        f's; equal bit for bit {equal}; tracks {[y.lon.shape[0] for y in fused]}')
+    if not (equal and len(groups) == 1):
+        raise AssertionError('mesh: fused years differ from the loop')
+    del ref, fused
+
+    # run_downscaling in a one-rank NCCL group against the one-process
+    # one-shard mesh (the same key, so the same file)
+    cfg_r = cfg_t.replace(output_directory=f'{tmp}/mesh', exp_name='one')
+    fn_one = runtime.run_downscaling(cfg_r, BASIN, pack24, key=rng.key(63),
+                                     mesh=sharding.local_mesh([dev]))
+    t0 = time.perf_counter()
+    distributed.initialize(f'localhost:{free_port()}', 1, 0)
+    try:
+        distributed.initialize(f'localhost:{free_port()}', 1, 0)   # no-op
+        backend = torch.distributed.get_backend()
+        gmesh = distributed.global_seed_mesh()
+        bcast = distributed.broadcast_from_primary(1234)
+        kernels.reset_counts()
+        fn_grp = runtime.run_downscaling(cfg_r.replace(exp_name='group'),
+                                         BASIN, pack24, key=rng.key(63),
+                                         mesh=gmesh)
+        torch.cuda.synchronize()
+        check_counts('mesh, NCCL group', dict(kernels.LAUNCHES),
+                     dict(kernels.PLAIN_ON_CUDA), SIMULATION_KERNELS)
+    finally:
+        torch.distributed.destroy_process_group()
+    t_grp = time.perf_counter() - t0
+    diff = files_differ(fn_one, fn_grp)
+    log(f'[mesh] {card}: run_downscaling in a one-rank {backend} group '
+        f'(mesh {gmesh.devices}, first {gmesh.first}, size {gmesh.size}; '
+        f'broadcast {bcast}) in {t_grp:.2f} s; its file against the '
+        f'one-process one-shard mesh\'s: differing {diff or "none"}')
+    if diff or backend != 'nccl' or bcast != 1234 or gmesh.size != 1:
+        raise AssertionError(f'mesh: NCCL group run: {backend} {diff}')
+
+    # cli --devices 2 on one card: make_mesh's error, before any work
+    try:
+        cli.main(['GL', '--devices', '2'])
+    except ValueError as e:
+        if 'devices' not in str(e):
+            raise
+        log(f'[mesh] cli.main GL --devices 2 on one card: ValueError {e}')
+    else:
+        raise AssertionError('cli --devices 2 on one card did not raise')
+
+    # _simulate_batches against three _simulate_batch calls
+    keys = [rng.fold_in(rng.key(64), i) for i in range(3)]
+    kernels.reset_counts()
+    outs = pipeline._simulate_batches(keys, pack_y, cfg_t, BASIN, N_SEEDS,
+                                      64, plane0)
+    torch.cuda.synchronize()
+    check_counts('mesh, _simulate_batches', dict(kernels.LAUNCHES),
+                 dict(kernels.PLAIN_ON_CUDA), SIMULATION_KERNELS)
+    differ = [(i, k) for i, (got, k_i) in enumerate(zip(outs, keys))
+              for ref_d, got_d in zip(pipeline._simulate_batch(
+                  k_i, pack_y, cfg_t, BASIN, N_SEEDS, 64, plane0), got)
+              for k in ref_d if not same(got_d[k], ref_d[k])]
+    log(f'[mesh] _simulate_batches of 3 keys against 3 _simulate_batch '
+        f'calls: differing leaves {differ or "none"}')
+    if differ:
+        raise AssertionError(f'_simulate_batches differs: {differ}')
+    del outs
+
+    # simulator.integrate on the card (K7, K1) against its CPU twin
+    n = 2048
+    r = np.random.default_rng(65)
+    cols = (r.uniform(120.0, 260.0, n), r.choice([-1.0, 1.0], n)
+            * r.uniform(8.0, 30.0, n), r.uniform(12.0, 30.0, n),
+            r.uniform(0.3, 0.8, n))
+    fs = fourier.draw_fourier_plain(rng.key(66), (n, 4), cfg_t.T_fourier_s)
+    plane = torch.from_numpy(r.integers(0, 12, n))
+    res = {}
+    for d in (dev, torch.device('cpu')):
+        y0 = fast.State(*(torch.tensor(c, dtype=torch.float32, device=d)
+                          for c in cols))
+        params = fast.SeedParams(plane.to(d), torch.full((n,), 1400.0,
+                                                          device=d),
+                                 fs._replace(A=fs.A.to(d), B=fs.B.to(d)))
+        pk = pack_y.to(d)
+        kernels.reset_counts()
+        out = simulator.integrate(pk, cfg_t, BASIN, y0, params,
+                                  torch.ones(n, dtype=torch.bool, device=d))
+        if d == dev:
+            torch.cuda.synchronize()
+            int_launches = dict(kernels.LAUNCHES)
+        res[d.type] = {k: v.cpu() for k, v in out._asdict().items()}
+    g, c = res['cuda'], res['cpu']
+    agree = float((g['alive'] == c['alive']).all(dim=1).float().mean())
+    both = g['alive'] & c['alive']
+    ierr = {k: float((g[k] - c[k]).abs()[both].max())
+            for k in ('lon', 'lat', 'v', 'm')}
+    log(f'[mesh] simulator.integrate {n} storms x {g["lon"].shape[1]} '
+        f'samples on the card (launches {int_launches}) against its CPU '
+        f'twin: same alive history {agree:.4f}, {int(g["alive"][:, 0].sum())}'
+        f' alive at genesis, max abs err {ierr}')
+    if not (agree >= K1_ALIVE_AGREE and int_launches['integrator'] >= 1
+            and int_launches['genesis'] >= 1
+            and all(e <= K1_TOL[k] for k, e in ierr.items())):
+        raise AssertionError(f'integrate on the card: {agree} {ierr}')
+    secs = time.perf_counter() - t_phase
+    log(f'[mesh] {card}: phase {secs:.1f} s')
+    return {'launch_ms': ms_mesh, 'one_device_ms': ms_one,
+            'partition_ms': ms_part, 'partition_library_ms': ms_part_lib,
+            'partition_plain_ms': ms_part_plain,
+            'partition_bound_ms': b_part, 'stitch_ms': ms_st,
+            'stitch_plain_ms': ms_st_plain, 'stitch_bound_ms': b_st,
+            'phase_s': secs}, mesh_launches
 
 
 def check_years(dev, cfg_t, pack_y, plane0, tmp, card):
@@ -3674,9 +4016,155 @@ def drivers_times(root):
     print(json.dumps({'root': root, 'card': card, 'drivers': out}))
 
 
+def ranks_cfg(out_dir):
+    """The --ranks mode's namelist: the bench's seeds per launch over two
+    years of the 24-plane pack, written under out_dir."""
+    from tropical_cyclone_risk_tpu_torch.config import Namelist
+    return Namelist(seed_batch=N_SEEDS, start_year=2016, end_year=2017,
+                    output_directory=out_dir, exp_name='ranks')
+
+
+RANKS_KEY = 71
+
+
+def ranks_launch_ms(mesh, pack, cfg):
+    """(median wall ms, all five) of one sharded launch on the mesh at the
+    bench's width, caps tuned as run_downscaling tunes them."""
+    from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.models import fields, pipeline
+    from tropical_cyclone_risk_tpu_torch.parallel import sharding
+    cfg_t = pipeline.auto_integrate_cap(rng.fold_in(rng.key(RANKS_KEY), 2016),
+                                        pack, cfg, BASIN)
+    pack_y = fields.slice_pack_year(pack, cfg, 0)
+    return wall_ms(lambda: sharding.simulate_batch_sharded(
+        mesh, rng.key(RANKS_KEY + 1), pack_y, cfg_t, BASIN, N_SEEDS, 64, 0))
+
+
+def rank_worker(rank, n_ranks, port, out_dir):
+    """One process of --ranks: rank `rank` of an NCCL group of n_ranks on
+    card `rank` (LOCAL_RANK, as torchrun sets it), one shard of the global
+    seed mesh; run_downscaling over two years on the mesh, counters reset
+    just before and read just after, then the sharded launch's wall time;
+    writes rank<r>.json into out_dir."""
+    os.environ['LOCAL_RANK'] = str(rank)
+    from tropical_cyclone_risk_tpu_torch import kernels, rng, runtime
+    from tropical_cyclone_risk_tpu_torch.models import fields
+    from tropical_cyclone_risk_tpu_torch.parallel import distributed
+    distributed.initialize(f'localhost:{port}', n_ranks, rank)
+    try:
+        mesh = distributed.global_seed_mesh()
+        cfg = ranks_cfg(out_dir)
+        pack = fields.synthetic_pack(cfg, 24, 181, 360, seed=0,
+                                     device=mesh.devices[0])
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        fn = runtime.run_downscaling(cfg, BASIN, pack,
+                                     key=rng.key(RANKS_KEY), mesh=mesh)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        launches, plain = dict(kernels.LAUNCHES), dict(kernels.PLAIN_ON_CUDA)
+        ms, ts = ranks_launch_ms(mesh, pack, cfg)
+        with open(os.path.join(out_dir, f'rank{rank}.json'), 'w') as f:
+            json.dump({'rank': rank, 'backend': torch.distributed.get_backend(),
+                       'mesh': [str(d) for d in mesh.devices],
+                       'first': mesh.first, 'size': mesh.size, 'fn': fn,
+                       'run_s': t_run, 'launches': launches, 'plain': plain,
+                       'launch_ms': ms, 'launch_ms_all': ts}, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def ranks_times(n_ranks):
+    """--ranks N: the seed mesh across N cards, one process each, in an
+    NCCL group (rank_worker, spawned), against the same namelist and key
+    on one process's N virtual shards on card 0: the tracks file bit for
+    bit, every kernel launched in every rank and no twin; the sharded
+    launch's wall time per rank beside the one-process mesh's and the
+    one-device launch's.  Prints one JSON line, then the card line and
+    the device line."""
+    import tempfile
+    from tropical_cyclone_risk_tpu_torch import rng, runtime
+    from tropical_cyclone_risk_tpu_torch.models import fields, pipeline
+    from tropical_cyclone_risk_tpu_torch.parallel import sharding
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n_ranks:
+        raise SystemExit(f'chip_smoke: --ranks {n_ranks} needs {n_ranks} '
+                         f'cards')
+    dev = torch.device('cuda', 0)
+    card = card_line()
+    with contextlib.redirect_stdout(sys.stderr):
+        build_all(dev)
+    out_dir = tempfile.mkdtemp()
+    ctx = torch.multiprocessing.get_context('spawn')
+    port = free_port()
+    procs = [ctx.Process(target=rank_worker,
+                         args=(r, n_ranks, port, out_dir))
+             for r in range(n_ranks)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    t_ranks = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise AssertionError(f'--ranks: exit codes {codes}')
+    ranks = []
+    for r in range(n_ranks):
+        with open(os.path.join(out_dir, f'rank{r}.json')) as f:
+            ranks.append(json.load(f))
+    for res in ranks:
+        check_counts(f'ranks, rank {res["rank"]}', res['launches'],
+                     res['plain'], SIMULATION_KERNELS)
+    fns = {res['fn'] for res in ranks}
+
+    # the same namelist and key on one process's n virtual shards
+    cfg = ranks_cfg(os.path.join(out_dir, 'one'))
+    pack = fields.synthetic_pack(cfg, 24, 181, 360, seed=0, device=dev)
+    mesh = sharding.local_mesh([dev] * n_ranks)
+    fn_one = runtime.run_downscaling(cfg, BASIN, pack, key=rng.key(RANKS_KEY),
+                                     mesh=mesh)
+    diff = files_differ(ranks[0]['fn'], fn_one)
+    ms_one_mesh, ts_one_mesh = ranks_launch_ms(mesh, pack, cfg)
+    cfg_t = pipeline.auto_integrate_cap(rng.fold_in(rng.key(RANKS_KEY), 2016),
+                                        pack, cfg, BASIN)
+    pack_y = fields.slice_pack_year(pack, cfg, 0)
+    ms_one, ts_one = wall_ms(lambda: pipeline._simulate_batch(
+        rng.key(RANKS_KEY + 1), pack_y, cfg_t, BASIN, N_SEEDS, 64, 0))
+    out = {'ranks': n_ranks, 'card': card, 'spawn_to_exit_s': t_ranks,
+           'per_rank': [{k: res[k] for k in ('rank', 'backend', 'mesh',
+                                              'first', 'size', 'run_s',
+                                              'launch_ms', 'launch_ms_all')}
+                        for res in ranks],
+           'one_process_mesh_launch_ms': ms_one_mesh,
+           'one_process_mesh_launch_ms_all': ts_one_mesh,
+           'one_device_launch_ms': ms_one, 'one_device_launch_ms_all': ts_one,
+           'file_differs': diff, 'paths': sorted(fns)}
+    log(f'[ranks] {card}: {n_ranks} ranks (NCCL), each one card: file '
+        f'against one process\'s {n_ranks} shards on one card differing '
+        f'{diff or "none"}; launch ms per rank '
+        f'{[round(r["launch_ms"], 2) for r in ranks]}, one-process mesh '
+        f'{ms_one_mesh:.2f}, one device {ms_one:.2f}')
+    if diff or len(fns) != 1 or any(r['backend'] != 'nccl' for r in ranks):
+        raise AssertionError(f'--ranks: {diff} {fns}')
+    print(json.dumps(out))
+    print(card)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+
+
 if __name__ == '__main__':
     if len(sys.argv) == 3 and sys.argv[1] == '--kernel-times':
         sys.exit(kernel_times(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == '--drivers':
         sys.exit(drivers_times(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == '--ranks':
+        sys.exit(ranks_times(int(sys.argv[2])))
     sys.exit(main())

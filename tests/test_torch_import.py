@@ -51,7 +51,8 @@ def test_every_module_imports_with_jax_blocked():
     assert len(MODULES) >= 30
     assert {'tropical_cyclone_risk_tpu_torch.' + m for m in (
         'kernels.compact', 'kernels.vmax', 'kernels.integrator', 'bench',
-        'analysis', 'utils.util', 'ops.sphere', 'models.bam')} <= set(
+        'analysis', 'utils.util', 'ops.sphere', 'models.bam',
+        'parallel.sharding', 'parallel.distributed')} <= set(
             MODULES)
     code = ("import sys, importlib\n"
             f"for b in {BLOCKED!r}: sys.modules[b] = None\n"

@@ -223,15 +223,31 @@ def test_cli_matches_jax_seed_by_seed(ws, tmp_path):
 
 
 def test_cli_refuses_to_fall_back_to_the_cpu(ws, monkeypatch):
-    """Without a GPU, the CLI raises unless --device cpu asks for the CPU;
-    --devices > 1 is not ported and says so."""
-    _, nl, _ = ws
+    """Without a GPU, the CLI raises unless --device cpu asks for the CPU,
+    with --devices too; --devices 2 --device cpu shards every launch over
+    two virtual CPU shards and writes the year's tracks."""
+    _, nl, cfg = ws
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='--device cpu'):
         cli.main(['GL', '--namelist', nl, '--seed', '0'])
-    with pytest.raises(NotImplementedError, match='--devices'):
-        cli.main(['GL', '--namelist', nl, '--devices', '2', '--device',
-                  'cpu'])
+    with pytest.raises(RuntimeError, match='--device cpu'):
+        cli.main(['GL', '--namelist', nl, '--devices', '2'])
+    seen = []
+    orig = runtime.run_downscaling
+    monkeypatch.setattr(runtime, 'run_downscaling', lambda *a, **k: (
+        seen.append(k['mesh']), orig(*a, **k))[1])
+    kernels.reset_counts()
+    assert cli.main(['GL', '--namelist', nl, '--devices', '2', '--device',
+                     'cpu', '--seed', '0']) == 0
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.NAMES, 0)
+    (mesh,) = seen
+    assert mesh.size == 2 and {d.type for d in mesh.devices} == {'cpu'}
+    out = os.path.join(cfg.output_directory, cfg.exp_name)
+    fn = max((os.path.join(out, f) for f in os.listdir(out)
+              if f.endswith('.nc')), key=os.path.getmtime)
+    lon = netcdf.read(fn)['lon_trks'].data
+    assert lon.shape[0] == cfg.tracks_per_year
+    assert np.isfinite(lon[:, 0]).all()
 
 
 def test_entry_points_default_to_the_gpu():

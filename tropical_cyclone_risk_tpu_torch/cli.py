@@ -2,12 +2,14 @@
 
     python -m tropical_cyclone_risk_tpu_torch.cli BASIN --namelist NL.py \
         [--seed S] [--ensembles N] [--n-years Y] [--device cuda|cpu]
+        [--devices N]
 
 Reference equivalent: run.py (basin argument, land-mask generation,
 preprocessing, per-basin downscaling) and util/compute.py:24-35
 (compute_downscaling_inputs).  Everything runs on the GPU unless
 ``--device cpu`` asks for the CPU; without a GPU and without that flag it
-raises.
+raises.  ``--devices N`` shards every seed batch over the first N cards
+(parallel.sharding; with ``--device cpu``, N virtual CPU shards).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from tropical_cyclone_risk_tpu_torch import rng, runtime
 from tropical_cyclone_risk_tpu_torch.config import Namelist, load_namelist_py
 from tropical_cyclone_risk_tpu_torch.models import pack_builder
+from tropical_cyclone_risk_tpu_torch.parallel import sharding
 from tropical_cyclone_risk_tpu_torch.preprocess import (land_masks,
                                                         thermo_driver, winds)
 from tropical_cyclone_risk_tpu_torch.utils import basins as basins_mod
@@ -69,7 +72,7 @@ def compute_downscaling_inputs(cfg: Namelist, device='cuda') -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description='Tropical cyclone downscaling on one GPU '
+        description='Tropical cyclone downscaling on GPUs '
                     '(reference CLI: run.py BASIN)')
     ap.add_argument('basin', help='basin ID (e.g. GL, NA, WP, ...)')
     ap.add_argument('--namelist', default=None,
@@ -77,8 +80,8 @@ def main(argv=None) -> int:
     ap.add_argument('--n-years', type=int, default=None,
                     help='limit the number of simulated years')
     ap.add_argument('--devices', type=int, default=None,
-                    help='shard seed batches over this many devices (not '
-                         'ported: only one device)')
+                    help='shard seed batches over this many devices '
+                         '(default: one device)')
     ap.add_argument('--ensembles', type=int, default=1,
                     help='number of ensemble members to generate (reruns '
                          'append _eN suffixes, util/compute.py:52-58)')
@@ -90,13 +93,13 @@ def main(argv=None) -> int:
                     help="device to run on: 'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)
 
-    if args.devices and args.devices > 1:
-        raise NotImplementedError('--devices > 1: seed-axis sharding over '
-                                  'several GPUs is not ported yet')
     device = torch.device(args.device)
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError('no CUDA device; pass --device cpu to run on the '
                            'CPU')
+    # the mesh before minutes of preprocessing: too few cards raise here
+    mesh = (sharding.make_mesh(args.devices, device)
+            if args.devices and args.devices > 1 else None)
 
     cfg = load_namelist_py(args.namelist) if args.namelist else Namelist()
     # validate and case-normalize the basin before minutes of preprocessing
@@ -115,7 +118,7 @@ def main(argv=None) -> int:
                if args.seed is not None else None)
         runtime.run_downscaling(cfg, args.basin, pack, key=key,
                                 n_years=args.n_years, device=device,
-                                trace_dir=args.trace_dir)
+                                trace_dir=args.trace_dir, mesh=mesh)
     return 0
 
 

@@ -46,6 +46,12 @@ class FieldPack(NamedTuple):
     def device(self) -> torch.device:
         return self.wind.device
 
+    def to(self, device) -> 'FieldPack':
+        """The pack with every tensor on ``device`` (itself where they are
+        there already)."""
+        return FieldPack(*(x.to(device) if isinstance(x, torch.Tensor)
+                           else x for x in self))
+
 
 class GatherStacks(NamedTuple):
     """Corner-packed gather sources of a FieldPack: wind statistics, env and

@@ -1,5 +1,5 @@
 """Downscaling pipeline: seeding -> integration -> filtering -> compaction
-(twin of tropical_cyclone_risk_tpu/models/pipeline.py, single device).
+(twin of tropical_cyclone_risk_tpu/models/pipeline.py).
 
 One launch proposes a batch of seeds, integrates the integrable ones
 (compacted to the front, slot-stably), re-compacts the still-alive storms at
@@ -16,7 +16,9 @@ back by _simulate_years, the next group issued before the current one is
 read, one host transfer per group).  Launches issue asynchronously on the
 current stream, so what keeps the card busy across a year boundary is
 issuing the next launch before the host reads the current one; both
-drivers do, and both give the same tracks bit for bit.
+drivers do, and both give the same tracks bit for bit.  Every driver takes
+an optional seed mesh (parallel.sharding), over which each launch runs
+shard by shard.
 """
 
 from __future__ import annotations
@@ -84,19 +86,27 @@ INTEGRATE_CAP_BUCKETS = tuple(i / 64.0 for i in range(2, 65))
 QUOTA_Z = 5.0
 
 
-def quota_cfg(cfg: Namelist, n_tracks: int, n: int) -> Optional[Namelist]:
+def quota_cfg(cfg: Namelist, n_tracks: int, n: int,
+              n_dev: int = 1) -> Optional[Namelist]:
     """Speculative quota-prefix launch config, or None when not applicable:
     integrate only the prefix of the integrable slots that holds the year's
     first n_tracks survivors with QUOTA_Z-sigma headroom (sized from the
     probed survivors_per_slot).  compact_survivors' scalars[4] proves a
     prefix launch valid; a miss relaunches at the tuned width with the same
-    key, so outputs are those of never having speculated."""
+    key, so outputs are those of never having speculated.
+
+    n is the global batch, n_dev the mesh's shard count: the width is per
+    shard and sized for the full quota, not quota / n_dev, because only
+    the shards up to the first truncated one hold provably leading
+    survivors (scalars[4]), so a smaller prefix would miss almost every
+    batch."""
     if (not cfg.quota_prefix or cfg.integrate_width is not None
             or not cfg.survivors_per_slot or cfg.survivors_per_slot <= 0.0):
         return None
     sqrt_e = (QUOTA_Z + math.sqrt(QUOTA_Z * QUOTA_Z + 4.0 * n_tracks)) / 2.0
-    w = _round256(sqrt_e * sqrt_e / cfg.survivors_per_slot, 256, n)
-    if w >= launch_width(cfg, n):
+    n_local = max(1, n // max(1, n_dev))
+    w = _round256(sqrt_e * sqrt_e / cfg.survivors_per_slot, 256, n_local)
+    if w >= launch_width(cfg, n_local):
         return None                     # the prefix would not shrink the scan
     return cfg.replace(integrate_width=int(w), recompact_schedule=None,
                        recompact_step=None, recompact_cap=None)
@@ -297,8 +307,9 @@ def launch_inputs(key: rng.Key, pack: FieldPack, cfg: Namelist,
 
 
 def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
-                n: int, plane_offset: int) -> dict:
-    """Propose n seeds, integrate, filter: the per-seed work of one launch.
+                n: int, plane_offset: int, shard_index: int = 0) -> dict:
+    """Propose n seeds, integrate, filter: the per-seed work of one launch,
+    or of one shard of a launch over a seed mesh (parallel.sharding).
 
     The integration (launch_inputs' compacted m axis) runs as one segment
     per boundary of seg_schedule, re-compacting the still-alive storms at
@@ -315,7 +326,13 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
     compaction's [n] ranks (None when m == n), 'trk': compacted [m] track
     metadata, 'tm': segment 0's time-major buffers, 'overflow': [2]
     (integrate cap, boundaries)}, plus 'tms'/'segs' for the later segments
-    of a segmented launch."""
+    of a segmented launch.
+
+    shard_index d places the maps on the mesh's shard-major axes, where
+    shard d's m axis and each later segment's w axis come d-th: slot_rank
+    is offset by d * m where it is >= 0, and each later segment's 'inv' by
+    d * w where the slot is on that segment (0 elsewhere, as on one
+    device)."""
     li = launch_inputs(key, pack, cfg, basin_id, n, plane_offset)
     prop, stacks = li.prop, li.stacks
     m = li.alive0.shape[0]
@@ -417,10 +434,18 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
         peak = peak_acc
     keep = is_tc & (peak >= cfg.seed_vmax_threshold_ms)
 
+    slot_rank = li.slot_rank
+    if shard_index:
+        if slot_rank is not None:
+            slot_rank = torch.where(slot_rank >= 0,
+                                    slot_rank + shard_index * m, slot_rank)
+        for seg, w in zip(segs, widths[1:]):
+            seg['inv'] = torch.where(seg['selected'],
+                                     seg['inv'] + shard_index * w, seg['inv'])
     body = {
         'seed': {'counted': prop.counted, 'month': prop.month,
                  'basin_idx': prop.basin_idx, 'dropped': prop.dropped},
-        'slot_rank': li.slot_rank,
+        'slot_rank': slot_rank,
         'trk': {'keep': keep, 'month': li.month,
                 'basin_idx': li.basin_idx},
         'tm': raws[0],
@@ -462,13 +487,19 @@ def _count_upto_body(keep, counted, basin_idx, month, j: int,
     return _count_all_body(counted & in_prefix, basin_idx, month, n_basins)
 
 
-def compact_survivors(body: dict, m: int, k_max: int, n_basins: int = 0):
+def compact_survivors(body: dict, m: int, k_max: int, n_basins: int = 0,
+                      n_shards: int = 1):
     """Survivors first in slot order, truncated to k_max; returns (tracks,
-    meta) with [k_max, T] NaN-masked track buffers.  n_basins > 0 adds the
-    per-batch host decisions: 'scalars' [5] (survivors, integrate-cap
-    overflow, boundary overflow, dropped slots, provably usable survivors,
-    which on one device is the survivor count), 'spm_upto' (seeds counted
-    up to the k_max-th survivor's slot) and 'spm_all' (the whole batch)."""
+    meta) with [k_max, T] NaN-masked track buffers.  m is the integration
+    width (summed over the mesh's n_shards shards, whose bodies are laid
+    out shard-major; parallel.sharding).  n_basins > 0 adds the per-batch
+    host decisions: 'scalars' [5] (survivors, integrate-cap overflow,
+    boundary overflow, dropped slots, and the provably usable survivors in
+    shard-major slot order: the counts of the shards up to and including
+    the first whose integrate compaction cut integrable slots, since that
+    shard may hide survivors that precede every later shard's; on one
+    shard the survivor count), 'spm_upto' (seeds counted up to the
+    k_max-th survivor's slot) and 'spm_all' (the whole batch)."""
     seed, trk = body['seed'], body['trk']
     keep = trk['keep']
     part = compact_ops.partition_take(keep, k_max, (trk['month'],
@@ -483,9 +514,16 @@ def compact_survivors(body: dict, m: int, k_max: int, n_basins: int = 0):
     meta['overflow'] = body['overflow']
     if n_basins:
         n_keep = meta['keep'].sum()
+        over = body['overflow'].reshape(n_shards, 2)
+        q_usable = n_keep
+        if n_shards > 1:
+            trunc = (over[:, 0] > 0).to(torch.int64)
+            q_shard = meta['keep'].reshape(n_shards, -1).sum(dim=1)
+            q_usable = torch.where(torch.cumsum(trunc, 0) - trunc == 0,
+                                   q_shard, 0).sum()
+        over = over.sum(dim=0)
         meta['scalars'] = torch.stack(
-            [n_keep, body['overflow'][0], body['overflow'][1],
-             meta['dropped'].sum(), n_keep])
+            [n_keep, over[0], over[1], meta['dropped'].sum(), q_usable])
         meta['spm_upto'] = _count_upto_body(
             meta['keep'], meta['counted'], meta['basin_idx'], meta['month'],
             k_max - 1, n_basins)
@@ -502,6 +540,34 @@ def _simulate_batch(key: rng.Key, pack: FieldPack, cfg: Namelist,
     body = launch_body(key, pack, cfg, basin_id, n, plane_offset)
     return compact_survivors(body, launch_width(cfg, n), k_max,
                              n_basins=len(cfg.basin_ids_sorted()))
+
+
+def _simulate_batches(keys, pack: FieldPack, cfg: Namelist, basin_id: str,
+                      n: int, k_max: int, plane_offset: int) -> list:
+    """K launches of one pack, one per key, issued back to back on the
+    current stream (the JAX package's _simulate_batches_jit, a scan over
+    the keys in one program).  Returns the K (tracks, meta) pairs of
+    _simulate_batch, as _simulate_years returns its years."""
+    return [_simulate_batch(k, pack, cfg, basin_id, n, k_max, plane_offset)
+            for k in keys]
+
+
+def _dispatch_batch(key: rng.Key, pack_y: FieldPack, cfg: Namelist,
+                    basin_id: str, n: int, k_max: int, plane_offset: int,
+                    mesh=None):
+    """One launch on the year's pack: over the seed mesh
+    (parallel.sharding.simulate_batch_sharded) or on the pack's device."""
+    if mesh is not None:
+        from tropical_cyclone_risk_tpu_torch.parallel import sharding
+        return sharding.simulate_batch_sharded(mesh, key, pack_y, cfg,
+                                               basin_id, n, k_max,
+                                               plane_offset)
+    return _simulate_batch(key, pack_y, cfg, basin_id, n, k_max,
+                           plane_offset)
+
+
+def _n_dev(mesh) -> int:
+    return 1 if mesh is None else mesh.size
 
 
 def bump_caps(cfg: Namelist, n_over1: int, n_over2: int, n: int,
@@ -585,7 +651,7 @@ def _read(batch: tuple) -> tuple:
 
 def _simulate_years(key: rng.Key, years, plane_idx, vpot_valid,
                     pack: FieldPack, cfg: Namelist, basin_id: str, n: int,
-                    k_max: int) -> list:
+                    k_max: int, mesh=None) -> list:
     """Batch 0 of k simulated years, issued back to back on the current
     stream (the JAX package's years_scan and _simulate_years_jit).
 
@@ -599,44 +665,47 @@ def _simulate_years(key: rng.Key, years, plane_idx, vpot_valid,
 
     A short tail group is not padded to k years by repeating the last one:
     the JAX package pads it only to keep one compiled program shape, and
-    here a padded year would be one launch thrown away."""
+    here a padded year would be one launch thrown away.  With a mesh each
+    year's launch runs over it (_dispatch_batch)."""
     plane_off = cfg.start_month - 1
-    return [_simulate_batch(rng.fold_in(rng.fold_in(key, int(year)), 0),
+    return [_dispatch_batch(rng.fold_in(rng.fold_in(key, int(year)), 0),
                             fields_mod.gather_year(pack, idx, valid), cfg,
-                            basin_id, n, k_max, plane_off)
+                            basin_id, n, k_max, plane_off, mesh)
             for year, idx, valid in zip(years, plane_idx, vpot_valid)]
 
 
 def prefetch_year_batch0(key: rng.Key, pack: FieldPack, cfg: Namelist,
                          basin_id: str, year_idx: int,
-                         n_tracks: Optional[int] = None):
+                         n_tracks: Optional[int] = None, mesh=None):
     """Issue a year's first seed batch without reading anything back; pass
     the result to run_tracks_year(first_batch=...).  The per-year loop uses
     it to keep one launch in flight across year boundaries (in the common
     case one batch fills the whole quota).  The launch takes the
     quota-prefix derivation run_tracks_year applies to its own batches,
-    and its host transfer is issued right behind it (_issue)."""
+    and its host transfer is issued right behind it (_issue).  mesh: the
+    seed mesh the launch runs over (None: the pack's device)."""
     n_tracks = n_tracks or cfg.tracks_per_year
     N = cfg.seed_batch
-    cfg_d = quota_cfg(cfg, n_tracks, N) or cfg
-    return _issue(*_simulate_batch(
+    cfg_d = quota_cfg(cfg, n_tracks, N, _n_dev(mesh)) or cfg
+    return _issue(*_dispatch_batch(
         rng.fold_in(key, 0), fields_mod.slice_pack_year(pack, cfg, year_idx),
         cfg_d, basin_id, N, min(n_tracks, launch_width(cfg_d, N)),
-        cfg.start_month - 1))
+        cfg.start_month - 1, mesh))
 
 
 def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
                     basin_id: str, year_idx: int,
                     n_tracks: Optional[int] = None, max_batches: int = 200,
-                    first_batch=None,
-                    adapt: Optional[dict] = None) -> YearTracks:
+                    first_batch=None, adapt: Optional[dict] = None,
+                    mesh=None) -> YearTracks:
     """Generate the year's track quota (reference run_tracks,
     util/compute.py:64-210).  first_batch: an already issued batch 0
     with the same key and caps: prefetch_year_batch0's (tracks, meta,
     transfer), or a fused launch's (tracks, meta).  Every batch is read
     through one host transfer issued right behind it.  adapt: optional
     mutable {'cfg': Namelist} shared across years, where cap re-tuning
-    after an overflow is kept."""
+    after an overflow is kept.  mesh: the seed mesh every launch runs over
+    (parallel.sharding; None: the pack's device)."""
     n_tracks = n_tracks or cfg.tracks_per_year
     if adapt is not None:
         cfg = adapt.get('cfg', cfg)
@@ -645,7 +714,8 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
     k_max = min(n_tracks, launch_width(cfg, N))
     # speculative quota prefix (quota_cfg); a batch whose prefix cannot
     # settle the quota relaunches at the tuned width with the same key
-    cfg_q = quota_cfg(cfg, n_tracks, N)
+    n_dev = _n_dev(mesh)
+    cfg_q = quota_cfg(cfg, n_tracks, N, n_dev)
     k_max_q = (min(n_tracks, launch_width(cfg_q, N))
                if cfg_q is not None else k_max)
     # the year's planes are gathered lazily: a year its given batch 0
@@ -656,8 +726,8 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
     def launch(b_i, c, k):
         if not pack_y:
             pack_y.append(fields_mod.slice_pack_year(pack, cfg, year_idx))
-        return _issue(*_simulate_batch(rng.fold_in(key, b_i), pack_y[0], c,
-                                       basin_id, N, k, plane_off))
+        return _issue(*_dispatch_batch(rng.fold_in(key, b_i), pack_y[0], c,
+                                       basin_id, N, k, plane_off, mesh))
 
     rows: List[dict] = []
     n_seeds = np.zeros((n_basins, 12))
@@ -707,7 +777,7 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
             n_new = dec[0][0]
             cfg = bump_caps(cfg, n_over1, n_over2, N)
             k_max = min(n_tracks, launch_width(cfg, N))
-            cfg_q = quota_cfg(cfg, n_tracks, N)
+            cfg_q = quota_cfg(cfg, n_tracks, N, n_dev)
             k_max_q = (min(n_tracks, launch_width(cfg_q, N))
                        if cfg_q is not None else k_max)
             if adapt is not None:
@@ -715,7 +785,9 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
             obs.log.warning('caps re-tuned: integrate_cap=%s recompact %s',
                             cfg.integrate_cap, cfg.recompact_schedule)
         # this batch's track rows: a batch issued before a cap re-tuning
-        # can hold fewer than the re-tuned k_max
+        # can hold fewer than the re-tuned k_max (and a sharded launch can
+        # keep more survivors than its k_max rows: the extras are drawn
+        # again from the next batch)
         tracks, meta, _ = batch
         bk_max = int(tracks['lon'].shape[0])
         take = min(n_new, n_tracks - got, k_max, bk_max)
@@ -759,8 +831,8 @@ def run_tracks_years_fused(key: rng.Key, pack: FieldPack, cfg: Namelist,
                            basin_id: str, years: List[int],
                            n_tracks: Optional[int] = None,
                            adapt: Optional[dict] = None,
-                           k_fuse: Optional[int] = None
-                           ) -> List[YearTracks]:
+                           k_fuse: Optional[int] = None,
+                           mesh=None) -> List[YearTracks]:
     """Multi-year driver: batch 0 of k_fuse years issued as one group
     (_simulate_years) with one host transfer of every year's decisions and
     track rows right behind it, and the next group issued before the
@@ -772,7 +844,10 @@ def run_tracks_years_fused(key: rng.Key, pack: FieldPack, cfg: Namelist,
     0, so results equal the per-year loop's in every case.  `years` are
     calendar years (cfg.years() order); year_idx for field slicing is the
     position.  `adapt` carries cap re-tuning across fallbacks as in
-    run_tracks_year."""
+    run_tracks_year.  `mesh`: the seed mesh every launch runs over
+    (parallel.sharding.simulate_years_sharded), whose results are those of
+    the per-year loop on the same mesh, not of one device (each shard
+    folds its index into the key)."""
     n_tracks = n_tracks or cfg.tracks_per_year
     if k_fuse is None:
         k_fuse = max(1, cfg.years_per_program)
@@ -784,16 +859,17 @@ def run_tracks_years_fused(key: rng.Key, pack: FieldPack, cfg: Namelist,
         results = []
         pending = prefetch_year_batch0(
             rng.fold_in(key, years[0]), pack, cfg0, basin_id, 0,
-            n_tracks=n_tracks) if years else None
+            n_tracks=n_tracks, mesh=mesh) if years else None
         for yi, year in enumerate(years):
             nxt = prefetch_year_batch0(
                 rng.fold_in(key, years[yi + 1]), pack,
                 adapt.get('cfg', cfg0) if adapt is not None else cfg0,
-                basin_id, yi + 1, n_tracks=n_tracks) \
+                basin_id, yi + 1, n_tracks=n_tracks, mesh=mesh) \
                 if yi + 1 < len(years) else None
             results.append(run_tracks_year(
                 rng.fold_in(key, year), pack, cfg, basin_id, yi,
-                n_tracks=n_tracks, first_batch=pending, adapt=adapt))
+                n_tracks=n_tracks, first_batch=pending, adapt=adapt,
+                mesh=mesh))
             pending = nxt
         return results
     groups = [list(range(i, min(i + k_fuse, len(years))))
@@ -804,14 +880,14 @@ def run_tracks_years_fused(key: rng.Key, pack: FieldPack, cfg: Namelist,
         cfg_g = adapt.get('cfg', cfg) if adapt is not None else cfg
         # the quota-prefix derivation of run_tracks_year: a fallback year
         # reuses this launch as its batch 0
-        cfg_q = quota_cfg(cfg_g, n_tracks, N)
+        cfg_q = quota_cfg(cfg_g, n_tracks, N, _n_dev(mesh))
         cfg_d = cfg_q if cfg_q is not None else cfg_g
         k_max = min(n_tracks, launch_width(cfg_d, N))
         iv = [fields_mod.year_plane_indices(cfg_g, pack.n_planes, yi)
               for yi in g]
         outs = _simulate_years(key, [years[yi] for yi in g],
                                [x[0] for x in iv], [x[1] for x in iv], pack,
-                               cfg_d, basin_id, N, k_max)
+                               cfg_d, basin_id, N, k_max, mesh)
         # one host transfer per group, issued right behind its launches:
         # every year's decisions and rows
         xfer = Transfer([t for tracks, meta in outs
@@ -848,7 +924,8 @@ def run_tracks_years_fused(key: rng.Key, pack: FieldPack, cfg: Namelist,
                 # general path with this launch as its batch 0
                 results[yi] = run_tracks_year(
                     rng.fold_in(key, years[yi]), pack, cfg_g, basin_id, yi,
-                    n_tracks=n_tracks, adapt=adapt, first_batch=outs[j])
+                    n_tracks=n_tracks, adapt=adapt, first_batch=outs[j],
+                    mesh=mesh)
         done = sum(r is not None for r in results)
         obs.log.info('years %d-%d: %d tracks, %.1f s elapsed (%d/%d years)',
                      years[g[0]], years[g[-1]],

@@ -25,6 +25,7 @@ import torch
 
 from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch import kernels, rng
+from tropical_cyclone_risk_tpu_torch.models import fast
 from tropical_cyclone_risk_tpu_torch.models import fields as F
 from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
 from tropical_cyclone_risk_tpu_torch.ops import interp
@@ -221,6 +222,11 @@ def retry_unresolved_curve_plain(key: rng.Key, pack: F.FieldPack,
     miss = (_mask_lookup(pack)(lon_r.reshape(-1), lat_r.reshape(-1))
             .reshape(N_RETRY_ROUNDS, n) < MASK_PASS).to(torch.int64)
     return torch.cumprod(miss, dim=0).sum(dim=1).cpu().numpy()
+
+
+def initial_state(prop: SeedProposal):
+    """The integration's start state (lon, lat, v, m) of the proposals."""
+    return fast.State(prop.lon, prop.lat, prop.v_init, prop.m_init)
 
 
 def count_seeds_per_month(basin_idx, month, counted, n_basins: int,

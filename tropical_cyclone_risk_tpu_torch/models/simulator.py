@@ -28,8 +28,22 @@ from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch import kernels
 from tropical_cyclone_risk_tpu_torch.kernels import integrator
 from tropical_cyclone_risk_tpu_torch.models import diagnostics, fast
-from tropical_cyclone_risk_tpu_torch.models.fields import GatherStacks
+from tropical_cyclone_risk_tpu_torch.models import fields as fields_mod
+from tropical_cyclone_risk_tpu_torch.models.fields import (FieldPack,
+                                                           GatherStacks)
 from tropical_cyclone_risk_tpu_torch.utils import basins
+
+
+class TrackOutput(NamedTuple):
+    """Seed-major buffers [N, n_steps] (winds [N, n_steps, W]), NaN after
+    each storm's death: the reference's output contract."""
+    lon: torch.Tensor
+    lat: torch.Tensor
+    v: torch.Tensor
+    m: torch.Tensor
+    wnds: torch.Tensor
+    alive: torch.Tensor       # [N, n_steps] bool: sample validity
+    last_step: torch.Tensor   # [N] index of last valid sample
 
 
 class RawTracks(NamedTuple):
@@ -307,4 +321,33 @@ def tc_filters_raw(cfg: Namelist, raw: RawTracks):
     reached = (torch.where(raw.alive, raw.v, 0.0)
                >= cfg.seed_v_threshold_ms).any(dim=0)
     is_tc = reached & (v_2d >= cfg.seed_v_2d_threshold_ms) & raw.alive[0]
+    return is_tc, v_2d
+
+
+def integrate(pack: FieldPack, cfg: Namelist, basin_id: str, y0: fast.State,
+              params: fast.SeedParams,
+              integrate_mask: torch.Tensor) -> TrackOutput:
+    """The seed-major, NaN-masked view of integrate_raw on the pack's
+    stacks (util/compute.py:126-133), for one-shot callers; the launch
+    keeps the time-major layout.  On a card it runs K7 and K1."""
+    raw = integrate_raw(fields_mod.build_stacks(pack), cfg, basin_id, y0,
+                        params, integrate_mask)
+    alive = raw.alive.transpose(0, 1)
+    mask = lambda x: torch.where(alive, x.transpose(0, 1), math.nan)
+    return TrackOutput(mask(raw.lon), mask(raw.lat), mask(raw.v),
+                       mask(raw.m),
+                       torch.where(alive[..., None], raw.wnds.transpose(0, 1),
+                                   math.nan),
+                       alive, raw.last_step)
+
+
+def tc_filters(cfg: Namelist, out: TrackOutput):
+    """tc_filters_raw on the seed-major NaN-masked buffers (the NaN of a
+    dead sample counts as 0).  Returns (is_tc [N], v_2d [N])."""
+    steps_2d = int(2 * 24 * 3600 / cfg.output_interval_s)
+    v = torch.nan_to_num(out.v)
+    idx_2d = torch.clamp_max(out.last_step, steps_2d)
+    v_2d = torch.gather(v, 1, idx_2d[:, None].to(torch.int64))[:, 0]
+    reached = (v >= cfg.seed_v_threshold_ms).any(dim=1)
+    is_tc = reached & (v_2d >= cfg.seed_v_2d_threshold_ms) & out.alive[:, 0]
     return is_tc, v_2d

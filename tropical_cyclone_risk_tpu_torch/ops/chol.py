@@ -48,3 +48,13 @@ def lower_tri_to_full(tri: torch.Tensor, n: int) -> torch.Tensor:
     rows = [torch.stack([tri[..., tri_index(max(i, j), min(i, j))]
                          for j in range(n)], dim=-1) for i in range(n)]
     return torch.stack(rows, dim=-2)
+
+
+def nearest_psd(cov: torch.Tensor, jitter: float = 1e-8) -> torch.Tensor:
+    """Symmetric [..., n, n] matrices projected onto the PSD cone by
+    clipping their eigenvalues at jitter (the reference's nearestPD,
+    util/mat.py:185-223, as a direct spectral projection)."""
+    sym = 0.5 * (cov + cov.transpose(-1, -2))
+    w, v = torch.linalg.eigh(sym)
+    return (v * torch.clamp_min(w, jitter)[..., None, :]) @ v.transpose(-1,
+                                                                       -2)

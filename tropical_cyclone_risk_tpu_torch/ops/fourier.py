@@ -59,6 +59,13 @@ class FourierSeries(NamedTuple):
         return out.reshape((t.shape[0],) + tuple(lead))
 
 
+def take_leading(fs: FourierSeries, order: torch.Tensor) -> FourierSeries:
+    """The coefficient rows at ``order`` [k] of the leading (seed) axis.
+    The launch does not call it: K5's row entry draws those rows alone
+    (draw_fourier's rows)."""
+    return fs._replace(A=fs.A[order], B=fs.B[order])
+
+
 def amplitudes_formula(device) -> torch.Tensor:
     """[N_FOURIER] amplitudes n^-1.5 with the reference normalization
     sqrt(2 / sum n^-3), evaluated on `device`."""

@@ -185,6 +185,21 @@ def linspace_f32(start: float, stop: float, num: int):
     return torch.cat([a * (1 - t) + b * t, b[None]])
 
 
+def gpi(PI, chi, vort, S):
+    """Genesis potential index (thermo/thermo.py:415-419; API only, the
+    reference pipeline never calls it); PI thresholded at 35 m/s."""
+    PI_abs = torch.clamp_min(PI - 35.0, 0.0)
+    return torch.abs(vort) ** 3 * chi ** (-4.0 / 3.0) * PI_abs ** 2 \
+        / (S + 25.0) ** 4
+
+
+def gpi_en04(PI, rh, vort, S):
+    """Emanuel (2004) genesis potential index (thermo/thermo.py:421-425;
+    API only)."""
+    return (1e5 * torch.abs(vort)) ** (rh / 50.0) ** 3 * (PI / 70.0) ** 3 \
+        / (1.0 + 0.1 * S) ** 2
+
+
 def generate_entropy_table(pmin_hPa=25.0, pmax_hPa=1050.0, nprs=200,
                            smin=2337.3348599644537, smax=3585.9052076596804,
                            ns=200, select_thermo: int = 1,

@@ -1,5 +1,5 @@
 """Run orchestration and the track-output contract (twin of
-tropical_cyclone_risk_tpu/runtime.py, single device).
+tropical_cyclone_risk_tpu/runtime.py).
 
 The output schema is the JAX package's, field for field (itself the
 reference's, util/compute.py:250-264), written through the port's copy of
@@ -14,7 +14,6 @@ import time
 from typing import Optional
 
 import numpy as np
-import torch
 
 from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch.io import netcdf
@@ -22,6 +21,7 @@ from tropical_cyclone_risk_tpu_torch.utils import obs
 from tropical_cyclone_risk_tpu_torch import rng
 from tropical_cyclone_risk_tpu_torch.models import pipeline, seeding
 from tropical_cyclone_risk_tpu_torch.models.fields import FieldPack
+from tropical_cyclone_risk_tpu_torch.parallel import distributed, sharding
 from tropical_cyclone_risk_tpu_torch.utils import basins as basins_mod
 
 
@@ -94,23 +94,29 @@ def run_downscaling(cfg: Namelist, basin_id: str, pack: FieldPack,
                     seed: Optional[int] = None,
                     n_years: Optional[int] = None,
                     device=None, key: Optional[rng.Key] = None,
-                    trace_dir: Optional[str] = None) -> str:
+                    trace_dir: Optional[str] = None, mesh=None) -> str:
     """Simulate every configured year on ``device`` (default: the pack's)
     and write the tracks file (util/compute.py:216-270).  Returns the
     written path.  ``seed`` draws the same streams as the JAX package's
     ``key=jax.random.key(seed)``; ``key`` (an ``rng.Key``, e.g.
     ``rng.fold_in(rng.key(s), e)`` per ensemble member) those of the same
-    JAX key; with neither, a seed is taken from the clock.  ``trace_dir``
-    writes a torch.profiler trace of the simulation there."""
+    JAX key; with neither, a seed is taken from the clock (the primary's,
+    in every process).  ``trace_dir`` writes a torch.profiler trace of the
+    simulation there.  ``mesh``: a seed mesh (parallel.sharding) every
+    launch runs over, in place of ``device``; across processes
+    (parallel.distributed) each returns the same path and only the primary
+    writes the file."""
     basin_id = basins_mod.validate_basin_id(cfg, basin_id)
-    if device is not None and pack.device != torch.device(device):
-        pack = FieldPack(*(x.to(device) if isinstance(x, torch.Tensor)
-                           else x for x in pack))
+    if mesh is not None:
+        pack = sharding.replicate_pack(pack, mesh)
+    elif device is not None:
+        pack = pack.to(device)
     if key is not None and seed is not None:
         raise ValueError('pass seed or key, not both')
     if key is None:
         if seed is None:
-            seed = int(time.time_ns() % (2 ** 31))
+            seed = distributed.broadcast_from_primary(
+                time.time_ns() % (2 ** 31))
         key = rng.key(seed)
     if n_years is not None and n_years < 1:
         raise ValueError(f'n_years must be >= 1, got {n_years}')
@@ -134,7 +140,8 @@ def run_downscaling(cfg: Namelist, basin_id: str, pack: FieldPack,
             # inside the driver, with the same results
             with obs.phase('simulate', metrics):
                 results = pipeline.run_tracks_years_fused(
-                    key, pack, cfg, basin_id, list(years), adapt=adapt)
+                    key, pack, cfg, basin_id, list(years), adapt=adapt,
+                    mesh=mesh)
             # the fused driver logs each group's progress
             for res in results:
                 count_year(metrics, res)
@@ -144,15 +151,16 @@ def run_downscaling(cfg: Namelist, basin_id: str, pack: FieldPack,
             # results are read
             pending = pipeline.prefetch_year_batch0(
                 rng.fold_in(key, years[0]), pack, cfg, basin_id,
-                0) if years else None
+                0, mesh=mesh) if years else None
             for yi, year in enumerate(years):
                 nxt = pipeline.prefetch_year_batch0(
                     rng.fold_in(key, years[yi + 1]), pack, adapt['cfg'],
-                    basin_id, yi + 1) if yi + 1 < len(years) else None
+                    basin_id, yi + 1, mesh=mesh) \
+                    if yi + 1 < len(years) else None
                 with obs.phase(f'year {year}', metrics):
                     results.append(pipeline.run_tracks_year(
                         rng.fold_in(key, year), pack, cfg, basin_id, yi,
-                        first_batch=pending, adapt=adapt))
+                        first_batch=pending, adapt=adapt, mesh=mesh))
                 pending = nxt
                 count_year(metrics, results[-1])
                 metrics.time('simulate', metrics.timings.pop(f'year {year}'))
@@ -173,7 +181,21 @@ def run_downscaling(cfg: Namelist, basin_id: str, pack: FieldPack,
     out = pipeline.concat_years(results, cfg)
 
     os.makedirs('%s/%s' % (cfg.output_directory, cfg.exp_name), exist_ok=True)
-    fn = fn_tracks_duplicates(get_fn_tracks(cfg, basin_id))
+    fn_base = get_fn_tracks(cfg, basin_id)
+    if distributed.initialized():
+        # the primary claims the name and sends its _eN suffix (-1: none);
+        # the tracks are the same in every process, the primary writes them
+        suffix = -1
+        if distributed.is_primary():
+            fn = fn_tracks_duplicates(fn_base)
+            if fn != fn_base:
+                suffix = int(fn[:-3].rsplit('_e', 1)[1])
+        suffix = distributed.broadcast_from_primary(suffix)
+        fn = fn_base if suffix < 0 else fn_base[:-3] + '_e%d.nc' % suffix
+        if not distributed.is_primary():
+            return fn
+    else:
+        fn = fn_tracks_duplicates(fn_base)
     write_tracks_nc(fn, out, cfg)
     # provenance snapshot (the reference copies namelist.py, run.py:12)
     with open(fn[:-3] + '.config.json', 'w') as f:

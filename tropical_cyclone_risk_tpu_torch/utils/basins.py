@@ -49,3 +49,12 @@ def to_0360(lon):
     if isinstance(lon, torch.Tensor):
         return torch.remainder(lon, 360.0)
     return np.mod(lon, 360.0)
+
+
+def roll_field_to_0360(lon: np.ndarray, field: np.ndarray):
+    """A [..., lon]-last field whose longitudes may run -180..180,
+    reordered to ascending 0..360 (the reference's transform_lon_r,
+    util/basins.py:103-107); host numpy, for ingestion."""
+    lon0360 = np.mod(np.asarray(lon), 360.0)
+    order = np.argsort(lon0360, kind='stable')
+    return lon0360[order], np.take(field, order, axis=-1)
