@@ -4,13 +4,14 @@
     python3 chip_smoke.py --kernel-times ROOT    (see kernel_times)
     python3 chip_smoke.py --drivers ROOT         (see drivers_times)
     python3 chip_smoke.py --ranks N              (see ranks_times; N cards)
+    python3 chip_smoke.py --sass ROOT            (see sass_against)
 
 Phases (any failure raises, and the script exits non-zero):
 
 1. device    - require CUDA; print the card's name and power limit.
 2. build     - build the CUDA integrator and genesis gate (K1, K7; one
-               library per unit: two and three steering levels, each with
-               and without the in-scan vmax), vmax (K2, with its
+               library per unit: two, three and four steering levels, each
+               with and without the in-scan vmax), vmax (K2, with its
                last-sample entry), seeding (K3), compaction (K4), threefry
                (K5) and CAPE-PI (K6) kernels with nvcc, one process each,
                all started together; print the build times, nvcc's register,
@@ -40,7 +41,8 @@ Phases (any failure raises, and the script exits non-zero):
                per propose_seeds call under torch.profiler; K3's times
                alone and through its dispatcher (device, event and host),
                K5's row and full-width draws (device time), and bounds
-               (the threefry draws counted by pipe from the SASS).
+               (each draw's least 32-bit operations at the float32
+               instruction rate).
    K4        - one 131072-seed launch with every compaction (the integrate
                compaction, every re-compaction boundary) and
                compact_survivors' partition and survivor stitch at k_max 64
@@ -142,17 +144,43 @@ Phases (any failure raises, and the script exits non-zero):
                three-level pack of 9e (K1 bit-exact, the entry at six
                winds); the launch's wall time with and without.
 9e. levels   - steering_levels (250, 500, 850): a bench-width launch on a
-               12-plane 181x360 three-level pack, caps auto-tuned, K1 on
-               every segment bit-exact against its twin, K2 within 1e-4
-               m/s, K7, K5's row draw and K4's partitions and stitch
-               bit-exact; K1 on the first and last segment with
+               12-plane 181x360 three-level pack, caps auto-tuned, counters
+               reset just before and read just after, against the same
+               launch through the twins on the card, every leaf bit for
+               bit; K1 on the first and last segment with
                time_interp_fields (bit-exact), rk_exact_stage_fields and
                rk_substeps=2 (within the K1 bars); each kernel's per-launch
-               time beside the two-level one of the same call, K1's
-               three-level registers; run_downscaling on that pack and
+               time (the median and range of three rounds) beside the
+               two-level one of the same call, K1's three-level
+               registers; run_downscaling on that pack and
                cli.main GL on a workspace with 250/500/850 hPa winds,
                counters reset just before and read just after, their files
                holding all six u/v winds, finite at genesis.
+9e2. levels4 - steering_levels (250, 500, 700, 850): a bench-width launch
+               on a 12-plane 181x360 four-level pack, caps auto-tuned,
+               through K1 and K7 (the unit TC_K1_LEVELS=4), K2 at W = 8,
+               K5's row entry at C = 8 and K4's stitch at W = 8, counters
+               reset just before and read just after, against the same
+               launch through the twins on the card: every leaf bit for
+               bit, and again with time_interp_fields; K1 on the first and
+               last segment with rk_exact_stage_fields and rk_substeps=2
+               within the K1 bars; vmax_in_scan bit for bit the post-pass;
+               each kernel's per-launch time alone beside its bound, its
+               twin and the three-level time of 9e; the registers, stack
+               and spills of every <4,...> instance.
+9e3. gcm     - the CMIP6 path: a 1-degree one-year workspace of
+               utils/synthetic_cmip6 (noleap calendar, plev in Pa, tos in
+               degC on the finer ocean grid) through cli.main GL at
+               250/850 hPa, and one with the daily winds on plev8 at
+               250/500/700/850 hPa, counters reset just before and read
+               just after each (every kernel of the workspace path, K6
+               among them, no twin), every regrid on the card; the
+               thermo and tracks files checked (the variables of
+               tests/test_cmip6_e2e.py, every level's winds); stage times;
+               K6 on the workspace's six Amon levels in Pa (CMIP6's
+               Amon files hold plev19) bit-exact against its twin and
+               timed; the SST regrid on the card against the CPU's,
+               bit for bit.
 9f. mesh     - seed-axis sharding on the card: 4 virtual shards on the
                one card at the bench launch's width (131072 seeds, 32768 a
                shard), simulate_batch_sharded through the kernels (counters
@@ -255,11 +283,28 @@ K4_REPS = 20
 # HBM bytes/s and float32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# no 32-bit operation, integer or float, issues faster than the float32
+# FMA rate: an SM issues four warp instructions a clock (128 lanes), which
+# is PEAK_F32 / 2 (an FMA counts two of PEAK_F32's operations).  The
+# threefry draws (K3, K5) count their least operations at this rate
+# (ops32_bound): a static SASS count per pipe at the ALU pipe's 64 lanes
+# put K5's row draw at C = 8 above its measured time
+PEAK_OPS32 = PEAK_F32 / 2
+# the least 32-bit operations of one threefry2x32 draw (csrc/threefry.cuh):
+# 20 rounds of an add, a rotate and an xor; the key injections and the
+# output xor are not counted (some fold into the rounds' three-input adds)
+DRAW_OPS = 60
+# a Fourier element of K5 (csrc/rng.cu): its draw, the uniform's subtract,
+# the phase product, phase_sincos's 15 float operations and the two
+# amplitude products
+FOURIER_OPS = DRAW_OPS + 19
+# the rounds in which launch_kernel_times times each kernel
+TIME_ROUNDS = 3
 # instructions a Hopper SM issues per clock on each pipe (lanes): the
 # integer ALU 64, the FMA pipe (float32 FFMA / FMUL / FADD and IMAD) 128,
 # the multi-function unit and the conversions 16, float64 64; 132 SMs at
-# the clock nvidia-smi reports as clocks.max.sm.  The threefry draws (K3,
-# K5) are bound by these, not by PEAK_F32 (pipe_bound)
+# the clock nvidia-smi reports as clocks.max.sm.  K6's Newton steps are
+# bound by these (pipe_bound)
 PIPE_RATE = {'alu': 64, 'fma': 128, 'mufu': 16, 'fp64': 64}
 N_SMS = 132
 # SASS opcodes by pipe (the rest: memory, control, moves, uniform datapath)
@@ -365,6 +410,12 @@ def bound(n_bytes, n_ops):
     to move n_bytes once and do n_ops float32 operations."""
     t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
     return max(t_b, t_o) * 1e3, 'bytes' if t_b >= t_o else 'operations'
+
+
+def ops32_bound(n_bytes, n_ops):
+    """bound() for n_ops 32-bit operations, integer or float, at
+    PEAK_OPS32."""
+    return bound(n_bytes, 2 * n_ops)
 
 
 def nbytes(*ts):
@@ -870,40 +921,21 @@ def check_counts(label, launches, plain, names):
         raise AssertionError(f'{label} did not run through {names} alone')
 
 
-# K3's and K5's operations: K5's Fourier entries draw one element per
-# thread in straight-line code, so the SASS of an entry by pipe is its
-# work per draw (draw_pipes, pipe_bound); a threefry draw of K3 or of the
-# uniform fill is counted as the ALU-pipe instructions of one element of
-# the full-width entry (the draw, its uniform, the phase's few selects);
-# an interpolated value ~25 float32 operations (two cell lookups and the
-# blend) on the FMA pipe
+# K3's operations beside its draws (DRAW_OPS each): an interpolated value
+# ~25 float32 operations (two cell lookups and the blend)
 OPS_PER_VALUE = 25
 
 
-def draw_pipes(lib_path):
-    """{'rows' / 'full': the SASS instructions by pipe of one element of
-    the Fourier row and full-width entries, 'draw': the ALU ones of the
-    latter alone (one threefry draw)} from csrc/rng.cu's library."""
-    pipes = sass_pipes(lib_path)
-    if not pipes:
-        raise AssertionError('no cuobjdump: the threefry bounds count the '
-                             'SASS')
-    full = sass_pipes_of(pipes, 'rng_fourier_kernelILb0E')
-    # the row entry's instance of the main path: four wind channels
-    return {'rows': sass_pipes_of(pipes, 'rng_fourier_kernelILb1ELi4E'),
-            'full': full, 'draw': {'alu': full.get('alu', 0)}}
-
-
-def k3_bound(key, pack, cfg, prop, per_draw, clock):
+def k3_bound(key, pack, cfg, prop):
     """K3's bound on one propose_seeds call.  Bytes: the run-mask cells
     (four corners) of the rounds its slots test, the basin-mask cells (all
     basins) and env cells (vpot and rh of the slot's plane) at each slot's
     final position, and its 11 outputs, each once.  Operations: the draws
     it needs (two per round of the sequential walk up to the first pass;
     month two, rejection one, v_init one) and the values it
-    interpolates: each draw per_draw's ALU instructions, each value
-    OPS_PER_VALUE FMA-pipe ones (pipe_bound at clock).  Returns ((ms,
-    by), the rounds the sequential walk tests)."""
+    interpolates: each draw DRAW_OPS, each value OPS_PER_VALUE
+    (ops32_bound).  Returns ((ms, by), the rounds the sequential walk
+    tests)."""
     from tropical_cyclone_risk_tpu_torch import rng
     from tropical_cyclone_risk_tpu_torch.models import seeding
     from tropical_cyclone_risk_tpu_torch.ops import interp
@@ -934,8 +966,7 @@ def k3_bound(key, pack, cfg, prop, per_draw, clock):
                    ) + nbytes(*prop)
     draws = 2 * n_tested + 4 * n
     values = n_tested + (B + 2) * n
-    return pipe_bound(n_bytes, {'alu': draws * per_draw.get('alu', 0),
-                                'fma': values * OPS_PER_VALUE}, clock), \
+    return ops32_bound(n_bytes, draws * DRAW_OPS + values * OPS_PER_VALUE), \
         n_tested
 
 
@@ -965,12 +996,10 @@ def k3_alone(key, pack, cfg, plane0):
             'alone_event_ms': cuda_ms(launch, 20)}
 
 
-def check_k3_k5(pack_y, cfg_t, card, rng_lib, clock):
+def check_k3_k5(pack_y, cfg_t, card):
     """Phase 4: K3 and K5 against their plain twins on the card at the
-    bench's shapes, then their times and bounds (rng_lib: csrc/rng.cu's
-    built library, whose SASS the threefry bounds count; clock: the SM
-    clock in Hz).  Returns the two kernels' JSON entries (launches are
-    filled in from the workspace path)."""
+    bench's shapes, then their times and bounds.  Returns the two kernels'
+    JSON entries (launches are filled in from the workspace path)."""
     from tropical_cyclone_risk_tpu_torch import rng
     from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
     from tropical_cyclone_risk_tpu_torch.models import pipeline, seeding
@@ -1093,15 +1122,15 @@ def check_k3_k5(pack_y, cfg_t, card, rng_lib, clock):
     main = props['auto-tuned caps']
     ms3_plain = cuda_ms(lambda: seeding.propose_seeds_plain(
         key, pack_y, c, BASIN, N_SEEDS, plane0), 3)
-    per = draw_pipes(rng_lib)
-    (b3, by3), n_tested = k3_bound(key, pack_y, c, main, per['draw'], clock)
+    (b3, by3), n_tested = k3_bound(key, pack_y, c, main)
     log(f'[K3] {card}: propose_seeds {N_SEEDS} slots (caps '
         f'{c.seed_retry_caps}, {n_tested} rounds of the sequential walk): '
         f'kernel {k3t["auto-tuned caps"]["ms"]:.4f} ms device, plain twin '
         f'{ms3_plain:.3f} ms, bound {b3:.5f} ms ({by3})')
     # K5 on the main path: the row draw at the integrate order, one launch
     # per bench launch; beside it the full-width entry (m == n) and the
-    # uniform fill; device times (torch.profiler), bounds from the SASS
+    # uniform fill; device times (torch.profiler), bounds from the least
+    # operations of an element (FOURIER_OPS, a uniform DRAW_OPS + 1)
     amp = fourier._amplitudes(dev)
     order = orders[m]
     rows_call = lambda: k5.fourier_rows_cuda(k5key, shape4, order, amp)
@@ -1115,25 +1144,17 @@ def check_k3_k5(pack_y, cfg_t, card, rng_lib, clock):
                k5key, shape4, c.T_fourier_s, dev, rows=order), 5),
            'full_plain_ms': cuda_ms(lambda: fourier.draw_fourier_plain(
                k5key, shape4, c.T_fourier_s, dev), 5),
-           'draws_rows': A_r.numel(), 'draws_full': fs.A.numel(),
-           'sass_per_draw': per, 'clock_hz': clock}
-    b5, by5 = pipe_bound(nbytes(A_r, B_r, order, amp),
-                         {p: n * A_r.numel() for p, n in per['rows'].items()},
-                         clock)
-    b5f, by5f = pipe_bound(nbytes(fs.A, fs.B, amp),
-                           {p: n * fs.A.numel()
-                            for p, n in per['full'].items()}, clock)
+           'draws_rows': A_r.numel(), 'draws_full': fs.A.numel()}
+    b5, by5 = ops32_bound(nbytes(A_r, B_r, order, amp),
+                          FOURIER_OPS * A_r.numel())
+    b5f, by5f = ops32_bound(nbytes(fs.A, fs.B, amp), FOURIER_OPS * fs.A.numel())
     k5t.update(full_bound_ms=b5f, full_bound_by=by5f)
     shape16 = (seeding.N_RETRY_ROUNDS, N_SEEDS)
     ms5u = cuda_ms(lambda: rng.uniform(k5key, shape16, device=dev), 20)
     ms5u_plain = cuda_ms(lambda: rng.uniform_plain(k5key, shape16,
                                                    device=dev), 5)
-    b5u, by5u = pipe_bound(4 * math.prod(shape16),
-                           {p: n * math.prod(shape16)
-                            for p, n in per['draw'].items()}, clock)
-    log(f'[K5] {card}: SASS instructions per draw by pipe (rows entry, '
-        f'full-width entry) {per["rows"]}, {per["full"]}; SM clock '
-        f'{clock / 1e6:.0f} MHz')
+    b5u, by5u = ops32_bound(4 * math.prod(shape16),
+                            (DRAW_OPS + 1) * math.prod(shape16))
     log(f'[K5] {card}: row draw {N_SEEDS} -> {m} rows {tuple(A_r.shape)}: '
         f'kernel {k5t["rows_ms"]:.4f} ms device ({k5t["rows_event_ms"]:.4f} '
         f'ms event), plain twin {k5t["rows_plain_ms"]:.3f} ms, bound '
@@ -1717,58 +1738,97 @@ def k4_exact(plain):
     return lambda out, *a, **kw: same_parts(out, uncounted(plain, *a, **kw))
 
 
-def launch_kernel_times(k1_calls, k2_calls, k7_calls, draws, stitches,
-                        rng_lib, clock):
+def launch_kernel_times(k1_calls, k2_calls, k7_calls, draws, stitches):
     """Per launch, from the captured calls of one launch: each kernel
     alone (K1 summed over the segments, event time; K2 over the segments,
-    K7's gate, K5's row draw and K4's stitch, device time), its bound as
-    the phases reckon it (K5's from the SASS of the row entry's instance
-    for the launch's channels), and its plain twin's time (K1's on
-    segment 0)."""
+    K7's gate, K5's row draw and K4's stitch, device time, each launch
+    after an L2 flush (cold)), each timed in
+    TIME_ROUNDS rounds, the median and [least, most] of them; its bound as
+    the phases reckon it; and its plain twin's time (K1's on segment 0)."""
     from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
     from tropical_cyclone_risk_tpu_torch.models import diagnostics, simulator
     from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
     from tropical_cyclone_risk_tpu_torch.ops import fourier
-    k1 = [(cuda_ms(k1_launcher(a), K1_REPS), k1_bound(a, out)[0])
-          for a, _, out, _ in k1_calls]
-    k2 = [(device_ms(k2_launcher(a, kw), K2_REPS, ('vmax_kernel',)),
-           k2_bound(a, kw, out)[0],
-           cuda_ms(lambda: uncounted(diagnostics.axi_to_max_wind_raw_plain,
-                                     *a, **kw), 1))
-          for a, kw, out, _ in k2_calls]
+    k1_fns = [k1_launcher(a) for a, *_ in k1_calls]
+    k2_fns = [cold(k2_launcher(a, kw)) for a, kw, *_ in k2_calls]
     (g_args, _, g_out, _), = k7_calls
     (d_args, d_kw, d_out, _), = draws
     (s_args, _, s_out, _) = stitches[0]
-    C = d_out.A.shape[1]
-    per = sass_pipes_of(sass_pipes(rng_lib), f'rng_fourier_kernelILb1ELi{C}E')
-    n5 = d_out.A.numel()
+    res = {}
+    for key, fn in (
+            ('K1', lambda: sum(cuda_ms(f, K1_REPS) for f in k1_fns)),
+            ('K2', lambda: device_ms(lambda: [f() for f in k2_fns], K2_REPS,
+                                     ('vmax_kernel',))),
+            ('K7', lambda: device_ms(cold(integrator.gate_launcher(
+                *g_args)[0]), 20, ('genesis_gate_kernel',))),
+            ('K5', lambda: device_ms(cold(lambda: fourier.draw_fourier(
+                *d_args, **d_kw)), 20, ('rng_fourier',))),
+            ('K4_stitch', lambda: device_ms(cold(k4.launcher(
+                'stitch', *s_args)[0]), 20, ('stitch_kernel',)))):
+        ts = sorted(fn() for _ in range(TIME_ROUNDS))
+        res[key], res[key + '_range'] = ts[len(ts) // 2], [ts[0], ts[-1]]
+    k1b = [k1_bound(a, out) for a, _, out, _ in k1_calls]
+    k2b = [k2_bound(a, kw, out) for a, kw, out, _ in k2_calls]
+    k5b = ops32_bound(nbytes(d_out.A, d_out.B, d_kw['rows']),
+                      FOURIER_OPS * d_out.A.numel())
+    bounds = {'K1': (sum(b[0] for b in k1b), max(k1b)[1]),
+              'K2': (sum(b[0] for b in k2b), max(k2b)[1]),
+              'K7': k7_bound(g_args, g_out), 'K5': k5b,
+              'K4_stitch': stitch_bound(*s_args[:3], s_out)}
+    for key, (ms, by) in bounds.items():
+        res[key + '_bound'], res[key + '_bound_by'] = ms, by
+        res[key + '_below_bound'] = res[key + '_range'][0] < ms
     return {
-        'K1': sum(r[0] for r in k1), 'K1_bound': sum(r[1] for r in k1),
-        'K1_segments': [r[0] for r in k1],
+        **res,
         'K1_plain_segment0': cuda_ms(lambda: uncounted(
             simulator.integrate_segment_plain, *k1_calls[0][0]), 1),
-        'K2': sum(r[0] for r in k2), 'K2_bound': sum(r[1] for r in k2),
-        'K2_plain': sum(r[2] for r in k2),
-        'K7': device_ms(integrator.gate_launcher(*g_args)[0], 20,
-                        ('genesis_gate_kernel',)),
-        'K7_bound': k7_bound(g_args, g_out)[0],
+        'K2_plain': sum(cuda_ms(lambda: uncounted(
+            diagnostics.axi_to_max_wind_raw_plain, *a, **kw), 1)
+            for a, kw, *_ in k2_calls),
         'K7_plain': cuda_ms(lambda: uncounted(simulator.genesis_alive_plain,
                                               *g_args), 5),
-        'K5': device_ms(lambda: fourier.draw_fourier(*d_args, **d_kw), 20,
-                        ('rng_fourier',)),
-        'K5_bound': pipe_bound(nbytes(d_out.A, d_out.B, d_kw['rows']),
-                               {p: n * n5 for p, n in per.items()},
-                               clock)[0],
         'K5_plain': cuda_ms(lambda: fourier.draw_fourier_plain(
             *d_args, **d_kw), 5),
         'K5_shape': list(d_out.A.shape),
-        'K4_stitch': device_ms(k4.launcher('stitch', *s_args)[0], 20,
-                               ('stitch_kernel',)),
-        'K4_stitch_bound': stitch_bound(*s_args[:3], s_out)[0],
         'K4_stitch_plain': cuda_ms(lambda: uncounted(
             compact_ops.stitch_survivors_plain, *s_args), 5),
         'K4_stitch_shape': list(s_out[0]['wnds'].shape)}
+
+
+# bytes written before each launch that cold() times: more than the H100's
+# 50 MB L2, so that the launch reads its inputs from HBM, as the bytes
+# bounds count them, and not from the L2 its previous repetition filled
+L2_FLUSH_BYTES = 256 * 2 ** 20
+
+
+L2_FLUSH = []
+
+
+def cold(fn):
+    """fn preceded by a write of L2_FLUSH_BYTES on the card (a fill
+    kernel, which device_ms leaves out when it times fn's kernels by
+    name), into one buffer that every cold() shares."""
+    if not L2_FLUSH:
+        L2_FLUSH.append(torch.empty(L2_FLUSH_BYTES // 4,
+                                    dtype=torch.float32, device='cuda'))
+
+    def run():
+        L2_FLUSH[0].zero_()
+        return fn()
+    return run
+
+
+def times_line(t, ref, keys):
+    """Each kernel of `keys` in launch_kernel_times' t: its median time,
+    [range], bound and twin, beside ref's median and [range]."""
+    rng = lambda d, k: f'[{d[k + "_range"][0]:.4f}, {d[k + "_range"][1]:.4f}]'
+    return '; '.join(
+        f'{k} {t[k]:.4f} {rng(t, k)} / {ref[k]:.4f} {rng(ref, k)} ms '
+        f'(bound {t[k + "_bound"]:.5f}, {t[k + "_bound_by"]}'
+        f'{", a round below it" if t[k + "_below_bound"] else ""}; twin '
+        f'{t[k + "_plain" if k != "K1" else "K1_plain_segment0"]:.3f})'
+        for k in keys)
 
 
 def check_tracks_levels(ds, cfg, label):
@@ -1805,86 +1865,18 @@ def levels_setup(dev):
     return cfg, pack, cfg_t
 
 
-def check_levels(dev, card, tmp, libs, pack_y, cfg_t, clock, levels):
-    """Phase levels: steering_levels (250, 500, 850) at the bench's width.
-    One launch (_simulate_batch, k_max 64) on the 12-plane 181x360 pack of
-    three levels (levels: levels_setup's), caps auto-tuned, with K1 on
-    every segment bit-exact
-    against its twin, K2 on every segment within K2_TOL, K7, K5's row draw
-    and K4's partitions and stitch bit-exact; K1 on the first and last
-    segment of a launch in each of LEVELS3_MODES; the kernels' per-launch
-    times beside the two-level ones, timed alike on a launch of the
-    two-level pack pack_y at cfg_t; then
-    run_downscaling on that pack and cli.main GL on a workspace with 500
-    hPa winds, counters reset just before and read just after each, their
-    files holding every level's winds.  Returns the per-launch times and
-    the largest errors."""
-    from tropical_cyclone_risk_tpu_torch import cli, kernels, rng, runtime
-    from tropical_cyclone_risk_tpu_torch.config import load_namelist_py
-    from tropical_cyclone_risk_tpu_torch.io import netcdf
-    from tropical_cyclone_risk_tpu_torch.models import (diagnostics,
-                                                        pipeline, simulator)
-    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
-    from tropical_cyclone_risk_tpu_torch.ops import fourier
-    from tropical_cyclone_risk_tpu_torch.utils import synthetic_era5
-    t_phase = time.perf_counter()
-    with captured(simulator, 'integrate_segment') as k1c, \
-            captured(diagnostics, 'axi_to_max_wind_raw') as k2c, \
-            captured(simulator, 'genesis_alive') as k7c, \
-            captured(fourier, 'draw_fourier') as draws, \
-            captured(compact_ops, 'stitch_survivors') as sts:
-        pipeline._simulate_batch(rng.key(94), pack_y, cfg_t, BASIN, N_SEEDS,
-                                 64, cfg_t.start_month - 1)
-    rng_lib = libs['threefry']['path']
-    base = launch_kernel_times(k1c, k2c, k7c, draws, sts, rng_lib, clock)
-    del k1c, k2c, k7c, draws, sts
-    rep = ptxas_report(libs['integrator L3']['log']).get(K1_L3_INSTANCE)
-    sass = sass_local_memory(libs['integrator L3']['path']).get(
-        K1_L3_INSTANCE, 'not read')
-    log(f'[levels] K1 {K1_L3_INSTANCE}: {rep or "no ptxas report"}; SASS '
-        f'local loads/stores {sass}')
-    cfg, pack, cfg_t = levels
-    plane0 = cfg.start_month - 1
-    log(f'[levels] pack winds {tuple(pack.wind.shape)}; integrate_cap '
-        f'{cfg_t.integrate_cap} schedule {cfg_t.recompact_schedule}')
-    with captured(simulator, 'integrate_segment',
-                  lambda out, *a: k1_exact(out, uncounted(
-                      simulator.integrate_segment_plain, *a))) as k1c, \
-            captured(diagnostics, 'axi_to_max_wind_raw',
-                     lambda out, *a, **kw: compare_k2(out, uncounted(
-                         diagnostics.axi_to_max_wind_raw_plain, *a, **kw),
-                         a[5])) as k2c, \
-            captured(simulator, 'genesis_alive', check_k7) as k7c, \
-            captured(fourier, 'draw_fourier', k5_rows_exact) as draws, \
-            captured(compact_ops, 'partition_take',
-                     k4_exact(compact_ops.partition_take_plain)) as parts, \
-            captured(compact_ops, 'stitch_survivors',
-                     k4_exact(compact_ops.stitch_survivors_plain)) as sts:
-        pipeline._simulate_batch(rng.key(94), pack, cfg_t, BASIN, N_SEEDS,
-                                 64, plane0)
-    torch.cuda.synchronize()
-    check_k1_exact('levels', k1c)
-    k2_err = max(c[3][0] for c in k2c)
-    k7_results('levels', k7c)
-    k4_bad = [c[3] for c in parts + sts if c[3]]
-    k5_ok = all(c[3] for c in draws)
-    W = tuple(k2c[0][0][4].shape)
-    log(f'[levels] K2 on {len(k2c)} segments (winds {W}): max abs err '
-        f'{k2_err:.3e}; K5 row draws {[tuple(c[2].A.shape) for c in draws]} '
-        f'bit-exact {k5_ok}; K4 {len(parts)} partitions and {len(sts)} '
-        f'stitch {tuple(sts[0][2][0]["wnds"].shape)} bit-exact '
-        f'{not k4_bad}')
-    if not (k2_err <= K2_TOL and all(c[3][1] for c in k2c) and k5_ok
-            and not k4_bad and W[-1] == 6):
-        raise AssertionError(f'levels: K2 err {k2_err}, K5 {k5_ok}, K4 '
-                             f'{k4_bad}')
-    t3 = launch_kernel_times(k1c, k2c, k7c, draws, sts, rng_lib, clock)
-    del k1c, k2c, k7c, draws, parts, sts
+def k1_modes(label, pack, cfg_t, plane0, modes):
+    """K1 on the first and last segment of an N_SEEDS launch on pack in
+    each of `modes` ({name: (namelist fields, bit-exact)}) against its
+    twin: bit for bit where the mode is exact, else within the K1 bars;
+    K7 on each launch's gate.  Returns {mode: K1's largest error}."""
+    from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.models import simulator
     modes_err = {}
-    for name, (kw, exact) in LEVELS3_MODES.items():
+    for name, (kw, exact) in modes.items():
         calls, gates = mode_calls(rng.key(93), pack, cfg_t.replace(**kw),
                                   plane0, gate=True)
-        k7_results(f'levels {name}', gates)
+        k7_results(f'{label} {name}', gates)
         res = []
         for args, _, out, _ in (calls[0], calls[-1]):
             ref = uncounted(simulator.integrate_segment_plain, *args)
@@ -1896,23 +1888,84 @@ def check_levels(dev, card, tmp, libs, pack_y, cfg_t, clock, levels):
                                   max(err.values()))
             if (exact and not same_bits) or agree < K1_ALIVE_AGREE or any(
                     not err[nm] <= tol for nm, tol in K1_TOL.items()):
-                raise AssertionError(f'levels {name}: K1 alive agreement '
+                raise AssertionError(f'{label} {name}: K1 alive agreement '
                                      f'{agree}, errors {err}, differs in '
                                      f'{diff}')
-        log(f'[levels] {name}: K1 against its twin on the first and last '
+        log(f'[{label}] {name}: K1 against its twin on the first and last '
             f'segment (steps, storms, alive agreement, max abs err, '
             f'bit-exact) {res}')
         del calls
+    return modes_err
+
+
+@contextlib.contextmanager
+def launch_captures(keep=True):
+    """Within the block, the calls of K1, K2, K7, K5's row draw and K4's
+    stitch are captured (captured, keep), yielded as one tuple of the five
+    lists: launch_kernel_times' arguments."""
+    from tropical_cyclone_risk_tpu_torch.models import diagnostics, simulator
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+    from tropical_cyclone_risk_tpu_torch.ops import fourier
+    with captured(simulator, 'integrate_segment', keep=keep) as k1c, \
+            captured(diagnostics, 'axi_to_max_wind_raw', keep=keep) as k2c, \
+            captured(simulator, 'genesis_alive', keep=keep) as k7c, \
+            captured(fourier, 'draw_fourier', keep=keep) as draws, \
+            captured(compact_ops, 'stitch_survivors', keep=keep) as sts:
+        yield k1c, k2c, k7c, draws, sts
+
+
+def check_widths(label, caps, w):
+    """Require the wind channels of a launch's captures (launch_captures)
+    to be w in K2's winds, K5's row draw and K4's stitch."""
+    k1c, k2c, k7c, draws, sts = caps
+    got = (k2c[0][0][4].shape[-1], draws[0][2].A.shape[1],
+           sts[0][2][0]['wnds'].shape[-1])
+    if got != (w, w, w):
+        raise AssertionError(f'{label}: channels {got}, not {w}')
+
+
+def check_levels(dev, card, tmp, libs, pack_y, cfg_t, levels):
+    """Phase levels: steering_levels (250, 500, 850) at the bench's width.
+    One launch on the 12-plane 181x360 pack of three levels (levels:
+    levels_setup's), caps auto-tuned, through the kernels against the same
+    launch through the twins on the card (launch_against_twins: every leaf
+    bit for bit, every kernel launched, no twin); K1 on the first and last
+    segment of a launch in each of LEVELS3_MODES; the kernels' per-launch
+    times beside the two-level ones, timed alike on a launch of the
+    two-level pack pack_y at cfg_t; then
+    run_downscaling on that pack and cli.main GL on a workspace with 500
+    hPa winds, counters reset just before and read just after each, their
+    files holding every level's winds.  Returns the per-launch times and
+    the largest errors."""
+    from tropical_cyclone_risk_tpu_torch import cli, kernels, rng, runtime
+    from tropical_cyclone_risk_tpu_torch.config import load_namelist_py
+    from tropical_cyclone_risk_tpu_torch.io import netcdf
+    from tropical_cyclone_risk_tpu_torch.models import pipeline
+    from tropical_cyclone_risk_tpu_torch.utils import synthetic_era5
+    t_phase = time.perf_counter()
+    with launch_captures() as caps:
+        pipeline._simulate_batch(rng.key(94), pack_y, cfg_t, BASIN, N_SEEDS,
+                                 64, cfg_t.start_month - 1)
+    base = launch_kernel_times(*caps)
+    del caps
+    rep = ptxas_report(libs['integrator L3']['log']).get(K1_L3_INSTANCE)
+    sass = sass_local_memory(libs['integrator L3']['path']).get(
+        K1_L3_INSTANCE, 'not read')
+    log(f'[levels] K1 {K1_L3_INSTANCE}: {rep or "no ptxas report"}; SASS '
+        f'local loads/stores {sass}')
+    cfg, pack, cfg_t = levels
+    plane0 = cfg.start_month - 1
+    log(f'[levels] pack winds {tuple(pack.wind.shape)}; integrate_cap '
+        f'{cfg_t.integrate_cap} schedule {cfg_t.recompact_schedule}')
+    three = launch_against_twins('levels', rng.key(94), pack, cfg_t, plane0,
+                                 capture=True)
+    check_widths('levels', three['caps'], 6)
+    t3 = launch_kernel_times(*three.pop('caps'))
+    modes_err = k1_modes('levels', pack, cfg_t, plane0, LEVELS3_MODES)
     log(f'[levels] {card}: per launch, the kernel alone, three levels '
-        f'against two (this call; bound, plain twin): ' + '; '.join(
-            f'{k} {t3[k]:.4f} / {base[k]:.4f} ms ({t3[k + "_bound"]:.5f}, '
-            f'{t3[k + "_plain"]:.3f} / {base[k + "_plain"]:.3f})'
-            for k in ('K2', 'K7', 'K5', 'K4_stitch')) +
-        f'; K1 {t3["K1"]:.4f} / {base["K1"]:.4f} ms (bound '
-        f'{t3["K1_bound"]:.5f} / {base["K1_bound"]:.5f}, plain twin on '
-        f'segment 0 {t3["K1_plain_segment0"]:.1f} / '
-        f'{base["K1_plain_segment0"]:.1f}); K5 rows {t3["K5_shape"]}, stitch '
-        f'{t3["K4_stitch_shape"]}')
+        f'against two (this call; median [range] of {TIME_ROUNDS} rounds): '
+        + times_line(t3, base, ('K1', 'K2', 'K7', 'K5', 'K4_stitch')) +
+        f'; K5 rows {t3["K5_shape"]}, stitch {t3["K4_stitch_shape"]}')
 
     # run_downscaling on the three-level pack
     cfg_run = cfg.replace(output_directory=f'{tmp}/levels', exp_name='l3')
@@ -1951,9 +2004,323 @@ def check_levels(dev, card, tmp, libs, pack_y, cfg_t, clock, levels):
     log(f'[levels] {card}: cli.main GL one year on a 250/500/850 hPa '
         f'workspace (written in {t_write:.1f} s) in {t_cli:.2f} s: {n_ws} '
         f'tracks; phase {time.perf_counter() - t_phase:.1f} s')
-    return {'ms': t3, 'two_levels_ms': base, 'k2_max_abs_err': k2_err,
+    return {'ms': t3, 'two_levels_ms': base, 'launch': three,
             'k1_modes_max_abs_err': modes_err, 'k1_l3_ptxas': rep,
             'run_s': t_run, 'cli_s': t_cli}
+
+
+# four steering levels, (250, 500, 700, 850) hPa: the levels of CMIP6's
+# plev8 from 250 to 850 hPa (tests/test_torch_levels4.py's coefficients)
+LEVELS4 = dict(steering_levels=(250, 500, 700, 850),
+               steering_coefs=(0.1, 0.2, 0.2, 0.5),
+               y_alpha=(0.1, 0.2, 0.2, 0.5), m_alpha=(0.001, 0.0, 0.0, -0.001),
+               alpha_max=(0.4, 0.4, 0.4, 0.9),
+               alpha_min=(0.05, 0.05, 0.05, 0.5))
+# the modes K1 is held in on the first and last segment of a four-level
+# launch (time_interp_fields runs through the whole launch against the
+# twins instead)
+LEVELS4_MODES = {k: v for k, v in LEVELS3_MODES.items()
+                 if k != 'time_interp_fields'}
+# the [gcm] workspaces' one noleap year
+GCM_YEAR = 2030
+
+
+def launch_fields(body, out):
+    """A launch's leaves that must agree bit for bit: every segment's
+    time-major buffers, the compacted track metadata, compact_survivors'
+    tracks and meta."""
+    segs = (body['tm'],) + tuple(body.get('tms', ()))
+    leaves = {f'seg {i} {f}': t[f] for i, t in enumerate(segs)
+              for f in ('lon', 'lat', 'v', 'm', 'wnds', 'alive', 'vmax')
+              if f in t}
+    leaves.update({f'trk {f}': body['trk'][f]
+                   for f in ('keep', 'month', 'basin_idx')})
+    tracks, meta = out
+    leaves.update({f'tracks {f}': v for f, v in tracks.items()})
+    leaves.update({f'meta {f}': meta[f]
+                   for f in ('keep', 'scalars', 'spm_upto', 'spm_all')})
+    return leaves
+
+
+def same_launches(a, b):
+    """(leaves of launch_fields that differ, largest error of the tracks'
+    float fields where both are finite, 0.0 for a bit-exact pair)."""
+    diff = [k for k in a if not same(a[k], b[k])]
+    err = max(max_err(a[k], b[k]) for k in a
+              if k.startswith('tracks') and a[k].is_floating_point())
+    return diff, err
+
+
+@contextlib.contextmanager
+def timed_calls(mod, name):
+    """Within the block, each call of mod.name appends its wall time in ms
+    (the card synchronised before and after) to the list it yields."""
+    fn, ms = getattr(mod, name), []
+
+    def call(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(mod, name, call)
+    try:
+        yield ms
+    finally:
+        setattr(mod, name, fn)
+
+
+def launch_against_twins(label, key, pack, cfg, plane0, capture=False):
+    """One N_SEEDS launch (launch_body, compact_survivors at k_max 64)
+    through the kernels, counters reset just before and read just after
+    (every kernel of a simulation launched, no twin), and the same launch
+    through the twins on the card (twins_on_card), K1's twin timed per
+    call; requires every leaf bit for bit (launch_fields).  Returns
+    {'launches': the counters, 'calls': the calls of K1, K2, K7, K5's row
+    draw and K4's stitch in the launch through the kernels (each one
+    launch of its kernel), 'max_abs_err': the tracks' largest error,
+    'k1_twin_ms': K1's twin per launch, 'caps': with capture, the calls
+    themselves (launch_captures) for launch_kernel_times}."""
+    from tropical_cyclone_risk_tpu_torch import kernels
+    from tropical_cyclone_risk_tpu_torch.models import pipeline, simulator
+    m = pipeline.launch_width(cfg, N_SEEDS)
+    n_basins = len(cfg.basin_ids_sorted())
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with launch_captures(keep=capture) as caps:
+        body = pipeline.launch_body(key, pack, cfg, BASIN, N_SEEDS, plane0)
+        out = pipeline.compact_survivors(body, m, 64, n_basins)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check_counts(label, launches, dict(kernels.PLAIN_ON_CUDA),
+                 SIMULATION_KERNELS)
+    kern = launch_fields(body, out)
+    del body, out
+    with twins_on_card(), timed_calls(simulator, 'integrate_segment') as ms:
+        body = pipeline.launch_body(key, pack, cfg, BASIN, N_SEEDS, plane0)
+        out = pipeline.compact_survivors(body, m, 64, n_basins)
+        torch.cuda.synchronize()
+    diff, err = same_launches(kern, launch_fields(body, out))
+    n_surv = int(out[1]['scalars'][0])
+    log(f'[{label}] {len(ms)} segments, {n_surv} survivors; through the '
+        f'kernels against the twins on the card: differing leaves '
+        f'{diff or "none"} of {len(kern)}, tracks max abs err {err!r}; '
+        f'K1\'s twin {sum(ms):.1f} ms per launch')
+    if diff or err != 0.0 or n_surv < 1:
+        raise AssertionError(f'{label}: differs from the twins in {diff}, '
+                             f'error {err}, {n_surv} survivors')
+    calls = dict(zip(('integrator', 'vmax', 'genesis', 'threefry rows',
+                      'stitch'), map(len, caps)))
+    return {'launches': launches, 'calls': calls, 'max_abs_err': err,
+            'k1_twin_ms': sum(ms), 'caps': caps if capture else None}
+
+
+def levels4_setup(dev):
+    """The four-level launch inputs: the namelist of LEVELS4 at N_SEEDS
+    seeds for one year, the 12-plane 181x360 synthetic pack of its winds,
+    and the namelist auto-tuned on it."""
+    from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.config import Namelist
+    from tropical_cyclone_risk_tpu_torch.models import fast, fields, pipeline
+    cfg = Namelist(seed_batch=N_SEEDS, start_year=2016, end_year=2016,
+                   **LEVELS4)
+    if fast.deep_layer_indices(cfg) != (0, 1, 6, 7):
+        raise AssertionError(fast.deep_layer_indices(cfg))
+    pack = fields.synthetic_pack(cfg, 12, 181, 360, seed=0, device=dev)
+    cfg_t = pipeline.auto_integrate_cap(rng.fold_in(rng.key(0), 2016), pack,
+                                        cfg, BASIN)
+    return cfg, pack, cfg_t
+
+
+def check_levels4(dev, card, libs, levels3_ms):
+    """Phase levels4: steering_levels (250, 500, 700, 850) at the bench's
+    width, through K1 and K7 (the unit TC_K1_LEVELS=4), K2 at W = 8, K5's
+    row entry at C = 8 and K4's stitch at W = 8.  One launch through the
+    kernels, counters reset just before and read just after, against the
+    same launch through the twins on the card, every leaf bit for bit, and
+    again with time_interp_fields; K1 on the first and last segment with
+    rk_exact_stage_fields and rk_substeps=2 within the K1 bars; the
+    in-scan vmax bit for bit the post-pass (K1's four-level in-scan unit
+    and K2's last-sample entry at W = 8); each kernel's per-launch time
+    alone beside its bound, its twin and the three-level launch's time of
+    [levels] (levels3_ms), and every <4,...> instance's ptxas report.
+    Returns the figures."""
+    from tropical_cyclone_risk_tpu_torch import rng
+    t_phase = time.perf_counter()
+    reps = {}
+    for unit in ('integrator L4', 'integrator L4 diag'):
+        sass = sass_local_memory(libs[unit]['path'])
+        for fn, rep in ptxas_report(libs[unit]['log']).items():
+            if '<4,' in fn:
+                reps[f'{fn}{" (in-scan unit)" if "diag" in unit else ""}'] \
+                    = f'{rep}; SASS local loads/stores {sass.get(fn, "?")}'
+    for fn, rep in reps.items():
+        log(f'[levels4] {fn}: {rep}')
+    cfg, pack, cfg_t = levels4_setup(dev)
+    plane0 = cfg.start_month - 1
+    log(f'[levels4] pack winds {tuple(pack.wind.shape)}; integrate_cap '
+        f'{cfg_t.integrate_cap} schedule {cfg_t.recompact_schedule}')
+    four = launch_against_twins('levels4', rng.key(88), pack, cfg_t, plane0,
+                                capture=True)
+    check_widths('levels4', four['caps'], 8)
+    t4 = launch_kernel_times(*four.pop('caps'))
+    launch_against_twins('levels4 time_interp_fields', rng.key(87), pack,
+                         cfg_t.replace(time_interp_fields=True), plane0)
+    modes_err = k1_modes('levels4', pack, cfg_t, plane0, LEVELS4_MODES)
+    in_scan_err, fix_err = in_scan_k1('levels4', rng.key(86), pack, cfg_t,
+                                      plane0, True, vmax_tol=0.0)
+    log(f'[levels4] {card}: per launch, the kernel alone, four levels '
+        f'against three of [levels] (median [range] of {TIME_ROUNDS} '
+        f'rounds): ' + times_line(t4, levels3_ms, ('K1', 'K2', 'K7', 'K5',
+                                                    'K4_stitch')) +
+        f'; K1\'s twin per launch {four["k1_twin_ms"]:.1f}; K5 rows '
+        f'{t4["K5_shape"]}, stitch {t4["K4_stitch_shape"]}; phase '
+        f'{time.perf_counter() - t_phase:.1f} s')
+    return {'ms': t4, **four, 'k1_modes_max_abs_err': modes_err,
+            'in_scan_k1_max_abs_err': in_scan_err,
+            'in_scan_last_max_abs_err': fix_err, 'ptxas': reps}
+
+
+def check_gcm_tracks(ds, cfg, label):
+    """A tracks file of the GCM path: the variables tests/test_cmip6_e2e.py
+    checks (and every steering level's winds), check_tracks_levels' checks,
+    the year's seeds_per_month and its tracks."""
+    n, peaks = check_tracks_levels(ds, cfg, label)
+    years = ds.variables['tc_years'].data
+    spm = ds.variables['seeds_per_month'].data
+    if not (n == cfg.tracks_per_year and set(years.tolist()) == {
+            cfg.start_year} and spm.shape[0] == 1 and spm.sum() > 0):
+        raise AssertionError(f'{label}: {n} tracks, years {set(years)}, '
+                             f'seeds_per_month {spm.shape}')
+    return n, peaks
+
+
+def check_gcm(dev, tmp, card):
+    """Phase gcm: the CMIP6 path on the card.  A 1-degree one-year
+    workspace of utils/synthetic_cmip6 (noleap days, plev in Pa, tos in
+    degC on the 0.5-degree ocean grid) through cli.main GL at 250/850 hPa,
+    counters reset just before and read just after (every kernel of the
+    workspace path, K6 among them, no twin), each regrid (the thermo
+    driver's 12 SST months, the pack builder's 24 mld and strat months)
+    handed a tensor on the card, the thermo and tracks files checked, the
+    stages timed (on this synthetic workspace's six Amon levels; CMIP6's
+    Amon ta and hus come on the 19 levels of plev19); K6 on the six Amon
+    levels in Pa timed alone beside its bound and twin; the SST regrid on the card against the CPU's, bit for bit,
+    on all 12 months.  Then a workspace with the daily winds on the four
+    plev8 levels from 250 to 850 hPa through cli.main GL at those four
+    levels, the same checks, the u/v500 and u/v700 winds in the file.
+    Returns the figures."""
+    from tropical_cyclone_risk_tpu_torch import cli, kernels, runtime
+    from tropical_cyclone_risk_tpu_torch.config import load_namelist_py
+    from tropical_cyclone_risk_tpu_torch.io import netcdf
+    from tropical_cyclone_risk_tpu_torch.ops import interp
+    from tropical_cyclone_risk_tpu_torch.ops import pi as pi_ops
+    from tropical_cyclone_risk_tpu_torch.preprocess import thermo_driver
+    from tropical_cyclone_risk_tpu_torch.utils import synthetic_cmip6
+    t_phase = time.perf_counter()
+    res = {}
+    for name, day_levels, fields in (
+            ('two levels', synthetic_cmip6.PLEV_DAY, {}),
+            ('four levels', synthetic_cmip6.PLEV8, LEVELS4)):
+        t0 = time.perf_counter()
+        nl = synthetic_cmip6.build(f'{tmp}/gcm {name}', GCM_YEAR, GCM_YEAR,
+                                   seed_batch=N_SEEDS, day_levels=day_levels)
+        with open(nl, 'a') as f:
+            f.write(''.join(f'{k} = {v!r}\n' for k, v in fields.items()))
+        cfg = load_namelist_py(nl)
+        t_write = time.perf_counter() - t0
+        regrids, orig = [], interp.regrid
+
+        def spy(field, *a):
+            regrids.append(getattr(field, 'device', None))
+            return orig(field, *a)
+
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with stage_times() as stages, \
+                captured(pi_ops, 'cape_pi', keep=name == 'two levels') as k6c:
+            interp.regrid = spy
+            try:
+                cli.main(['GL', '--namelist', nl, '--seed', '0'])
+            finally:
+                interp.regrid = orig
+        torch.cuda.synchronize()
+        t_cli = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        check_counts(f'gcm {name}', launches, dict(kernels.PLAIN_ON_CUDA),
+                     WORKSPACE_KERNELS)
+        if len(regrids) != 36 or {str(d) for d in regrids} != {'cuda:0'}:
+            raise AssertionError(f'gcm {name}: regrids on {regrids}')
+        check_thermo_file(thermo_driver.get_fn_thermo(cfg), netcdf,
+                          synthetic_cmip6, f'gcm {name}')
+        n, peaks = check_gcm_tracks(
+            netcdf.read(runtime.get_fn_tracks(cfg, BASIN)), cfg,
+            f'gcm {name}')
+        res[name] = {'write_s': t_write, 'cli_s': t_cli,
+                     'stages_s': dict(stages), 'launches': launches,
+                     'tracks': n}
+        log(f'[gcm] {card}: {name} ({"/".join(map(str, cfg.steering_levels))}'
+            f' hPa; daily winds on {len(day_levels)} levels, workspace '
+            f'written in {t_write:.1f} s): cli.main GL one year in '
+            f'{t_cli:.2f} s; stages (s) '
+            f'{json.dumps({k: round(v, 3) for k, v in stages.items()})}; '
+            f'{n} tracks, peak v {peaks.min():.1f}..{peaks.max():.1f} m/s; '
+            f'every regrid on the card (12 SST and 24 climatology months)')
+        if name == 'two levels':
+            (k6_args, k6_kw, k6_out, _), = k6c
+            ref = uncounted(pi_ops.cape_pi_plain, *k6_args, **k6_kw)
+            if not same(k6_out, ref):
+                raise AssertionError('gcm: K6 differs from its twin')
+            k6 = {'ms': device_ms(lambda: pi_ops.cape_pi(*k6_args, **k6_kw),
+                                  20, ('cape_pi_kernel',)),
+                  'plain_ms': cuda_ms(lambda: uncounted(
+                      pi_ops.cape_pi_plain, *k6_args, **k6_kw), 2),
+                  'shape': list(k6_args[3].shape),
+                  'levels': 'the synthetic workspace\'s six Amon levels '
+                            '(CMIP6 Amon files: plev19)'}
+            k6['bound_ms'], k6['bound_by'] = k6_bound(k6_args, k6_out)
+            res['k6'] = k6
+            log(f'[gcm] {card}: K6 on {k6["shape"]} (the synthetic '
+                f'workspace\'s six Amon levels in Pa, months, lat, lon; '
+                f'CMIP6 Amon files hold plev19) bit-exact against its twin; kernel '
+                f'{k6["ms"]:.4f} ms device, bound {k6["bound_ms"]:.4f} ms '
+                f'({k6["bound_by"]}), twin {k6["plain_ms"]:.3f} ms')
+            del k6c, k6_args, k6_out, ref
+            res['regrid'] = check_regrid(cfg, interp, netcdf, dev, card)
+    res['phase_s'] = time.perf_counter() - t_phase
+    log(f'[gcm] phase {res["phase_s"]:.1f} s')
+    return res
+
+
+def check_regrid(cfg, interp, netcdf, dev, card):
+    """The workspace's tos (12 months on the ocean grid, NaN as 0) regridded
+    onto the atmosphere grid on the card and on the CPU: bit for bit (the
+    same float32 operations in the same order).  Returns its figures."""
+    from tropical_cyclone_risk_tpu_torch.io import input as tcin
+    from tropical_cyclone_risk_tpu_torch.utils import synthetic_cmip6
+    ds = netcdf.read(tcin.glob_prefix(cfg, 'tos')[0])
+    tos = np.nan_to_num(np.asarray(ds['tos'].data, np.float32))
+    lon_s, lat_s = np.asarray(ds['lon'].data), np.asarray(ds['lat'].data)
+    lon_a, lat_a = synthetic_cmip6.grids(False)
+    months = torch.from_numpy(tos)
+    card_out = torch.stack([interp.regrid(x, lon_s, lat_s, lon_a, lat_a)
+                            for x in months.to(dev)])
+    cpu_out = torch.stack([interp.regrid(x, lon_s, lat_s, lon_a, lat_a)
+                           for x in months])
+    ok = same(card_out.cpu(), cpu_out)
+    err = max_err(card_out.cpu(), cpu_out)
+    ms = cuda_ms(lambda: [interp.regrid(x, lon_s, lat_s, lon_a, lat_a)
+                          for x in months.to(dev)], 5)
+    log(f'[gcm] {card}: SST regrid {tuple(tos.shape)} -> '
+        f'{tuple(card_out.shape)} on the card against the CPU: bit-exact '
+        f'{ok} (max abs err {err}); {ms:.3f} ms for 12 months')
+    if not ok:
+        raise AssertionError(f'gcm: the SST regrid on the card differs from '
+                             f'the CPU\'s by {err}')
+    return {'bit_exact': ok, 'ms_12_months': ms}
 
 
 def fix_calls():
@@ -2030,10 +2397,10 @@ def same_launch(off, on):
                   else math.inf)
 
 
-def in_scan_k1(label, key, pack, cfg, plane0, exact):
+def in_scan_k1(label, key, pack, cfg, plane0, exact, vmax_tol=K2_TOL):
     """One full-width launch (_simulate_batch, k_max 64) on cfg with and
     without vmax_in_scan (the same key): the tracks and verdicts
-    bit-identical and vmax within K2_TOL (same_launch); K1's in-scan
+    bit-identical and vmax within vmax_tol (same_launch); K1's in-scan
     instance against its twin on the first and last segment, on the vmax
     as K1 wrote it (the last-sample entry then fixes it in place):
     bit-exact where `exact`, else K1_ALIVE_AGREE of the storms on the
@@ -2055,7 +2422,7 @@ def in_scan_k1(label, key, pack, cfg, plane0, exact):
     log(f'[in-scan] {label}: {int(on[1]["scalars"][0])} survivors, in-scan '
         f'against post-pass: not bit-identical {diff or "none"}, stitched '
         f'vmax max abs err {t_err:.3e}')
-    if diff or not t_err <= K2_TOL:
+    if diff or not t_err <= vmax_tol:
         raise AssertionError(f'in-scan {label}: differs in {diff}, vmax '
                              f'{t_err}')
     res, worst = [], {}
@@ -2242,10 +2609,10 @@ def card_line():
 
 
 def build_all(dev):
-    """nvcc for K1 with K7 (a library per unit: two and three steering
-    levels, each with and without the in-scan vmax), K2, K3, K4, K5 and K6
-    in nine threads (nine processes at once); logs the wall time of the
-    builds, each build's seconds, each kernel's registers,
+    """nvcc for K1 with K7 (a library per unit: two, three and four
+    steering levels, each with and without the in-scan vmax), K2, K3, K4,
+    K5 and K6 in eleven threads (eleven processes at once); logs the wall
+    time of the builds, each build's seconds, each kernel's registers,
     stack frame, spills and SASS local-memory instructions (K1's and K7's
     instances of every stack layout among them); requires K1's default
     instance to have neither a stack frame nor spills, and K1's sin and
@@ -2431,15 +2798,6 @@ def sass_pipes(lib_path):
     return out
 
 
-def sass_pipes_of(pipes, fragment):
-    """The entry of sass_pipes whose mangled name contains `fragment`."""
-    found = [v for k, v in pipes.items() if fragment in k]
-    if len(found) != 1:
-        raise AssertionError(f'{len(found)} kernels named like {fragment} '
-                             f'in the SASS ({sorted(pipes)})')
-    return found[0]
-
-
 def sass_counts(lib_path):
     """{kernel: (SASS instructions, [instructions in each loop])} of a
     built library by cuobjdump -sass: a loop is the span from a backward
@@ -2619,7 +2977,7 @@ def main():
     del k1_calls, k2_calls, k7_calls, args0, v_args, v_kw, g_args, g_out
 
     # ---- 4. K3 and K5 against their plain twins --------------------------
-    k35 = check_k3_k5(pack_y, cfg_t, card, libs['threefry']['path'], clock)
+    k35 = check_k3_k5(pack_y, cfg_t, card)
     plane0 = cfg.start_month - 1
 
     # ---- K4 against its plain twins on a launch's compactions ------------
@@ -2911,9 +3269,15 @@ def main():
                                 levels_in)
 
         # ---- 9e. levels: three steering levels through every kernel ------
-        levels = check_levels(dev, card, tmp, libs, pack_y, cfg_t, clock,
+        levels = check_levels(dev, card, tmp, libs, pack_y, cfg_t,
                               levels_in)
         del levels_in
+
+        # ---- 9e2. levels4: four steering levels through every kernel ----
+        levels4 = check_levels4(dev, card, libs, levels['ms'])
+
+        # ---- 9e3. gcm: the CMIP6 workspace path --------------------------
+        gcm = check_gcm(dev, tmp, card)
 
         # ---- 9f. mesh: seed-axis sharding on the card ---------------------
         mesh_res, mesh_launches = check_mesh(dev, card, tmp, cfg_t, pack24,
@@ -3033,6 +3397,47 @@ def main():
         k['mesh_launches'] = mesh_launches[k['name']]
         k['ms_timing'] = ms_timing(k['name'])
     k4_entry['mesh'] = mesh_res
+    by_name = {k['name']: k for k in entries}
+    by_name['cape_pi']['gcm'] = gcm['k6']
+    # the four-level instances, launched by the [levels4] launch, and by
+    # the four-level run of [gcm]: launches are the instance's own in the
+    # launch, counter_launches its counter's total there (and in [gcm]);
+    # max_abs_err the launch's against the twins (every leaf compared)
+    t4 = levels4['ms']
+    gcm4 = gcm['four levels']['launches']
+    for name, key, counter, call, source, replaces, inst in (
+            ('integrator_l4', 'K1', 'integrator', 'integrator',
+             'integrator.cu', 'models/simulator.py:111',
+             'integrate_segment_kernel<4,*,*,*,*> (unit TC_K1_LEVELS=4)'),
+            ('genesis_l4', 'K7', 'genesis', 'genesis', 'integrator.cu',
+             'models/simulator.py:295', 'genesis_gate_kernel<4,*>'),
+            ('vmax_l4', 'K2', 'vmax', 'vmax', 'vmax.cu',
+             'models/diagnostics.py:193', 'vmax_kernel<8>'),
+            ('threefry_rows_l4', 'K5', 'threefry', 'threefry rows', 'rng.cu',
+             'ops/fourier.py:84', 'rng_fourier_kernel<1,8>'),
+            ('compact_stitch_l4', 'K4_stitch', 'compact', 'stitch',
+             'compact.cu', 'ops/compact.py:30',
+             'stitch_kernel<0> at W = 8')):
+        entries.append({
+            'name': name, 'route': 'cuda', 'source': src + 'csrc/' + source,
+            'replaces': 'tropical_cyclone_risk_tpu/' + replaces,
+            'launches': levels4['calls'][call],
+            'max_abs_err': levels4['max_abs_err'], 'ms': t4[key],
+            'plain_ms': t4[key + '_plain' if key != 'K1'
+                           else 'K1_plain_segment0'],
+            'bound_ms': t4[key + '_bound'],
+            'bound_by': t4[key + '_bound_by'], 'library_ms': None,
+            'instance': inst, 'ms_range': t4[key + '_range'],
+            'per': f'the four-level bench-width launch of [levels4] (the '
+                   f'kernel alone, median of {TIME_ROUNDS} rounds' +
+                   ('; plain_ms on segment 0)' if key == 'K1' else ')'),
+            'counter': counter, 'counter_launches': levels4['launches'][counter],
+            'gcm_counter_launches': gcm4[counter],
+            'ms_timing': ms_timing(counter)})
+    next(k for k in entries if k['name'] == 'integrator_l4').update(
+        ptxas=levels4['ptxas'], twin_launch_ms=levels4['k1_twin_ms'],
+        modes_max_abs_err=levels4['k1_modes_max_abs_err'],
+        in_scan_max_abs_err=levels4['in_scan_k1_max_abs_err'])
     log(f'[summary] {card}: host synchronisations per launch {n_sync}; '
         f'BAM {json.dumps(bam_res)}; '
         f'bench peak {bench_peak:.2f} MiB; bench sim-years/min '
@@ -4016,6 +4421,97 @@ def drivers_times(root):
     print(json.dumps({'root': root, 'card': card, 'drivers': out}))
 
 
+def sass_of(lib_path):
+    """{kernel's mangled name: its SASS instructions without addresses}
+    of a built library (cuobjdump -sass); the anonymous namespace's
+    per-file hash is masked, so the same code built from two paths
+    compares equal."""
+    import re
+    text = cuobjdump('-sass', lib_path)
+    if text is None:
+        raise RuntimeError('cuobjdump not found')
+    out = {}
+    for part in re.split(r'\n\s*Function : ', text)[1:]:
+        name = re.sub(r'_GLOBAL__N__[0-9a-f]+_', '_GLOBAL__N_',
+                      part.split('\n', 1)[0].strip())
+        out[name] = [' '.join(m.group(1).split()) for m in re.finditer(
+            r'/\*[0-9a-f]{4,}\*/\s+([^;]*;)', part)]
+    return out
+
+
+def sass_against(root):
+    """--sass ROOT: every library of this tree's csrc/ (one per unit of
+    csrc/integrator.cu: the level counts of kernels/integrator.py
+    LEVELS_TAKEN, with and without the in-scan vmax) built with nvcc here
+    and from the same source under ROOT (the units of ROOT's own
+    LEVELS_TAKEN), with the same flags and definitions, and their
+    cuobjdump -sass compared kernel by kernel.  Prints each library's
+    kernels that are identical in both trees, that differ, and that one
+    tree alone has, then one JSON line.  Needs nvcc and cuobjdump; run on
+    a parent and its change, it shows which kernels a change left
+    untouched."""
+    import ast
+    import concurrent.futures
+    import re
+    from pathlib import Path
+    from tropical_cyclone_risk_tpu_torch.kernels import build as kbuild
+    from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    trees = {'here': kbuild.PKG,
+             'root': Path(os.path.abspath(root)) /
+             'tropical_cyclone_risk_tpu_torch'}
+    taken = {'here': integrator.LEVELS_TAKEN, 'root': ast.literal_eval(
+        re.search(r'^LEVELS_TAKEN = (\(.*?\))', (
+            trees['root'] / 'kernels' / 'integrator.py').read_text(),
+            re.M).group(1))}
+    work = tempfile.mkdtemp(prefix='sass_')
+    jobs = []
+    for tree, pkg in trees.items():
+        for src in sorted((kbuild.PKG / 'csrc').glob('*.cu')):
+            units = ([(('TC_K1_LEVELS', lv), ('TC_K1_DIAG', int(d)))
+                      for lv in taken[tree] for d in (False, True)]
+                     if src.stem == 'integrator' else [()])
+            jobs += [(tree, pkg / 'csrc' / src.name, defs) for defs in units]
+
+    def build(job):
+        tree, src, defs = job
+        lib = os.path.join(work, f'{tree}_{src.stem}'
+                           + ''.join(f'_{v}' for _, v in defs) + '.so')
+        res = subprocess.run([kbuild._nvcc(), *kbuild.NVCC_FLAGS,
+                              *(f'-D{k}={v}' for k, v in defs), '-o', lib,
+                              str(src)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f'nvcc failed on {src}:\n{res.stderr}')
+        return job, sass_of(lib)
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(build, jobs))
+    libs = {}
+    for (tree, src, defs), funcs in built:
+        key = src.stem + ''.join(f' {k}={v}' for k, v in defs)
+        libs.setdefault(key, {})[tree] = funcs
+    out = {'root': os.path.abspath(root), 'identical': 0, 'differ': [],
+           'only_here': [], 'only_root': []}
+    for key, by_tree in sorted(libs.items()):
+        here, there = by_tree.get('here', {}), by_tree.get('root', {})
+        same_k = [kernel_label(f) for f in here
+                  if f in there and here[f] == there[f]]
+        differ = [kernel_label(f) for f in here
+                  if f in there and here[f] != there[f]]
+        only_h = [kernel_label(f) for f in here if f not in there]
+        only_r = [kernel_label(f) for f in there if f not in here]
+        out['identical'] += len(same_k)
+        for field, names in (('differ', differ), ('only_here', only_h),
+                             ('only_root', only_r)):
+            out[field] += [f'{key}: {n}' for n in names]
+        log(f'[sass] {key}: identical {len(same_k)} {sorted(same_k)}; '
+            f'differ {differ}; only here {only_h}; only at ROOT {only_r}')
+    log(f'[sass] {len(jobs)} nvcc processes in '
+        f'{time.perf_counter() - t0:.1f} s')
+    print(json.dumps(out))
+    return 0
+
+
 def ranks_cfg(out_dir):
     """The --ranks mode's namelist: the bench's seeds per launch over two
     years of the 24-plane pack, written under out_dir."""
@@ -4167,4 +4663,6 @@ if __name__ == '__main__':
         sys.exit(drivers_times(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == '--ranks':
         sys.exit(ranks_times(int(sys.argv[2])))
+    if len(sys.argv) == 3 and sys.argv[1] == '--sass':
+        sys.exit(sass_against(sys.argv[2]))
     sys.exit(main())

@@ -133,8 +133,8 @@ def test_gate_wrapper_refuses_what_k1_refuses(packs):
     """CPU tensors (ValueError), and every option K1 raises on
     (NotImplementedError): a cell row that does not fit the stack layout
     (84 channels where land and bathymetry have a grid of their own, which
-    takes 76), four steering levels (the kernels are built for two and
-    three); nothing is launched or counted.
+    takes 76), five steering levels (the kernels are built for two, three
+    and four); nothing is launched or counted.
     Land and bathymetry on their own grids are K1's and K7's since they
     take those layouts (tests/test_torch_geo.py); fixed positions too, so
     with debug_fixed_position the wrapper refuses only the CPU tensors."""
@@ -152,9 +152,9 @@ def test_gate_wrapper_refuses_what_k1_refuses(packs):
         integrator.genesis_gate_cuda(stacks,
                                      Namelist(debug_fixed_position=True),
                                      ty, tp, keep_in)
-    with pytest.raises(NotImplementedError, match='steering levels'):
+    with pytest.raises(NotImplementedError, match='2, 3 or 4 steering levels'):
         integrator.genesis_gate_cuda(
-            stacks, Namelist(steering_levels=(250, 500, 700, 850),
-                             steering_coefs=(0.2, 0.2, 0.2, 0.4)), ty, tp,
-            keep_in)
+            stacks, Namelist(steering_levels=(250, 400, 500, 700, 850),
+                             steering_coefs=(0.2, 0.2, 0.2, 0.2, 0.2)), ty,
+            tp, keep_in)
     assert not any(kernels.LAUNCHES.values())

@@ -52,8 +52,9 @@ def test_every_module_imports_with_jax_blocked():
     assert {'tropical_cyclone_risk_tpu_torch.' + m for m in (
         'kernels.compact', 'kernels.vmax', 'kernels.integrator', 'bench',
         'analysis', 'utils.util', 'ops.sphere', 'models.bam',
-        'parallel.sharding', 'parallel.distributed')} <= set(
-            MODULES)
+        'parallel.sharding', 'parallel.distributed', 'scripts',
+        'scripts.download_era5', 'scripts.download_cmip6',
+        'utils.synthetic_cmip6')} <= set(MODULES)
     code = ("import sys, importlib\n"
             f"for b in {BLOCKED!r}: sys.modules[b] = None\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"

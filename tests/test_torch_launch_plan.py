@@ -225,11 +225,16 @@ def test_k1_fixed_position_flag(fixed):
 
 
 def test_k1_steering_order_refuses_other_levels():
-    """Four steering levels, the first count the kernels are not built
-    for, raise NotImplementedError naming the counts they take; levels
-    without 250 and 850 hPa raise fast.deep_layer_indices' ValueError."""
-    with pytest.raises(NotImplementedError, match='2 or 3 steering levels'):
-        integrator.levels(Namelist(steering_levels=(250, 500, 700, 850)))
+    """Five steering levels, the first count the kernels are not built
+    for, raise NotImplementedError naming the counts they take (four, the
+    last count built, is taken); levels without 250 and 850 hPa raise
+    fast.deep_layer_indices' ValueError."""
+    assert integrator.levels(Namelist(
+        steering_levels=(250, 500, 700, 850))) == 4
+    with pytest.raises(NotImplementedError,
+                       match='2, 3 or 4 steering levels, got 5'):
+        integrator.levels(Namelist(steering_levels=(250, 400, 500, 700,
+                                                    850)))
     with pytest.raises(ValueError, match='250 and 850'):
         integrator.levels(Namelist(steering_levels=(500, 850)))
 

@@ -67,28 +67,23 @@ def packs():
     return jpack, fields.pack_from_numpy(jpack, device='cpu')
 
 
-def test_run_downscaling_three_levels_matches_jax(packs, tmp_path):
-    """run_downscaling for one year from the same seed in both packages:
-    the same variables (all six u/v{250,500,850}_trks among them), dims
-    and dtypes, the same seeds_per_month and months, the tracks within
-    1e-3 deg and their winds within 1e-2 m/s; the deep-layer shear on 250
-    and 850 hPa, skipping 500 (JAX tests/test_simulator.py:415)."""
-    run_kw = dict(tracks_per_year=2, start_year=2016, end_year=2016,
-                  exp_name='w3')
-    cfg = CFG.replace(**run_kw)
-    assert fast.deep_layer_indices(cfg) == (0, 1, 4, 5)
-    assert jfast.deep_layer_indices(JCFG) == (0, 1, 4, 5)
+def run_downscaling_matches_jax(jpack, tpack, cfg, jcfg, tmp_path):
+    """run_downscaling for one year from the same seed (3) in both
+    packages on cfg / jcfg: the same variables (every u/v{level}_trks
+    among them), dims and dtypes, the same seeds_per_month and months, the
+    tracks within 1e-3 deg and their winds within TRACK_TOL, the 500 hPa
+    winds finite at genesis.  Returns the port's file."""
     files = {}
     for name, run, pack, c, kw in (
-            ('jax', jruntime.run_downscaling, packs[0],
-             JCFG.replace(**run_kw), {'key': jax.random.key(3)}),
-            ('torch', runtime.run_downscaling, packs[1], cfg, {'seed': 3})):
+            ('jax', jruntime.run_downscaling, jpack, jcfg,
+             {'key': jax.random.key(3)}),
+            ('torch', runtime.run_downscaling, tpack, cfg, {'seed': 3})):
         c = c.replace(output_directory=str(tmp_path / name))
         files[name] = (jnetcdf if name == 'jax' else netcdf).read(
             run(c, 'GL', pack, **kw))
     dj, dt = files['jax'], files['torch']
     assert set(dt.variables) == set(dj.variables)
-    winds = [f'{c}{lv}_trks' for lv in (250, 500, 850) for c in 'uv']
+    winds = [f'{c}{lv}_trks' for lv in cfg.steering_levels for c in 'uv']
     assert set(winds) <= set(dt.variables)
     for k, vj in dj.variables.items():
         vt = dt.variables[k]
@@ -103,12 +98,25 @@ def test_run_downscaling_three_levels_matches_jax(packs, tmp_path):
         np.testing.assert_allclose(dt.variables[k].data, dj.variables[k].data,
                                    rtol=0, atol=tol, err_msg=k)
     assert np.isfinite(dt.variables['u500_trks'].data[:, 0]).all()
+    return dt
 
 
-@pytest.fixture(scope='module')
-def storms():
-    """Ocean genesis positions, intensities, planes and three-level
-    Fourier draws, the same on both sides."""
+def test_run_downscaling_three_levels_matches_jax(packs, tmp_path):
+    """run_downscaling_matches_jax at three levels (all six
+    u/v{250,500,850}_trks); the deep-layer shear on 250 and 850 hPa,
+    skipping 500 (JAX tests/test_simulator.py:415)."""
+    run_kw = dict(tracks_per_year=2, start_year=2016, end_year=2016,
+                  exp_name='w3')
+    cfg = CFG.replace(**run_kw)
+    assert fast.deep_layer_indices(cfg) == (0, 1, 4, 5)
+    assert jfast.deep_layer_indices(JCFG) == (0, 1, 4, 5)
+    run_downscaling_matches_jax(*packs, cfg, JCFG.replace(**run_kw),
+                                tmp_path)
+
+
+def storms_of(W):
+    """Ocean genesis positions, intensities, planes and Fourier draws of W
+    wind channels, the same on both sides."""
     r = np.random.default_rng(13)
     lon = r.uniform(130.0, 170.0, N).astype(np.float32)
     lat = r.uniform(8.0, 25.0, N).astype(np.float32)
@@ -116,7 +124,7 @@ def storms():
     m = r.uniform(0.4, 0.8, N).astype(np.float32)
     plane = r.integers(0, 12, N).astype(np.int32)
     h_bl = np.full(N, 1400.0, np.float32)
-    fj = jfourier.draw_fourier(jax.random.key(5), (N, 6), CFG.T_fourier_s)
+    fj = jfourier.draw_fourier(jax.random.key(5), (N, W), CFG.T_fourier_s)
     jy = jfast.State(*(jnp.asarray(x) for x in (lon, lat, v, m)))
     jp = jfast.SeedParams(jnp.asarray(plane), jnp.asarray(h_bl), fj)
     ty = fast.State(*(torch.from_numpy(x) for x in (lon, lat, v, m)))
@@ -128,15 +136,18 @@ def storms():
     return jy, jp, ty, tp
 
 
-@pytest.mark.parametrize('mode', list(MODES))
-def test_integrate_segment_three_levels_matches_jax(packs, storms, mode):
-    """N_STEPS steps of 64 storms at three levels from one carry in the
-    default strided, per-step, time-interpolated and sub-stepped modes,
-    against the JAX package's integrate_segment; the winds [T, N, 6]."""
-    jpack, tpack = packs
+@pytest.fixture(scope='module')
+def storms():
+    return storms_of(6)
+
+
+def segment_matches_jax(jpack, tpack, storms, cfg, jcfg):
+    """N_STEPS steps of the N storms from one carry on cfg / jcfg against
+    the JAX package's integrate_segment: no kernel launched, the winds
+    [T, N, W], ALIVE_AGREE of the storms on the same alive history, the
+    samples alive in both within TRACK_TOL."""
     jy, jp, ty, tp = storms
-    cfg = CFG.replace(**MODES[mode])
-    jcfg = JCFG.replace(**MODES[mode])
+    W = cfg.n_wind_levels
     bounds = jbasins.basin_bounds(jcfg, 'GL')
     alive0 = np.ones(N, bool)
 
@@ -145,23 +156,31 @@ def test_integrate_segment_three_levels_matches_jax(packs, storms, mode):
         return jsim.integrate_segment(jfields.build_stacks(pack), jcfg,
                                       bounds, y, a0, params, 0, n)
 
-    outs_j, (yend_j, aend_j) = ref(jpack, jy, jnp.asarray(alive0), jp,
-                                   N_STEPS)
+    outs_j, (_, aend_j) = ref(jpack, jy, jnp.asarray(alive0), jp, N_STEPS)
     kernels.reset_counts()
-    outs, (yend, aend) = simulator.integrate_segment(
+    outs, (_, aend) = simulator.integrate_segment(
         fields.build_stacks(tpack), cfg, basins.basin_bounds(cfg, 'GL'), ty,
         torch.from_numpy(alive0), tp, 0, N_STEPS)
     assert kernels.LAUNCHES == dict.fromkeys(kernels.NAMES, 0)
-    assert outs[4].shape == (N_STEPS, N, 6)
+    assert outs[4].shape == (N_STEPS, N, W)
     al, al_j = outs[5].numpy(), np.asarray(outs_j[5])
     same = (al == al_j).all(axis=0) & (aend.numpy() == np.asarray(aend_j))
     assert same.mean() >= ALIVE_AGREE
     both = al & al_j & same[None]
     for i, nm in enumerate(('lon', 'lat', 'v', 'm', 'wnds')):
         a, b = outs[i].numpy(), np.asarray(outs_j[i])
-        msk = both if a.ndim == 2 else both[..., None].repeat(6, -1)
+        msk = both if a.ndim == 2 else both[..., None].repeat(W, -1)
         np.testing.assert_allclose(a[msk], b[msk], rtol=0,
                                    atol=TRACK_TOL[nm], err_msg=nm)
+
+
+@pytest.mark.parametrize('mode', list(MODES))
+def test_integrate_segment_three_levels_matches_jax(packs, storms, mode):
+    """segment_matches_jax at three levels in the default strided,
+    per-step, time-interpolated and sub-stepped modes; the winds [T, N,
+    6]."""
+    segment_matches_jax(*packs, storms, CFG.replace(**MODES[mode]),
+                        JCFG.replace(**MODES[mode]))
 
 
 def _fp_names(levels):
@@ -194,47 +213,55 @@ def _ip_names():
     return re.findall(r'([\w.\[\]]+) = \*ip\+\+;', body)
 
 
+def k1_params_match(stacks, cfg, shear, diag):
+    """K1's parameter block on cfg's L levels: the per-level steering
+    coefficients where read_params reads each, the deep-layer shear's four
+    channels, the unit (L levels, the in-scan vmax or not), t_last, and
+    the float32 reciprocal of the output interval of vmax_at; K7's block
+    is K1's."""
+    L = cfg.n_steering_levels
+    geometry = integrator.launch_geometry(4097, 132)
+    fp, ip = integrator._params(stacks, cfg, (0.0, -60.0, 360.0, 60.0), 4097,
+                                60, 3, 20, 0, 1.0, False, geometry, diag, 180)
+    fnames, inames = _fp_names(L), _ip_names()
+    assert len(fnames) == fp.size and len(inames) == ip.size
+    f = dict(zip(fnames, fp.tolist()))
+    for name in ('y_alpha', 'm_alpha', 'alpha_min', 'alpha_max'):
+        np.testing.assert_array_equal(
+            [f[f'p.{name}[{i}]'] for i in range(L)],
+            np.float32(getattr(cfg, name)), err_msg=name)
+    np.testing.assert_array_equal([f[f'p.steer[{i}]'] for i in range(L)],
+                                  np.float32(cfg.steering_coefs))
+    assert f['p.vc.inv_dt'] == np.float32(1.0) / np.float32(3600.0)
+    assert f['p.dt_out'] == 3600.0
+    i = dict(zip(inames, ip.tolist()))
+    assert (i['p.iu2'], i['p.iv2'], i['p.iu8'], i['p.iv8']) == shear
+    assert (i['l.levels'], i['l.diag'], i['p.t_last']) == (L, int(diag), 180)
+    assert tuple(ip[-3:]) == geometry
+    fg, ig = integrator.gate_params(stacks, cfg, 1000)
+    np.testing.assert_array_equal(fg, integrator._params(
+        stacks, cfg, (0.0,) * 4, 1000, 0, 1, 0, 0, 0.0, False, (0, 0, 0))[0])
+    assert dict(zip(inames, ig.tolist()))['l.levels'] == L
+
+
 @pytest.mark.parametrize('diag', [False, True])
 def test_k1_params_three_levels(packs, diag):
-    """K1's parameter block at three levels: the per-level steering
-    coefficients where read_params reads each, the deep-layer shear's four
-    channels (0, 1, 4, 5), the unit (3 levels, the in-scan vmax or not),
-    t_last, and the float32 reciprocal of the output interval and twice
-    the earth radius in km of vmax_at; K7's block is K1's."""
+    """k1_params_match at three levels: the shear on channels (0, 1, 4,
+    5), the 27 wind-stat channels in a 136-float in-cell row."""
     _, tpack = packs
     stacks = fields.build_stacks(tpack)
     assert stacks.n_wind_ch == integrator.wind_channels(3) == 27
     assert stacks.cell4.shape[-1] == integrator.cell_row(
         integrator.IN_CELL, 3) == 136
-    geometry = integrator.launch_geometry(4097, 132)
-    fp, ip = integrator._params(stacks, CFG, (0.0, -60.0, 360.0, 60.0), 4097,
-                                60, 3, 20, 0, 1.0, False, geometry, diag, 180)
-    fnames, inames = _fp_names(3), _ip_names()
-    assert len(fnames) == fp.size and len(inames) == ip.size
-    f = dict(zip(fnames, fp.tolist()))
-    for name in ('y_alpha', 'm_alpha', 'alpha_min', 'alpha_max'):
-        np.testing.assert_array_equal(
-            [f[f'p.{name}[{i}]'] for i in range(3)],
-            np.float32(getattr(CFG, name)), err_msg=name)
-    np.testing.assert_array_equal([f[f'p.steer[{i}]'] for i in range(3)],
-                                  np.float32(CFG.steering_coefs))
-    assert f['p.vc.inv_dt'] == np.float32(1.0) / np.float32(3600.0)
-    assert f['p.dt_out'] == 3600.0
-    i = dict(zip(inames, ip.tolist()))
-    assert (i['p.iu2'], i['p.iv2'], i['p.iu8'], i['p.iv8']) == (0, 1, 4, 5)
-    assert (i['l.levels'], i['l.diag'], i['p.t_last']) == (3, int(diag), 180)
-    assert tuple(ip[-3:]) == geometry
-    fg, ig = integrator.gate_params(stacks, CFG, 1000)
-    np.testing.assert_array_equal(fg, integrator._params(
-        stacks, CFG, (0.0,) * 4, 1000, 0, 1, 0, 0, 0.0, False, (0, 0, 0))[0])
-    assert dict(zip(inames, ig.tolist()))['l.levels'] == 3
+    k1_params_match(stacks, CFG, (0, 1, 4, 5), diag)
 
 
 def test_k1_k7_wrappers_take_three_levels(packs):
-    """The wrappers no longer refuse three levels: on CPU tensors they
-    refuse the device (ValueError) and launch nothing; four levels, which
-    no unit is built for, raise NotImplementedError; the unit's library
-    name carries its level count and in-scan flag."""
+    """The wrappers take three levels, and four: on CPU tensors they
+    refuse the device (ValueError) and launch nothing; five levels, which
+    no unit is built for, raise NotImplementedError naming the counts
+    taken; the units are two, three and four levels, each with and
+    without the in-scan vmax."""
     _, tpack = packs
     stacks = fields.build_stacks(tpack)
     r = np.random.default_rng(1)
@@ -256,11 +283,18 @@ def test_k1_k7_wrappers_take_three_levels(packs):
             torch.zeros(6, n, 6), 3, 2, diag, 5)
     cfg4 = CFG.replace(steering_levels=(250, 500, 700, 850),
                        steering_coefs=(0.1, 0.1, 0.1, 0.7))
-    with pytest.raises(NotImplementedError, match='2 or 3 steering levels'):
-        integrator.genesis_gate_cuda(stacks, cfg4, y, params, mask)
+    stacks4 = fields.build_stacks(fields.synthetic_pack(cfg4, 2, 10, 20,
+                                                          device='cpu'))
+    with pytest.raises(ValueError, match='CUDA'):
+        integrator.genesis_gate_cuda(stacks4, cfg4, y, params, mask)
+    cfg5 = CFG.replace(steering_levels=(250, 300, 500, 700, 850),
+                       steering_coefs=(0.1, 0.1, 0.1, 0.1, 0.6))
+    with pytest.raises(NotImplementedError,
+                       match='2, 3 or 4 steering levels, got 5'):
+        integrator.genesis_gate_cuda(stacks, cfg5, y, params, mask)
     assert not any(kernels.LAUNCHES.values())
     assert integrator.units() == ((2, False), (2, True), (3, False),
-                                  (3, True))
+                                  (3, True), (4, False), (4, True))
 
 
 def _vmax_source_reads():
@@ -272,11 +306,12 @@ def test_k2_params_six_winds():
     """K2's block at W = 6: the winds per sample at ip[12] where
     read_params reads it, the shear channels (0, 1, 4, 5), and the float32
     reciprocal of the output interval; the wrappers take six winds (CPU
-    tensors: ValueError for the device), refuse eight (no instance) and
+    tensors: ValueError for the device), refuse ten (no instance) and
     shear channels that are not two (u, v) pairs."""
     body = _vmax_source_reads()
-    assert 'const int W = ip[12];' in body and 'W != 4 && W != 6' in body
-    assert k2.W_TAKEN == (4, 6)
+    assert 'const int W = ip[12];' in body
+    assert 'W != 4 && W != 6 && W != 8' in body
+    assert k2.W_TAKEN == (4, 6, 8)
     ip, fp = k2._block(60, 4096, 15, None, None, (0, 1, 4, 5), (128, 32, 4),
                        6, 3600.0)
     assert ip.tolist() == [60, 4096, 15, 0, 0, 0, 1, 4, 5, 128, 32, 4, 6]
@@ -292,7 +327,7 @@ def test_k2_params_six_winds():
         k2.fix_last_sample_cuda(t.clone(), t, t, t, torch.zeros(T, n, 6),
                                 alive, last, 3600.0, (0, 1, 4, 5))
     with pytest.raises(NotImplementedError, match='winds per sample'):
-        k2._check_winds(torch.zeros(T, n, 8), T, n, (0, 1, 6, 7),
+        k2._check_winds(torch.zeros(T, n, 10), T, n, (0, 1, 8, 9),
                         torch.device('cpu'))
     with pytest.raises(ValueError, match='pairs'):
         k2._check_winds(torch.zeros(T, n, 6), T, n, (0, 2, 4, 5),
@@ -310,17 +345,25 @@ def test_k5_row_entry_channels():
     sig = src[src.index('extern "C" int tc_rng_fourier_rows('):]
     sig = sig[:sig.index(')')]
     assert re.sub(r'\s+', ' ', sig).split('(')[1].split(', ')[3] == 'int ch'
+    row_entry_matches(6)
+
+
+def row_entry_matches(C):
+    """At C wind channels: the twin's draw at the rows is the full draw
+    gathered there, and K5's row entry refuses CPU tensors before it
+    launches."""
     from tropical_cyclone_risk_tpu_torch import rng
+    assert C in k5.ROW_CHANNELS
     key, rows = rng.key(3), torch.tensor([5, 0, 7])
-    full = fourier.draw_fourier_plain(key, (9, 6), CFG.T_fourier_s)
-    part = fourier.draw_fourier_plain(key, (9, 6), CFG.T_fourier_s,
+    full = fourier.draw_fourier_plain(key, (9, C), CFG.T_fourier_s)
+    part = fourier.draw_fourier_plain(key, (9, C), CFG.T_fourier_s,
                                       rows=rows)
-    assert part.A.shape == (3, 6, 15)
+    assert part.A.shape == (3, C, 15)
     assert torch.equal(part.A, full.A[rows]) and torch.equal(part.B,
                                                              full.B[rows])
     kernels.reset_counts()
     with pytest.raises(ValueError, match='CUDA'):
-        k5.fourier_rows_cuda(key, (9, 6), rows, fourier._amplitudes('cpu'))
+        k5.fourier_rows_cuda(key, (9, C), rows, fourier._amplitudes('cpu'))
     assert not any(kernels.LAUNCHES.values())
 
 
@@ -332,11 +375,18 @@ def test_k4_stitch_block_six_winds():
     body = src[src.index('extern "C" int tc_k4_stitch('):]
     reads = re.findall(r'(p\.\w+(?:\[f\])?) = [^;]*ip\[q\+\+\]', body)
     assert reads[:5] == ['p.k', 'p.T', 'p.n', 'p.n_segs', 'p.W']
+    stitch_matches(6)
+
+
+def stitch_matches(W):
+    """K4's stitch block at W winds per sample (its fifth integer) and
+    output winds [k, T, W]; the plain stitch copies every wind of a
+    survivor's alive samples and NaN elsewhere."""
     r = np.random.default_rng(2)
     T, w, k = 7, 10, 3
     tm = {f: torch.from_numpy(r.standard_normal((T, w)).astype(np.float32))
           for f in ('lon', 'lat', 'v', 'm', 'vmax')}
-    tm['wnds'] = torch.from_numpy(r.standard_normal((T, w, 6)).astype(
+    tm['wnds'] = torch.from_numpy(r.standard_normal((T, w, W)).astype(
         np.float32))
     tm['alive'] = torch.from_numpy(r.uniform(size=(T, w)) < 0.7)
     order = torch.tensor([4, 1, 8])
@@ -344,8 +394,8 @@ def test_k4_stitch_block_six_winds():
     keep[order] = True
     ip, (out, _), n_kernels = k4._stitch(torch.device('cpu'), order, (tm,),
                                          (), keep, None)
-    assert ip[4] == 6 and n_kernels == 1
-    assert out['wnds'].shape == (k, T, 6)
+    assert ip[4] == W and n_kernels == 1
+    assert out['wnds'].shape == (k, T, W)
     from tropical_cyclone_risk_tpu_torch.ops import compact
     tracks, _ = compact.stitch_survivors(order, (tm,), (), keep, None)
     alive = tm['alive'][:, order].T

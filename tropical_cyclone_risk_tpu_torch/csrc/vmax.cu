@@ -286,7 +286,7 @@ bool read_params(const int* ip, const float* fp, Params* p) {
   p->iu2 = ip[5]; p->iv2 = ip[6]; p->iu8 = ip[7]; p->iv8 = ip[8];
   p->c = vmaxc::Consts{fp[0], fp[1], fp[2]};
   const int W = ip[12];
-  if (W != 4 && W != 6) return false;
+  if (W != 4 && W != 6 && W != 8) return false;
   const int shear[4] = {p->iu2, p->iv2, p->iu8, p->iv8};
   for (int i : shear)
     if (i < 0 || i >= W) return false;
@@ -316,7 +316,9 @@ extern "C" int tc_vmax(const int* ip, const float* fp, const float* lon,
       chunks > kMaxChunks || (int64_t)chunks * p.chunk < p.T ||
       (int64_t)(chunks - 1) * p.chunk >= p.T || (p.T < 2 && !p.has_before))
     return (int)cudaErrorInvalidValue;
-  auto kern = ip[12] == 4 ? vmax_kernel<4> : vmax_kernel<6>;
+  auto kern = ip[12] == 4   ? vmax_kernel<4>
+              : ip[12] == 6 ? vmax_kernel<6>
+                            : vmax_kernel<8>;
   kern<<<dim3(sblocks, chunks), threads, 0, (cudaStream_t)stream>>>(
       p, lon, lat, tc_v, wnds, alive, last, before, after, vmax, peak,
       partial, count);
@@ -338,7 +340,9 @@ extern "C" int tc_vmax_last(const int* ip, const float* fp, const float* lon,
   if (!good || p.T < 1 || p.N < 1 || threads < 32 || threads > kThreads ||
       threads % 32 != 0 || (int64_t)blocks * threads < p.N)
     return (int)cudaErrorInvalidValue;
-  auto kern = ip[12] == 4 ? last_sample_kernel<4> : last_sample_kernel<6>;
+  auto kern = ip[12] == 4   ? last_sample_kernel<4>
+              : ip[12] == 6 ? last_sample_kernel<6>
+                            : last_sample_kernel<8>;
   kern<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       p, lon, lat, tc_v, wnds, alive, last, before, vmax, vmax_L, ok);
   return (int)cudaGetLastError();

@@ -2,7 +2,8 @@
 
 - ``integrator`` (K1): the fused track integrator, CUDA C++ for sm_90a
   (csrc/integrator.cu), with land and bathymetry in the cell row or on
-  grids of their own, two or three steering levels, and the in-scan vmax.
+  grids of their own, two, three or four steering levels, and the in-scan
+  vmax.
 - ``vmax`` (K2): the vmax diagnostic pass, CUDA C++ for sm_90a
   (csrc/vmax.cu).
 - ``vmax_last``: K2's second entry, the in-scan vmax's re-derivation of

@@ -46,7 +46,7 @@ GATE_POINTERS = 9        # device pointers of tc_genesis_gate
 FAST_TRIG_LIMIT = 105615.0
 WARP = 32
 # the steering-level counts csrc/integrator.cu is built for (TC_K1_LEVELS)
-LEVELS_TAKEN = (2, 3)
+LEVELS_TAKEN = (2, 3, 4)
 # csrc/integrator.cu's stack layouts (kInCell, kFusedGeo, kSeparateGeo)
 IN_CELL, FUSED_GEO, SEPARATE_GEO = 0, 1, 2
 
@@ -61,7 +61,8 @@ def wind_channels(levels: int) -> int:
 def cell_row(layout: int, levels: int) -> int:
     """Floats of a corner-packed cell row (csrc/integrator.cu Ch): the wind
     statistics, five env channels and, in the cell, land and bathymetry,
-    times four corners (84 or 76 at two levels, 136 or 128 at three)."""
+    times four corners (84 or 76 at two levels, 136 or 128 at three, 204
+    or 196 at four)."""
     return 4 * (wind_channels(levels) + (7 if layout == IN_CELL else 5))
 
 
@@ -120,9 +121,10 @@ def levels(cfg: Namelist) -> int:
     fast.deep_layer_indices(cfg)
     n = cfg.n_steering_levels
     if n not in LEVELS_TAKEN:
+        *most, last = map(str, LEVELS_TAKEN)
         raise NotImplementedError(f'the integrator kernel takes '
-                                  f'{" or ".join(map(str, LEVELS_TAKEN))} '
-                                  f'steering levels, got {n}')
+                                  f'{", ".join(most)} or {last} steering '
+                                  f'levels, got {n}')
     return n
 
 

@@ -25,7 +25,7 @@ MODES = {'bits': (0, torch.int64), 'uniform': (1, torch.float32),
          'normal': (2, torch.float32), 'randint': (3, torch.int32)}
 TWO_PI_F32 = float(np.float32(2 * math.pi))
 N_FOURIER = 15          # csrc/rng.cu kNF
-ROW_CHANNELS = (4, 6)   # csrc/rng.cu's row-entry instances: wind channels
+ROW_CHANNELS = (4, 6, 8)  # csrc/rng.cu's row-entry instances: wind channels
 PHASES = 1 << 23        # uniforms on [0, 1): the float32 mantissas
 INT32_MAX = 2 ** 31 - 1
 
@@ -136,8 +136,9 @@ def fourier_rows_cuda(key, shape, rows: torch.Tensor, amp: torch.Tensor):
     n, C = (int(s) for s in shape)
     if C not in ROW_CHANNELS:
         raise NotImplementedError(f'the Fourier row entry takes '
-                                  f'{ROW_CHANNELS} wind channels (two or '
-                                  f'three steering levels), got {C}')
+                                  f'{ROW_CHANNELS} wind channels (two, '
+                                  f'three or four steering levels), got '
+                                  f'{C}')
     dev = _amp(amp)
     if rows.device != dev or rows.dtype != torch.int64 or rows.dim() != 1 \
             or not rows.is_contiguous():

@@ -9,7 +9,7 @@ chunks of rows whose shape follows the segment's length, width and the
 card's SM count (launch_geometry).  The source's second entry, the in-scan
 vmax's last-sample fix (fix_last_sample_cuda), has the twin
 diagnostics.fix_last_sample_plain.  Both take winds of W_TAKEN components
-(two or three steering levels).
+(two, three or four steering levels).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from tropical_cyclone_risk_tpu_torch.kernels import build as kbuild
 
 N_POINTERS = 12          # device pointers of tc_vmax
 LAST_POINTERS = 10       # device pointers of tc_vmax_last
-W_TAKEN = (4, 6)         # csrc/vmax.cu's instances: winds per sample
+W_TAKEN = (4, 6, 8)      # csrc/vmax.cu's instances: winds per sample
 THREADS = 128            # csrc/vmax.cu kThreads (__launch_bounds__)
 MAX_CHUNKS = 65535       # csrc/vmax.cu kMaxChunks (gridDim.y)
 WARP = 32

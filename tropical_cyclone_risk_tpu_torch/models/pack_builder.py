@@ -19,6 +19,7 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch
 
 from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch.io import input as tcin
@@ -35,12 +36,15 @@ def _plane_index(cfg: Namelist, times: np.ndarray) -> np.ndarray:
     return (yy - cfg.start_year) * 12 + (mm - cfg.start_month)
 
 
-def _regrid_stack(a: np.ndarray, src_lon, src_lat, dst_lon, dst_lat):
-    """Bilinear regrid of every plane of a [P, lat, lon] stack (float32,
-    on the CPU: the builder's arrays are host arrays)."""
-    return np.stack([interp.regrid(a[i], src_lon, src_lat, dst_lon,
-                                   dst_lat).numpy()
-                     for i in range(a.shape[0])])
+def _regrid_stack(a: np.ndarray, src_lon, src_lat, dst_lon, dst_lat,
+                  device) -> np.ndarray:
+    """Bilinear regrid of every plane of a [P, lat, lon] host stack on
+    ``device`` (float32, as the JAX package regrids on its device); the
+    result comes back to the host, where the builder assembles its
+    arrays."""
+    a = torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+    return torch.stack([interp.regrid(x, src_lon, src_lat, dst_lon, dst_lat)
+                        for x in a]).cpu().numpy()
 
 
 def build_field_pack(cfg: Namelist, basin_id: str,
@@ -75,7 +79,8 @@ def build_field_pack(cfg: Namelist, basin_id: str,
     same_grid = (t_lon.size == w_lon.size and t_lat.size == w_lat.size
                  and np.allclose(t_lon, w_lon) and np.allclose(t_lat, w_lat))
     if not same_grid:
-        vmax, chi_raw, rh = (_regrid_stack(a, t_lon, t_lat, w_lon, w_lat)
+        vmax, chi_raw, rh = (_regrid_stack(a, t_lon, t_lat, w_lon, w_lat,
+                                           device)
                              for a in (vmax, chi_raw, rh))
 
     # PI scaling and chi fudge applied at load time (util/compute.py:76,
@@ -91,8 +96,8 @@ def build_field_pack(cfg: Namelist, basin_id: str,
     mld12, m_lon, m_lat = static.load_monthly_climatology(cfg.fn_mld, 'mld')
     strat12, s_lon, s_lat = static.load_monthly_climatology(cfg.fn_strat,
                                                             'strat')
-    mld12 = _regrid_stack(mld12, m_lon, m_lat, w_lon, w_lat)
-    strat12 = _regrid_stack(strat12, s_lon, s_lat, w_lon, w_lat)
+    mld12 = _regrid_stack(mld12, m_lon, m_lat, w_lon, w_lat, device)
+    strat12 = _regrid_stack(strat12, s_lon, s_lat, w_lon, w_lat, device)
     # plane p covers month (start_month - 1 + p) % 12
     month_idx = (cfg.start_month - 1 + np.arange(n_planes)) % 12
     env = np.stack([chi, vpot, mld12[month_idx], strat12[month_idx], rh],

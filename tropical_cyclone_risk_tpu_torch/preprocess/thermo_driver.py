@@ -148,20 +148,24 @@ def gen_thermo(cfg: Namelist, table=None, month_chunk: int = 24,
                                     device=device)
     for c0 in range(0, n_t, M):
         c1 = min(c0 + M, n_t)
-        s = np.nan_to_num(np.asarray(sst[c0:c1], np.float32))
+        # the SST goes to the device first: the regrid (float32, as the
+        # JAX package's) and the Kelvin shift run where the PI does
+        s = dev(np.nan_to_num(np.asarray(sst[c0:c1], np.float32)))
         if needs_regrid:
-            s = np.stack([interp.regrid(
-                s[i], lon_s, lat_s, np.mod(lon_a, 360.0), lat_a_asc).numpy()
+            s = torch.stack([interp.regrid(
+                s[i], lon_s, lat_s, np.mod(lon_a, 360.0), lat_a_asc)
                 for i in range(s.shape[0])])
         if celsius:
-            s = s + np.float32(273.15)
+            s = s + float(np.float32(273.15))
         pad = M - (c1 - c0)
         padded = lambda a: (np.concatenate(
             [a, np.repeat(a[-1:], pad, axis=0)]) if pad else a)
+        if pad:
+            s = torch.cat([s, s[-1:].expand(pad, *s.shape[1:])])
         ta_c = np.moveaxis(padded(ta_a[c0:c1]), 1, 0)   # [L, M, lat, lon]
         hus_c = np.moveaxis(padded(hus_a[c0:c1]), 1, 0)
         v_i, c_i, r_i = compute_thermo_month(
-            cfg, table, dev(padded(s)), dev(padded(psl_a[c0:c1])), lvl_pa,
+            cfg, table, s, dev(padded(psl_a[c0:c1])), lvl_pa,
             dev(ta_c), dev(hus_c))
         n_c = c1 - c0
         vmax[c0:c1] = v_i[:n_c].cpu().numpy()
