@@ -10,8 +10,10 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. device    - require CUDA; print the card's name and power limit.
 2. build     - build the CUDA integrator and genesis gate (K1, K7; one
-               library per unit: two, three and four steering levels, each
-               with and without the in-scan vmax), vmax (K2, with its
+               library per unit of kernels/integrator.py UNITS: two, three
+               and four steering levels, each with and without the in-scan
+               vmax, five with and without it, seven and fifteen; any
+               other count builds at its first launch), vmax (K2, with its
                last-sample entry), seeding (K3), compaction (K4), threefry
                (K5) and CAPE-PI (K6) kernels with nvcc, one process each,
                all started together; print the build times, nvcc's register,
@@ -148,26 +150,35 @@ Phases (any failure raises, and the script exits non-zero):
                reset just before and read just after, against the same
                launch through the twins on the card, every leaf bit for
                bit; K1 on the first and last segment with
-               time_interp_fields (bit-exact), rk_exact_stage_fields and
-               rk_substeps=2 (within the K1 bars); each kernel's per-launch
+               time_interp_fields, rk_exact_stage_fields and rk_substeps=2,
+               each bit-exact; each kernel's per-launch
                time (the median and range of three rounds) beside the
                two-level one of the same call, K1's three-level
                registers; run_downscaling on that pack and
                cli.main GL on a workspace with 250/500/850 hPa winds,
                counters reset just before and read just after, their files
                holding all six u/v winds, finite at genesis.
-9e2. levels4 - steering_levels (250, 500, 700, 850): a bench-width launch
-               on a 12-plane 181x360 four-level pack, caps auto-tuned,
-               through K1 and K7 (the unit TC_K1_LEVELS=4), K2 at W = 8,
-               K5's row entry at C = 8 and K4's stitch at W = 8, counters
-               reset just before and read just after, against the same
-               launch through the twins on the card: every leaf bit for
-               bit, and again with time_interp_fields; K1 on the first and
-               last segment with rk_exact_stage_fields and rk_substeps=2
-               within the K1 bars; vmax_in_scan bit for bit the post-pass;
-               each kernel's per-launch time alone beside its bound, its
-               twin and the three-level time of 9e; the registers, stack
-               and spills of every <4,...> instance.
+9e2. levels4 - the level sets of LEVEL_SETS, four to fifteen steering
+               levels, each a bench-width launch on a 12-plane 181x360
+               pack of its winds, caps auto-tuned, through K1 and K7 (the
+               unit TC_K1_LEVELS of its count), K2, K5's row entry and K4's
+               stitch at W = 2 L, counters reset just before and read just
+               after (no twin), against the same launch through the twins
+               on the card, every leaf bit for bit: (250, 500, 700, 850)
+               and (250, 300, 500, 700, 850) hPa also with
+               time_interp_fields, K1 on the first and last segment with
+               rk_exact_stage_fields and rk_substeps=2 bit for bit, and
+               vmax_in_scan bit for bit the post-pass, the five-level
+               set also through cli.main GL on a one-degree workspace of
+               its winds; plev19's seven levels in the layer; the ERA5
+               request's fifteen, with K1 against its twin on the first
+               segment (the twin's Python Cholesky is the cost) and every
+               other kernel over the whole launch.  Per set: each kernel's
+               per-launch time alone beside its bound, its twin and the
+               set before's, the unit's registers, stack and spills and
+               nvcc seconds, the launch's peak memory and the share of
+               alive storm-steps whose gathered covariance is positive
+               definite.
 9e3. gcm     - the CMIP6 path: a 1-degree one-year workspace of
                utils/synthetic_cmip6 (noleap calendar, plev in Pa, tos in
                degC on the finer ocean grid) through cli.main GL at
@@ -1691,12 +1702,13 @@ LEVELS3 = dict(steering_levels=(250, 500, 850), steering_coefs=(0.1, 0.2, 0.7),
 # K1's default-path instance of the three-level unit
 K1_L3_INSTANCE = 'integrate_segment_kernel<3,0,0,0,0>'
 # the modes the levels phase holds K1 in on its first and last segment, and
-# whether K1 is bit-exact against its twin there (the default path and
-# time_interp_fields are; the analytic modes within K1_TOL)
+# whether K1 is bit-exact against its twin there: all of them, the
+# analytic modes too since the twin's F(t) sums in K1's order
+# (fourier.FourierSeries.evaluate)
 LEVELS3_MODES = {'time_interp_fields': (dict(time_interp_fields=True), True),
                  'rk_exact_stage_fields': (dict(rk_exact_stage_fields=True),
-                                           False),
-                 'rk_substeps=2': (dict(rk_substeps=2), False)}
+                                           True),
+                 'rk_substeps=2': (dict(rk_substeps=2), True)}
 
 
 def k1_exact(out, ref):
@@ -1738,13 +1750,16 @@ def k4_exact(plain):
     return lambda out, *a, **kw: same_parts(out, uncounted(plain, *a, **kw))
 
 
-def launch_kernel_times(k1_calls, k2_calls, k7_calls, draws, stitches):
+def launch_kernel_times(k1_calls, k2_calls, k7_calls, draws, stitches,
+                        k1_plain_ms=None):
     """Per launch, from the captured calls of one launch: each kernel
-    alone (K1 summed over the segments, event time; K2 over the segments,
+    alone (K1 summed over the segments, event time, K1_REPS runs a
+    segment, fewer where a run takes longer (k1_ms); K2 over the segments,
     K7's gate, K5's row draw and K4's stitch, device time, each launch
     after an L2 flush (cold)), each timed in
     TIME_ROUNDS rounds, the median and [least, most] of them; its bound as
-    the phases reckon it; and its plain twin's time (K1's on segment 0)."""
+    the phases reckon it; and its plain twin's time (K1's on segment 0:
+    k1_plain_ms where the caller has timed it already)."""
     from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
     from tropical_cyclone_risk_tpu_torch.models import diagnostics, simulator
@@ -1757,7 +1772,7 @@ def launch_kernel_times(k1_calls, k2_calls, k7_calls, draws, stitches):
     (s_args, _, s_out, _) = stitches[0]
     res = {}
     for key, fn in (
-            ('K1', lambda: sum(cuda_ms(f, K1_REPS) for f in k1_fns)),
+            ('K1', lambda: sum(k1_ms(f) for f in k1_fns)),
             ('K2', lambda: device_ms(lambda: [f() for f in k2_fns], K2_REPS,
                                      ('vmax_kernel',))),
             ('K7', lambda: device_ms(cold(integrator.gate_launcher(
@@ -1781,8 +1796,9 @@ def launch_kernel_times(k1_calls, k2_calls, k7_calls, draws, stitches):
         res[key + '_below_bound'] = res[key + '_range'][0] < ms
     return {
         **res,
-        'K1_plain_segment0': cuda_ms(lambda: uncounted(
-            simulator.integrate_segment_plain, *k1_calls[0][0]), 1),
+        'K1_plain_segment0': k1_plain_ms if k1_plain_ms is not None
+        else cuda_ms(lambda: uncounted(simulator.integrate_segment_plain,
+                                       *k1_calls[0][0]), 1),
         'K2_plain': sum(cuda_ms(lambda: uncounted(
             diagnostics.axi_to_max_wind_raw_plain, *a, **kw), 1)
             for a, kw, *_ in k2_calls),
@@ -1794,6 +1810,19 @@ def launch_kernel_times(k1_calls, k2_calls, k7_calls, draws, stitches):
         'K4_stitch_plain': cuda_ms(lambda: uncounted(
             compact_ops.stitch_survivors_plain, *s_args), 5),
         'K4_stitch_shape': list(s_out[0]['wnds'].shape)}
+
+
+# a K1 timing round's length on one segment, beyond which it takes fewer
+# than K1_REPS runs
+K1_ROUND_MS = 100.0
+
+
+def k1_ms(fn):
+    """K1's event time on one segment (cuda_ms): K1_REPS runs, or as many
+    as take about K1_ROUND_MS where a run is longer, at least 3 (at
+    fifteen levels a segment takes 10-30 ms)."""
+    one = cuda_ms(fn, 1)
+    return cuda_ms(fn, max(3, min(K1_REPS, int(K1_ROUND_MS / one))))
 
 
 # bytes written before each launch that cold() times: more than the H100's
@@ -1937,11 +1966,9 @@ def check_levels(dev, card, tmp, libs, pack_y, cfg_t, levels):
     hPa winds, counters reset just before and read just after each, their
     files holding every level's winds.  Returns the per-launch times and
     the largest errors."""
-    from tropical_cyclone_risk_tpu_torch import cli, kernels, rng, runtime
-    from tropical_cyclone_risk_tpu_torch.config import load_namelist_py
+    from tropical_cyclone_risk_tpu_torch import kernels, rng, runtime
     from tropical_cyclone_risk_tpu_torch.io import netcdf
     from tropical_cyclone_risk_tpu_torch.models import pipeline
-    from tropical_cyclone_risk_tpu_torch.utils import synthetic_era5
     t_phase = time.perf_counter()
     with launch_captures() as caps:
         pipeline._simulate_batch(rng.key(94), pack_y, cfg_t, BASIN, N_SEEDS,
@@ -1982,28 +2009,8 @@ def check_levels(dev, card, tmp, libs, pack_y, cfg_t, levels):
         f's: {n_run} tracks')
 
     # cli.main GL on a workspace with 250, 500 and 850 hPa winds
-    t0 = time.perf_counter()
-    nl = synthetic_era5.make_workspace(
-        f'{tmp}/ws_levels', WS_YEAR, WS_YEAR, nlat=181, nlon=360,
-        seed_batch=N_SEEDS, wind_levels=(250, 500, 850))
-    with open(nl, 'a') as f:
-        f.write(''.join(f'{k} = {v!r}\n' for k, v in LEVELS3.items()))
-    cfg_ws = load_namelist_py(nl)
-    t_write = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    cli.main(['GL', '--namelist', nl, '--seed', '0'])
-    torch.cuda.synchronize()
-    t_cli = time.perf_counter() - t0
-    check_counts('levels workspace', dict(kernels.LAUNCHES),
-                 dict(kernels.PLAIN_ON_CUDA), WORKSPACE_KERNELS)
-    n_ws, _ = check_tracks_levels(
-        netcdf.read(runtime.get_fn_tracks(cfg_ws, BASIN)), cfg_ws,
-        'levels workspace')
-    log(f'[levels] {card}: cli.main GL one year on a 250/500/850 hPa '
-        f'workspace (written in {t_write:.1f} s) in {t_cli:.2f} s: {n_ws} '
-        f'tracks; phase {time.perf_counter() - t_phase:.1f} s')
+    t_cli = workspace_cli(tmp, card, 'levels', LEVELS3)
+    log(f'[levels] phase {time.perf_counter() - t_phase:.1f} s')
     return {'ms': t3, 'two_levels_ms': base, 'launch': three,
             'k1_modes_max_abs_err': modes_err, 'k1_l3_ptxas': rep,
             'run_s': t_run, 'cli_s': t_cli}
@@ -2021,6 +2028,75 @@ LEVELS4 = dict(steering_levels=(250, 500, 700, 850),
 # twins instead)
 LEVELS4_MODES = {k: v for k, v in LEVELS3_MODES.items()
                  if k != 'time_interp_fields'}
+
+
+def steering_fields(levels):
+    """Namelist steering fields for `levels` (250 hPa first, 850 hPa
+    last): half the steering at 850 hPa and half shared by the others,
+    y_alpha likewise, the intensity slope at the two ends
+    (tests/test_torch_levels4.py's coefficients beyond four levels)."""
+    n = len(levels)
+    share = (0.5 / (n - 1),) * (n - 1) + (0.5,)
+    return dict(steering_levels=tuple(levels), steering_coefs=share,
+                y_alpha=share, m_alpha=(0.001,) + (0.0,) * (n - 2) + (-0.001,),
+                alpha_max=(0.4,) * (n - 1) + (0.9,),
+                alpha_min=(0.05,) * (n - 1) + (0.5,))
+
+
+# the ERA5 request's levels from 250 to 850 hPa (utils/synthetic_era5.py
+# LEVELS_HPA): the deepest steering layer a user can ask of a workspace
+ERA5_LAYER = (250, 300, 350, 400, 450, 500, 550, 600, 650, 700, 750, 775,
+              800, 825, 850)
+# The [levels4] phase's level sets, each a bench-width launch through K1,
+# K7 (the unit TC_K1_LEVELS of its count), K2, K5's row entry and K4's
+# stitch at W = 2 L, held against the same launch through the twins on the
+# card: (label, namelist steering fields, PRNG key, checks).  Checks:
+# 'k1_segments' K1 against its twin on that many first segments alone (the
+# launch through the twins keeps K1: its Python Cholesky of W^3/6 steps a
+# gather is the cost at fifteen levels), else the whole launch;
+# 'interp' the launch again with time_interp_fields; 'modes' K1 on the
+# first and last segment in each of LEVELS4_MODES, bit for bit;
+# 'in_scan' vmax_in_scan bit for bit the post-pass; 'cli' cli.main GL one
+# year on a one-degree workspace with the set's winds.  The kernels line
+# names the instances of each set (level_entries).
+LEVEL_SETS = (
+    ('levels4', LEVELS4, 88, dict(interp=True, modes=True, in_scan=True)),
+    ('L5', steering_fields((250, 300, 500, 700, 850)), 78,
+     dict(interp=True, modes=True, in_scan=True, cli=True)),
+    # CMIP6's plev19 levels in the layer
+    ('L7', steering_fields((250, 300, 400, 500, 600, 700, 850)), 74, {}),
+    ('L15', steering_fields(ERA5_LAYER), 72, dict(k1_segments=1)))
+
+
+def level_entries():
+    """The kernels line's entries of the level sets: (set, name, the
+    launch_kernel_times key, counter, launch_against_twins' call key,
+    source, the JAX function replaced, the instance); K4's stitch at four
+    and five levels (the stitch takes any W: one instance)."""
+    out = []
+    for label, steer, _, _ in LEVEL_SETS:
+        lv = len(steer['steering_levels'])
+        w = 2 * lv
+        k25 = w if lv == 4 else 0          # K2's and K5's instance
+        out += [
+            (label, f'integrator_l{lv}', 'K1', 'integrator', 'integrator',
+             'integrator.cu', 'models/simulator.py:111',
+             f'integrate_segment_kernel<{lv},*,*,*,*> (unit '
+             f'TC_K1_LEVELS={lv})'),
+            (label, f'genesis_l{lv}', 'K7', 'genesis', 'genesis',
+             'integrator.cu', 'models/simulator.py:295',
+             f'genesis_gate_kernel<{lv},*>'),
+            (label, 'vmax_l4' if lv == 4 else f'vmax_w{w}', 'K2', 'vmax',
+             'vmax', 'vmax.cu', 'models/diagnostics.py:193',
+             f'vmax_kernel<{k25}> at W = {w}'),
+            (label, 'threefry_rows_l4' if lv == 4 else f'threefry_rows_c{w}',
+             'K5', 'threefry', 'threefry rows', 'rng.cu',
+             'ops/fourier.py:84', f'rng_fourier_kernel<1,{k25}> at C = {w}')]
+        if lv in (4, 5):
+            out.append((label, f'compact_stitch_l{lv}', 'K4_stitch',
+                        'compact', 'stitch', 'compact.cu', 'ops/compact.py:30',
+                        f'stitch_kernel<0> at W = {w}'))
+    return out
 # the [gcm] workspaces' one noleap year
 GCM_YEAR = 2030
 
@@ -2072,61 +2148,112 @@ def timed_calls(mod, name):
         setattr(mod, name, fn)
 
 
-def launch_against_twins(label, key, pack, cfg, plane0, capture=False):
+def launch_against_twins(label, key, pack, cfg, plane0, capture=False,
+                         k1_segments=None):
     """One N_SEEDS launch (launch_body, compact_survivors at k_max 64)
     through the kernels, counters reset just before and read just after
-    (every kernel of a simulation launched, no twin), and the same launch
-    through the twins on the card (twins_on_card), K1's twin timed per
-    call; requires every leaf bit for bit (launch_fields).  Returns
-    {'launches': the counters, 'calls': the calls of K1, K2, K7, K5's row
-    draw and K4's stitch in the launch through the kernels (each one
-    launch of its kernel), 'max_abs_err': the tracks' largest error,
-    'k1_twin_ms': K1's twin per launch, 'caps': with capture, the calls
-    themselves (launch_captures) for launch_kernel_times}."""
+    (every kernel of a simulation launched, no twin), its peak device
+    memory, and the same launch through the twins on the card
+    (twins_on_card), K1's twin timed per call; requires every leaf bit for
+    bit (launch_fields).  With k1_segments (which needs capture), K1 stays
+    the kernel in the launch through the twins, which then holds every
+    other kernel, and K1 is held bit for bit against its twin on the
+    launch's first k1_segments segments alone (its twin costs the most at
+    many levels).  Returns {'launches': the counters, 'calls': the calls
+    of K1, K2, K7, K5's row draw and K4's stitch in the launch through the
+    kernels (each one launch of its kernel), 'max_abs_err': the tracks'
+    largest error, 'k1_twin_ms': K1's twin per launch (on the segments
+    compared), 'peak_mib': the launch's peak device memory, 'pd_share':
+    the share of alive storm-steps whose gathered wind covariance was
+    positive definite (coloured winds, not zeros), 'caps': with capture,
+    the calls themselves (launch_captures) for launch_kernel_times}."""
     from tropical_cyclone_risk_tpu_torch import kernels
     from tropical_cyclone_risk_tpu_torch.models import pipeline, simulator
     m = pipeline.launch_width(cfg, N_SEEDS)
     n_basins = len(cfg.basin_ids_sorted())
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2 ** 20
     kernels.reset_counts()
     with launch_captures(keep=capture) as caps:
         body = pipeline.launch_body(key, pack, cfg, BASIN, N_SEEDS, plane0)
         out = pipeline.compact_survivors(body, m, 64, n_basins)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
     launches = dict(kernels.LAUNCHES)
     check_counts(label, launches, dict(kernels.PLAIN_ON_CUDA),
                  SIMULATION_KERNELS)
     kern = launch_fields(body, out)
     del body, out
-    with twins_on_card(), timed_calls(simulator, 'integrate_segment') as ms:
+    keep, ms = (), []
+    if k1_segments is not None:
+        keep = ('integrate_segment',)
+        for args, kw, k_out, _ in caps[0][:k1_segments]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = uncounted(simulator.integrate_segment_plain, *args, **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            same_bits, diff = k1_exact(k_out, ref)
+            if not same_bits:
+                raise AssertionError(f'{label}: K1 differs from its twin on '
+                                     f'segment {len(ms) - 1} in {diff}')
+            del ref
+    with twins_on_card(keep), (contextlib.nullcontext(ms) if keep else
+                               timed_calls(simulator, 'integrate_segment')
+                               ) as ms:
         body = pipeline.launch_body(key, pack, cfg, BASIN, N_SEEDS, plane0)
         out = pipeline.compact_survivors(body, m, 64, n_basins)
         torch.cuda.synchronize()
     diff, err = same_launches(kern, launch_fields(body, out))
     n_surv = int(out[1]['scalars'][0])
-    log(f'[{label}] {len(ms)} segments, {n_surv} survivors; through the '
-        f'kernels against the twins on the card: differing leaves '
-        f'{diff or "none"} of {len(kern)}, tracks max abs err {err!r}; '
-        f'K1\'s twin {sum(ms):.1f} ms per launch')
-    if diff or err != 0.0 or n_surv < 1:
+    del body, out
+    pd = pd_share(caps[0]) if capture else None
+    log(f'[{label}] {launches["integrator"]} segments, {n_surv} '
+        f'survivors; through the kernels against the twins on the card'
+        + (f' (K1 the kernel in both, and against its twin bit for bit on '
+           f'the first {len(ms)} segments)' if keep else '') +
+        f': differing leaves {diff or "none"} of {len(kern)}, tracks max '
+        f'abs err {err!r}; K1\'s twin {sum(ms):.1f} ms on {len(ms)} '
+        f'segments; peak {peak:.1f} MiB ({base_mib:.1f} before); '
+        f'positive-definite share of alive storm-steps {pd}')
+    if diff or err != 0.0 or n_surv < 1 or (capture and not pd > 0.0):
         raise AssertionError(f'{label}: differs from the twins in {diff}, '
-                             f'error {err}, {n_surv} survivors')
+                             f'error {err}, {n_surv} survivors, '
+                             f'positive-definite share {pd}')
     calls = dict(zip(('integrator', 'vmax', 'genesis', 'threefry rows',
                       'stitch'), map(len, caps)))
     return {'launches': launches, 'calls': calls, 'max_abs_err': err,
-            'k1_twin_ms': sum(ms), 'caps': caps if capture else None}
+            'k1_twin_ms': sum(ms), 'k1_twin_segments': len(ms),
+            'k1_twin_segment0_ms': ms[0],
+            'peak_mib': peak, 'pd_share': pd,
+            'caps': caps if capture else None}
 
 
-def levels4_setup(dev):
-    """The four-level launch inputs: the namelist of LEVELS4 at N_SEEDS
-    seeds for one year, the 12-plane 181x360 synthetic pack of its winds,
-    and the namelist auto-tuned on it."""
+def pd_share(k1_calls):
+    """The share of the alive storm-steps of K1's calls (launch_captures)
+    whose winds are coloured: a sample whose gathered covariance is not
+    positive definite gets zero winds (fast.color_winds_given_f), so a
+    nonzero wind marks one that is."""
+    alive = coloured = 0
+    for _, _, out, _ in k1_calls:
+        wnds, live = out[0][4], out[0][5]
+        alive += int(live.sum())
+        coloured += int((live & (wnds != 0).any(-1)).sum())
+    return coloured / max(alive, 1)
+
+
+def level_setup(dev, steer):
+    """A level set's launch inputs: the namelist of the steering fields
+    `steer` at N_SEEDS seeds for one year, the 12-plane 181x360 synthetic
+    pack of its winds, and the namelist auto-tuned on it."""
     from tropical_cyclone_risk_tpu_torch import rng
     from tropical_cyclone_risk_tpu_torch.config import Namelist
     from tropical_cyclone_risk_tpu_torch.models import fast, fields, pipeline
     cfg = Namelist(seed_batch=N_SEEDS, start_year=2016, end_year=2016,
-                   **LEVELS4)
-    if fast.deep_layer_indices(cfg) != (0, 1, 6, 7):
+                   **steer)
+    W = cfg.n_wind_levels
+    if fast.deep_layer_indices(cfg) != (0, 1, W - 2, W - 1):
         raise AssertionError(fast.deep_layer_indices(cfg))
     pack = fields.synthetic_pack(cfg, 12, 181, 360, seed=0, device=dev)
     cfg_t = pipeline.auto_integrate_cap(rng.fold_in(rng.key(0), 2016), pack,
@@ -2134,53 +2261,125 @@ def levels4_setup(dev):
     return cfg, pack, cfg_t
 
 
-def check_levels4(dev, card, libs, levels3_ms):
-    """Phase levels4: steering_levels (250, 500, 700, 850) at the bench's
-    width, through K1 and K7 (the unit TC_K1_LEVELS=4), K2 at W = 8, K5's
-    row entry at C = 8 and K4's stitch at W = 8.  One launch through the
-    kernels, counters reset just before and read just after, against the
-    same launch through the twins on the card, every leaf bit for bit, and
-    again with time_interp_fields; K1 on the first and last segment with
-    rk_exact_stage_fields and rk_substeps=2 within the K1 bars; the
-    in-scan vmax bit for bit the post-pass (K1's four-level in-scan unit
-    and K2's last-sample entry at W = 8); each kernel's per-launch time
-    alone beside its bound, its twin and the three-level launch's time of
-    [levels] (levels3_ms), and every <4,...> instance's ptxas report.
-    Returns the figures."""
-    from tropical_cyclone_risk_tpu_torch import rng
-    t_phase = time.perf_counter()
-    reps = {}
-    for unit in ('integrator L4', 'integrator L4 diag'):
+def unit_reports(libs, levels):
+    """{K1/K7 instance of the units of `levels` levels: its ptxas report
+    and SASS local loads/stores} and {unit: its nvcc seconds} (build_all's
+    libraries; 0 where build/ already held the unit)."""
+    reps, secs = {}, {}
+    for unit in (f'integrator L{levels}', f'integrator L{levels} diag'):
+        if unit not in libs:
+            continue
+        secs[unit] = libs[unit]['seconds']
         sass = sass_local_memory(libs[unit]['path'])
         for fn, rep in ptxas_report(libs[unit]['log']).items():
-            if '<4,' in fn:
+            if f'<{levels},' in fn:
                 reps[f'{fn}{" (in-scan unit)" if "diag" in unit else ""}'] \
                     = f'{rep}; SASS local loads/stores {sass.get(fn, "?")}'
+    return reps, secs
+
+
+def check_level_set(dev, card, libs, tmp, label, steer, key, checks,
+                    ref_ms):
+    """One level set of LEVEL_SETS: its unit's ptxas reports and nvcc
+    seconds, a bench-width launch (caps auto-tuned) through the kernels
+    against the twins (launch_against_twins: every leaf bit for bit, no
+    twin on CUDA, the peak memory, the positive-definite share), each
+    kernel's per-launch time alone (TIME_ROUNDS rounds, L2 flushed) beside
+    its bound, its twin and ref_ms (the set before's, or [levels]'), then
+    the set's checks.  Returns the figures."""
+    from tropical_cyclone_risk_tpu_torch import rng
+    t_phase = time.perf_counter()
+    n = len(steer['steering_levels'])
+    reps, secs = unit_reports(libs, n)
     for fn, rep in reps.items():
-        log(f'[levels4] {fn}: {rep}')
-    cfg, pack, cfg_t = levels4_setup(dev)
+        log(f'[{label}] {fn}: {rep}')
+    cfg, pack, cfg_t = level_setup(dev, steer)
     plane0 = cfg.start_month - 1
-    log(f'[levels4] pack winds {tuple(pack.wind.shape)}; integrate_cap '
-        f'{cfg_t.integrate_cap} schedule {cfg_t.recompact_schedule}')
-    four = launch_against_twins('levels4', rng.key(88), pack, cfg_t, plane0,
-                                capture=True)
-    check_widths('levels4', four['caps'], 8)
-    t4 = launch_kernel_times(*four.pop('caps'))
-    launch_against_twins('levels4 time_interp_fields', rng.key(87), pack,
-                         cfg_t.replace(time_interp_fields=True), plane0)
-    modes_err = k1_modes('levels4', pack, cfg_t, plane0, LEVELS4_MODES)
-    in_scan_err, fix_err = in_scan_k1('levels4', rng.key(86), pack, cfg_t,
-                                      plane0, True, vmax_tol=0.0)
-    log(f'[levels4] {card}: per launch, the kernel alone, four levels '
-        f'against three of [levels] (median [range] of {TIME_ROUNDS} '
-        f'rounds): ' + times_line(t4, levels3_ms, ('K1', 'K2', 'K7', 'K5',
-                                                    'K4_stitch')) +
-        f'; K1\'s twin per launch {four["k1_twin_ms"]:.1f}; K5 rows '
-        f'{t4["K5_shape"]}, stitch {t4["K4_stitch_shape"]}; phase '
+    log(f'[{label}] levels {cfg.steering_levels}: pack winds '
+        f'{tuple(pack.wind.shape)}; integrate_cap {cfg_t.integrate_cap} '
+        f'schedule {cfg_t.recompact_schedule}; units\' nvcc s {secs}')
+    res = launch_against_twins(label, rng.key(key), pack, cfg_t, plane0,
+                               capture=True,
+                               k1_segments=checks.get('k1_segments'))
+    check_widths(label, res['caps'], 2 * n)
+    t = launch_kernel_times(*res.pop('caps'),
+                            k1_plain_ms=res['k1_twin_segment0_ms'])
+    if checks.get('interp'):
+        launch_against_twins(f'{label} time_interp_fields', rng.key(key - 1),
+                             pack, cfg_t.replace(time_interp_fields=True),
+                             plane0)
+    if checks.get('modes'):
+        res['k1_modes_max_abs_err'] = k1_modes(label, pack, cfg_t, plane0,
+                                               LEVELS4_MODES)
+    if checks.get('in_scan'):
+        res['in_scan_max_abs_err'], res['in_scan_last_max_abs_err'] = \
+            in_scan_k1(label, rng.key(key - 2), pack, cfg_t, plane0, True,
+                       vmax_tol=0.0)
+    del pack
+    if checks.get('cli'):
+        res['cli_s'] = workspace_cli(tmp, card, label, steer)
+    ref_label, ref = ref_ms
+    log(f'[{label}] {card}: per launch, the kernel alone, {n} levels '
+        f'against {ref_label} (median [range] of {TIME_ROUNDS} rounds): '
+        + times_line(t, ref, ('K1', 'K2', 'K7', 'K5', 'K4_stitch')) +
+        f'; K1\'s twin {res["k1_twin_ms"]:.1f} ms on '
+        f'{res["k1_twin_segments"]} segments; K5 rows {t["K5_shape"]}, '
+        f'stitch {t["K4_stitch_shape"]}; peak {res["peak_mib"]:.1f} MiB; '
+        f'positive-definite share {res["pd_share"]:.4f}; phase '
         f'{time.perf_counter() - t_phase:.1f} s')
-    return {'ms': t4, **four, 'k1_modes_max_abs_err': modes_err,
-            'in_scan_k1_max_abs_err': in_scan_err,
-            'in_scan_last_max_abs_err': fix_err, 'ptxas': reps}
+    return {'ms': t, **res, 'ptxas': reps, 'nvcc_s': secs,
+            'levels': cfg.steering_levels,
+            'phase_s': time.perf_counter() - t_phase}
+
+
+def check_levels4(dev, card, libs, tmp, levels3_ms):
+    """Phase levels4: the level sets of LEVEL_SETS, each through
+    check_level_set, its times beside the set before's (the first's beside
+    [levels]' three-level launch, levels3_ms).  Returns {label: figures}."""
+    out, ref = {}, ('three of [levels]', levels3_ms)
+    for label, steer, key, checks in LEVEL_SETS:
+        out[label] = check_level_set(dev, card, libs, tmp, label, steer, key,
+                                     checks, ref)
+        ref = (f'{len(steer["steering_levels"])} of [{label}]',
+               out[label]['ms'])
+        torch.cuda.empty_cache()
+    return out
+
+
+def workspace_cli(tmp, card, label, steer):
+    """cli.main GL for one year on a one-degree 181x360 workspace
+    (utils/synthetic_era5) with winds at steer's levels and its steering
+    fields appended to the namelist, counters reset just before and read
+    just after (every kernel of the workspace path, no twin); the tracks
+    file holds every level's winds, finite at genesis.  Returns the CLI's
+    seconds."""
+    from tropical_cyclone_risk_tpu_torch import cli, kernels, runtime
+    from tropical_cyclone_risk_tpu_torch.config import load_namelist_py
+    from tropical_cyclone_risk_tpu_torch.io import netcdf
+    from tropical_cyclone_risk_tpu_torch.utils import synthetic_era5
+    t0 = time.perf_counter()
+    nl = synthetic_era5.make_workspace(
+        f'{tmp}/ws_{label}', WS_YEAR, WS_YEAR, nlat=181, nlon=360,
+        seed_batch=N_SEEDS, wind_levels=steer['steering_levels'])
+    with open(nl, 'a') as f:
+        f.write(''.join(f'{k} = {v!r}\n' for k, v in steer.items()))
+    cfg_ws = load_namelist_py(nl)
+    t_write = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    cli.main(['GL', '--namelist', nl, '--seed', '0'])
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    check_counts(f'{label} workspace', dict(kernels.LAUNCHES),
+                 dict(kernels.PLAIN_ON_CUDA), WORKSPACE_KERNELS)
+    n_ws, _ = check_tracks_levels(
+        netcdf.read(runtime.get_fn_tracks(cfg_ws, BASIN)), cfg_ws,
+        f'{label} workspace')
+    log(f'[{label}] {card}: cli.main GL one year on a '
+        f'{"/".join(map(str, steer["steering_levels"]))} hPa workspace '
+        f'(written in {t_write:.1f} s) in {t_cli:.2f} s: {n_ws} tracks')
+    return t_cli
 
 
 def check_gcm_tracks(ds, cfg, label):
@@ -2609,9 +2808,11 @@ def card_line():
 
 
 def build_all(dev):
-    """nvcc for K1 with K7 (a library per unit: two, three and four
-    steering levels, each with and without the in-scan vmax), K2, K3, K4,
-    K5 and K6 in eleven threads (eleven processes at once); logs the wall
+    """nvcc for K1 with K7 (a library per unit of
+    kernels/integrator.py UNITS: two, three and four steering levels, each
+    with and without the in-scan vmax, and the level sets of [levels4]: five
+    with and without it, seven and fifteen), K2, K3, K4, K5 and K6, one
+    thread each (sixteen processes at once); logs the wall
     time of the builds, each build's seconds, each kernel's registers,
     stack frame, spills and SASS local-memory instructions (K1's and K7's
     instances of every stack layout among them); requires K1's default
@@ -2636,7 +2837,7 @@ def build_all(dev):
     units = [(('integrator' + (f' L{lv}' if lv != 2 else '')
                 + (' diag' if diag else '')),
               lambda lv=lv, diag=diag: integrator.build(lv, diag))
-             for lv, diag in integrator.units()]
+             for lv, diag in integrator.UNITS]
     threads = [threading.Thread(target=nvcc, args=a)
                for a in (*units, ('vmax', vmax_kernel.build),
                          ('seeding', k3.build), ('compact', k4.build),
@@ -3273,8 +3474,9 @@ def main():
                               levels_in)
         del levels_in
 
-        # ---- 9e2. levels4: four steering levels through every kernel ----
-        levels4 = check_levels4(dev, card, libs, levels['ms'])
+        # ---- 9e2. levels4: four to fifteen steering levels through every
+        # kernel -----------------------------------------------------------
+        level_sets = check_levels4(dev, card, libs, tmp, levels['ms'])
 
         # ---- 9e3. gcm: the CMIP6 workspace path --------------------------
         gcm = check_gcm(dev, tmp, card)
@@ -3399,45 +3601,43 @@ def main():
     k4_entry['mesh'] = mesh_res
     by_name = {k['name']: k for k in entries}
     by_name['cape_pi']['gcm'] = gcm['k6']
-    # the four-level instances, launched by the [levels4] launch, and by
-    # the four-level run of [gcm]: launches are the instance's own in the
-    # launch, counter_launches its counter's total there (and in [gcm]);
-    # max_abs_err the launch's against the twins (every leaf compared)
-    t4 = levels4['ms']
+    # the instances of each level set of [levels4]: launches are the
+    # instance's own in the set's launch, counter_launches its counter's
+    # total there (and in [gcm]'s four-level run); max_abs_err the launch's
+    # against the twins (every leaf compared)
     gcm4 = gcm['four levels']['launches']
-    for name, key, counter, call, source, replaces, inst in (
-            ('integrator_l4', 'K1', 'integrator', 'integrator',
-             'integrator.cu', 'models/simulator.py:111',
-             'integrate_segment_kernel<4,*,*,*,*> (unit TC_K1_LEVELS=4)'),
-            ('genesis_l4', 'K7', 'genesis', 'genesis', 'integrator.cu',
-             'models/simulator.py:295', 'genesis_gate_kernel<4,*>'),
-            ('vmax_l4', 'K2', 'vmax', 'vmax', 'vmax.cu',
-             'models/diagnostics.py:193', 'vmax_kernel<8>'),
-            ('threefry_rows_l4', 'K5', 'threefry', 'threefry rows', 'rng.cu',
-             'ops/fourier.py:84', 'rng_fourier_kernel<1,8>'),
-            ('compact_stitch_l4', 'K4_stitch', 'compact', 'stitch',
-             'compact.cu', 'ops/compact.py:30',
-             'stitch_kernel<0> at W = 8')):
+    for label, name, key, counter, call, source, replaces, inst in \
+            level_entries():
+        got = level_sets[label]
+        t = got['ms']
         entries.append({
             'name': name, 'route': 'cuda', 'source': src + 'csrc/' + source,
             'replaces': 'tropical_cyclone_risk_tpu/' + replaces,
-            'launches': levels4['calls'][call],
-            'max_abs_err': levels4['max_abs_err'], 'ms': t4[key],
-            'plain_ms': t4[key + '_plain' if key != 'K1'
-                           else 'K1_plain_segment0'],
-            'bound_ms': t4[key + '_bound'],
-            'bound_by': t4[key + '_bound_by'], 'library_ms': None,
-            'instance': inst, 'ms_range': t4[key + '_range'],
-            'per': f'the four-level bench-width launch of [levels4] (the '
-                   f'kernel alone, median of {TIME_ROUNDS} rounds' +
-                   ('; plain_ms on segment 0)' if key == 'K1' else ')'),
-            'counter': counter, 'counter_launches': levels4['launches'][counter],
-            'gcm_counter_launches': gcm4[counter],
+            'launches': got['calls'][call],
+            'max_abs_err': got['max_abs_err'], 'ms': t[key],
+            'plain_ms': t[key + '_plain' if key != 'K1'
+                          else 'K1_plain_segment0'],
+            'bound_ms': t[key + '_bound'],
+            'bound_by': t[key + '_bound_by'], 'library_ms': None,
+            'instance': inst, 'ms_range': t[key + '_range'],
+            'per': f'the {len(got["levels"])}-level bench-width launch of '
+                   f'[{label}] (the kernel alone, median of {TIME_ROUNDS} '
+                   f'rounds' + ('; plain_ms on segment 0)' if key == 'K1'
+                               else ')'),
+            'counter': counter, 'counter_launches': got['launches'][counter],
             'ms_timing': ms_timing(counter)})
-    next(k for k in entries if k['name'] == 'integrator_l4').update(
-        ptxas=levels4['ptxas'], twin_launch_ms=levels4['k1_twin_ms'],
-        modes_max_abs_err=levels4['k1_modes_max_abs_err'],
-        in_scan_max_abs_err=levels4['in_scan_k1_max_abs_err'])
+        if label == 'levels4':
+            entries[-1]['gcm_counter_launches'] = gcm4[counter]
+        if key == 'K1':
+            entries[-1].update(
+                ptxas=got['ptxas'], nvcc_s=got['nvcc_s'],
+                twin_launch_ms=got['k1_twin_ms'],
+                twin_segments=got['k1_twin_segments'],
+                peak_mib=got['peak_mib'], pd_share=got['pd_share'],
+                **{k: got[g] for k, g in (
+                    ('modes_max_abs_err', 'k1_modes_max_abs_err'),
+                    ('in_scan_max_abs_err', 'in_scan_max_abs_err'),
+                    ('cli_s', 'cli_s')) if g in got})
     log(f'[summary] {card}: host synchronisations per launch {n_sync}; '
         f'BAM {json.dumps(bam_res)}; '
         f'bench peak {bench_peak:.2f} MiB; bench sim-years/min '
@@ -3631,10 +3831,12 @@ MESH_K_MAX = 4096    # holds every survivor of a bench-width launch
 
 
 @contextlib.contextmanager
-def twins_on_card():
+def twins_on_card(keep=()):
     """Within the block, every kernel dispatcher of a launch runs its plain
-    twin, on the card, and the launch and twin counters are left as they
-    were: a launch through the twins only to compare the kernels' with."""
+    twin, on the card, but those named in `keep` (simulator's
+    'integrate_segment': K1 stays the kernel), and the launch and twin
+    counters are left as they were: a launch through the twins only to
+    compare the kernels' with."""
     from tropical_cyclone_risk_tpu_torch import kernels
     from tropical_cyclone_risk_tpu_torch.models import (diagnostics, seeding,
                                                         simulator)
@@ -3645,6 +3847,7 @@ def twins_on_card():
              (diagnostics, 'axi_to_max_wind_raw'),
              (compact_ops, 'partition_take'),
              (compact_ops, 'stitch_survivors')]
+    swaps = [(mod, nm) for mod, nm in swaps if nm not in keep]
     originals = [getattr(mod, nm) for mod, nm in swaps]
     saved = dict(kernels.LAUNCHES), dict(kernels.PLAIN_ON_CUDA)
     for mod, nm in swaps:
@@ -4441,10 +4644,11 @@ def sass_of(lib_path):
 
 def sass_against(root):
     """--sass ROOT: every library of this tree's csrc/ (one per unit of
-    csrc/integrator.cu: the level counts of kernels/integrator.py
-    LEVELS_TAKEN, with and without the in-scan vmax) built with nvcc here
-    and from the same source under ROOT (the units of ROOT's own
-    LEVELS_TAKEN), with the same flags and definitions, and their
+    csrc/integrator.cu: kernels/integrator.py UNITS) built with nvcc here
+    and from the same source under ROOT (the units of ROOT's own UNITS,
+    or of its LEVELS_TAKEN each with and without the in-scan vmax, as
+    trees before UNITS list them), with the same flags and definitions,
+    and their
     cuobjdump -sass compared kernel by kernel.  Prints each library's
     kernels that are identical in both trees, that differ, and that one
     tree alone has, then one JSON line.  Needs nvcc and cuobjdump; run on
@@ -4459,16 +4663,19 @@ def sass_against(root):
     trees = {'here': kbuild.PKG,
              'root': Path(os.path.abspath(root)) /
              'tropical_cyclone_risk_tpu_torch'}
-    taken = {'here': integrator.LEVELS_TAKEN, 'root': ast.literal_eval(
-        re.search(r'^LEVELS_TAKEN = (\(.*?\))', (
-            trees['root'] / 'kernels' / 'integrator.py').read_text(),
-            re.M).group(1))}
+    text = (trees['root'] / 'kernels' / 'integrator.py').read_text()
+    found = re.search(r'^UNITS = (\(.*?\))\n(?!\s)', text, re.M | re.S)
+    taken = {'here': integrator.UNITS, 'root': ast.literal_eval(
+        found.group(1)) if found else tuple(
+            (lv, d) for lv in ast.literal_eval(re.search(
+                r'^LEVELS_TAKEN = (\(.*?\))', text, re.M).group(1))
+            for d in (False, True))}
     work = tempfile.mkdtemp(prefix='sass_')
     jobs = []
     for tree, pkg in trees.items():
         for src in sorted((kbuild.PKG / 'csrc').glob('*.cu')):
             units = ([(('TC_K1_LEVELS', lv), ('TC_K1_DIAG', int(d)))
-                      for lv in taken[tree] for d in (False, True)]
+                      for lv, d in taken[tree]]
                      if src.stem == 'integrator' else [()])
             jobs += [(tree, pkg / 'csrc' / src.name, defs) for defs in units]
 

@@ -73,11 +73,18 @@ def test_two_processes_write_the_one_process_file(tmp_path):
         np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
     assert r0['month'].shape[0] == 4 and r0['n_seeds'].shape[0] == 2
 
-    # the same namelist, pack and key on one process's 8-shard mesh
+    # the same namelist, pack and key on one process's 8-shard mesh, on
+    # one torch thread (its 64-seed shards' small ops took 36 s at eight
+    # threads and 21 s at one on an 8-core CPU; the result is the same)
     cfg = Namelist(output_directory=str(tmp_path / 'one'), **CFG)
     pack = fields.synthetic_pack(cfg, device='cpu', **PACK)
-    fn = runtime.run_downscaling(cfg, 'GL', pack, key=rng.key(SEED),
-                                 mesh=sharding.make_mesh(8, 'cpu'))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        fn = runtime.run_downscaling(cfg, 'GL', pack, key=rng.key(SEED),
+                                     mesh=sharding.make_mesh(8, 'cpu'))
+    finally:
+        torch.set_num_threads(threads)
     ds_mp, ds_sp = netcdf.read(str(r0['fn'])), netcdf.read(fn)
     for name in TRACK_VARS:
         a, b = ds_mp.variables[name].data, ds_sp.variables[name].data

@@ -87,7 +87,7 @@ def test_gate_twin_matches_jax(packs, seed, order):
 
 def test_evaluate_at_zero_is_the_ordered_b_sum():
     """F(0) adds B's components in index order, and equals evaluate(0.0),
-    whose matrix product sums in its own order, within 1e-6."""
+    which adds the A terms (+-0 at t = 0) as well, within 1e-6."""
     r = np.random.default_rng(1)
     B = torch.from_numpy(r.normal(0, 0.3, (50, 4, 15)).astype(np.float32))
     A = torch.from_numpy(r.normal(0, 0.3, (50, 4, 15)).astype(np.float32))
@@ -133,8 +133,10 @@ def test_gate_wrapper_refuses_what_k1_refuses(packs):
     """CPU tensors (ValueError), and every option K1 raises on
     (NotImplementedError): a cell row that does not fit the stack layout
     (84 channels where land and bathymetry have a grid of their own, which
-    takes 76), five steering levels (the kernels are built for two, three
-    and four); nothing is launched or counted.
+    takes 76); five steering levels are taken (a unit of their own, built
+    at its first launch: CPU tensors refused), levels without 850 hPa
+    raise fast.deep_layer_indices' ValueError; nothing is launched or
+    counted.
     Land and bathymetry on their own grids are K1's and K7's since they
     take those layouts (tests/test_torch_geo.py); fixed positions too, so
     with debug_fixed_position the wrapper refuses only the CPU tensors."""
@@ -152,9 +154,14 @@ def test_gate_wrapper_refuses_what_k1_refuses(packs):
         integrator.genesis_gate_cuda(stacks,
                                      Namelist(debug_fixed_position=True),
                                      ty, tp, keep_in)
-    with pytest.raises(NotImplementedError, match='2, 3 or 4 steering levels'):
+    cfg5 = Namelist(steering_levels=(250, 400, 500, 700, 850),
+                    steering_coefs=(0.2, 0.2, 0.2, 0.2, 0.2))
+    stacks5 = fields.build_stacks(fields.synthetic_pack(cfg5, 2, 10, 20,
+                                                        device='cpu'))
+    with pytest.raises(ValueError, match='CUDA'):
+        integrator.genesis_gate_cuda(stacks5, cfg5, ty, tp, keep_in)
+    with pytest.raises(ValueError, match='250 and 850'):
         integrator.genesis_gate_cuda(
-            stacks, Namelist(steering_levels=(250, 400, 500, 700, 850),
-                             steering_coefs=(0.2, 0.2, 0.2, 0.2, 0.2)), ty,
-            tp, keep_in)
+            stacks5, cfg5.replace(steering_levels=(250, 400, 500, 700, 800)),
+            ty, tp, keep_in)
     assert not any(kernels.LAUNCHES.values())

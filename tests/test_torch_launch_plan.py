@@ -225,18 +225,20 @@ def test_k1_fixed_position_flag(fixed):
 
 
 def test_k1_steering_order_refuses_other_levels():
-    """Five steering levels, the first count the kernels are not built
-    for, raise NotImplementedError naming the counts they take (four, the
-    last count built, is taken); levels without 250 and 850 hPa raise
-    fast.deep_layer_indices' ValueError."""
+    """Every count fast.deep_layer_indices takes is a unit of the
+    kernels (four, five, fifteen; a unit is built at its first launch);
+    what it refuses, levels without 250 or 850 hPa (one level among them),
+    raises its ValueError."""
     assert integrator.levels(Namelist(
         steering_levels=(250, 500, 700, 850))) == 4
-    with pytest.raises(NotImplementedError,
-                       match='2, 3 or 4 steering levels, got 5'):
-        integrator.levels(Namelist(steering_levels=(250, 400, 500, 700,
-                                                    850)))
-    with pytest.raises(ValueError, match='250 and 850'):
-        integrator.levels(Namelist(steering_levels=(500, 850)))
+    assert integrator.levels(Namelist(steering_levels=(250, 400, 500, 700,
+                                                       850))) == 5
+    era5 = (250, 300, 350, 400, 450, 500, 550, 600, 650, 700, 750, 775,
+            800, 825, 850)      # the ERA5 request's levels in the layer
+    assert integrator.levels(Namelist(steering_levels=era5)) == 15
+    for lv in ((500, 850), (250,), (250, 500, 700)):
+        with pytest.raises(ValueError, match='250 and 850'):
+            integrator.levels(Namelist(steering_levels=lv))
 
 
 def test_k1_fourier_phases_within_the_fast_trig_range():

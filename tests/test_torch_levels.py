@@ -257,11 +257,12 @@ def test_k1_params_three_levels(packs, diag):
 
 
 def test_k1_k7_wrappers_take_three_levels(packs):
-    """The wrappers take three levels, and four: on CPU tensors they
-    refuse the device (ValueError) and launch nothing; five levels, which
-    no unit is built for, raise NotImplementedError naming the counts
-    taken; the units are two, three and four levels, each with and
-    without the in-scan vmax."""
+    """The wrappers take three levels, four and five: on CPU tensors
+    they refuse the device (ValueError) and launch nothing; levels without
+    850 hPa raise fast.deep_layer_indices' ValueError; the units built up
+    front are two to four levels, each with and without the in-scan vmax,
+    and the level sets of chip_smoke.py's [levels4] phase (five with and
+    without it, seven and fifteen)."""
     _, tpack = packs
     stacks = fields.build_stacks(tpack)
     r = np.random.default_rng(1)
@@ -289,12 +290,19 @@ def test_k1_k7_wrappers_take_three_levels(packs):
         integrator.genesis_gate_cuda(stacks4, cfg4, y, params, mask)
     cfg5 = CFG.replace(steering_levels=(250, 300, 500, 700, 850),
                        steering_coefs=(0.1, 0.1, 0.1, 0.1, 0.6))
-    with pytest.raises(NotImplementedError,
-                       match='2, 3 or 4 steering levels, got 5'):
-        integrator.genesis_gate_cuda(stacks, cfg5, y, params, mask)
+    stacks5 = fields.build_stacks(fields.synthetic_pack(cfg5, 2, 10, 20,
+                                                          device='cpu'))
+    with pytest.raises(ValueError, match='CUDA'):
+        integrator.genesis_gate_cuda(stacks5, cfg5, y, params, mask)
+    with pytest.raises(ValueError, match='250 and 850'):
+        integrator.genesis_gate_cuda(
+            stacks5, cfg5.replace(steering_levels=(250, 300, 500, 700, 800)),
+            y, params, mask)
     assert not any(kernels.LAUNCHES.values())
-    assert integrator.units() == ((2, False), (2, True), (3, False),
-                                  (3, True), (4, False), (4, True))
+    assert integrator.UNITS == ((2, False), (2, True), (3, False),
+                                (3, True), (4, False), (4, True),
+                                (5, False), (5, True), (7, False),
+                                (15, False))
 
 
 def _vmax_source_reads():
@@ -305,13 +313,13 @@ def _vmax_source_reads():
 def test_k2_params_six_winds():
     """K2's block at W = 6: the winds per sample at ip[12] where
     read_params reads it, the shear channels (0, 1, 4, 5), and the float32
-    reciprocal of the output interval; the wrappers take six winds (CPU
-    tensors: ValueError for the device), refuse ten (no instance) and
-    shear channels that are not two (u, v) pairs."""
+    reciprocal of the output interval; the wrappers take six winds and
+    ten (CPU tensors: ValueError for the device), refuse two and odd
+    counts (NotImplementedError) and shear channels that are not two
+    (u, v) pairs."""
     body = _vmax_source_reads()
     assert 'const int W = ip[12];' in body
-    assert 'W != 4 && W != 6 && W != 8' in body
-    assert k2.W_TAKEN == (4, 6, 8)
+    assert 'W < 4 || W % 2 != 0' in body
     ip, fp = k2._block(60, 4096, 15, None, None, (0, 1, 4, 5), (128, 32, 4),
                        6, 3600.0)
     assert ip.tolist() == [60, 4096, 15, 0, 0, 0, 1, 4, 5, 128, 32, 4, 6]
@@ -326,9 +334,12 @@ def test_k2_params_six_winds():
     with pytest.raises(ValueError, match='CUDA'):
         k2.fix_last_sample_cuda(t.clone(), t, t, t, torch.zeros(T, n, 6),
                                 alive, last, 3600.0, (0, 1, 4, 5))
-    with pytest.raises(NotImplementedError, match='winds per sample'):
-        k2._check_winds(torch.zeros(T, n, 10), T, n, (0, 1, 8, 9),
-                        torch.device('cpu'))
+    assert k2._check_winds(torch.zeros(T, n, 10), T, n, (0, 1, 8, 9),
+                           torch.device('cpu')) == 10
+    for W in (2, 7):
+        with pytest.raises(NotImplementedError, match='winds per sample'):
+            k2._check_winds(torch.zeros(T, n, W), T, n, (0, 1, 0, 1),
+                            torch.device('cpu'))
     with pytest.raises(ValueError, match='pairs'):
         k2._check_winds(torch.zeros(T, n, 6), T, n, (0, 2, 4, 5),
                         torch.device('cpu'))
@@ -353,7 +364,6 @@ def row_entry_matches(C):
     gathered there, and K5's row entry refuses CPU tensors before it
     launches."""
     from tropical_cyclone_risk_tpu_torch import rng
-    assert C in k5.ROW_CHANNELS
     key, rows = rng.key(3), torch.tensor([5, 0, 7])
     full = fourier.draw_fourier_plain(key, (9, C), CFG.T_fourier_s)
     part = fourier.draw_fourier_plain(key, (9, C), CFG.T_fourier_s,

@@ -145,15 +145,16 @@ def test_fourier_rows_are_the_full_draw_gathered(case):
 
 def test_fourier_row_wrapper_refuses_cpu_tensors():
     """K5's row entry refuses CPU tensors (ValueError) at the wind
-    channels of two, three and four steering levels, and launches
-    nothing; its compile-time shapes are the twin's: 15 components, and
-    the wind channels of two, three and four levels (an instance each)."""
+    channels of two to five steering levels, and launches nothing; its
+    compile-time components are the twin's 15 (the wind channels of two,
+    three and four levels have instances of their own, the others the
+    run-time-count one)."""
     from tropical_cyclone_risk_tpu_torch.config import Namelist
     from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
     kernels.reset_counts()
-    for levels in ((250, 850), (250, 500, 850), (250, 500, 700, 850)):
+    for levels in ((250, 850), (250, 500, 850), (250, 500, 700, 850),
+                   (250, 300, 500, 700, 850)):
         C = Namelist(steering_levels=levels).n_wind_levels
-        assert C in k5.ROW_CHANNELS
         with pytest.raises(ValueError, match='CUDA'):
             k5.fourier_rows_cuda(rng.key(1), (8, C), torch.arange(3),
                                  fourier._amplitudes('cpu'))
@@ -161,14 +162,18 @@ def test_fourier_row_wrapper_refuses_cpu_tensors():
     assert k5.N_FOURIER == fourier.N_FOURIER
 
 
-@pytest.mark.parametrize('C', [2, 10])
+@pytest.mark.parametrize('C', [2, 10, 7])
 def test_fourier_row_wrapper_refuses_other_channel_counts(C):
-    """K5's row entry has instances for the wind channels of two, three
-    and four steering levels alone: any other count (one level, five)
-    raises NotImplementedError before anything is checked or launched."""
+    """K5's row entry takes the wind channels of two or more steering
+    levels, any even count from 4: ten (five levels) reaches the device
+    check (ValueError on CPU tensors); two (one level) and an odd count
+    raise NotImplementedError before anything is checked; nothing is
+    launched."""
     from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
     kernels.reset_counts()
-    with pytest.raises(NotImplementedError, match=r'\(4, 6, 8\)'):
+    taken = C >= 4 and C % 2 == 0
+    with pytest.raises(ValueError if taken else NotImplementedError,
+                       match='CUDA' if taken else 'even count'):
         k5.fourier_rows_cuda(rng.key(1), (8, C), torch.arange(3),
                              fourier._amplitudes('cpu'))
     assert not any(kernels.LAUNCHES.values())

@@ -54,6 +54,19 @@ def _np(d):
     return {k: np.asarray(v) for k, v in d.items()}
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """One intra-op torch thread for the module: a mesh launch issues each
+    shard's small ops in turn (32-1536 seeds a shard), where more threads
+    cost more than they save (a 4096-seed launch on 8 shards took 12.6 s
+    at eight threads and 9.7 s at one on an 8-core CPU); the port's
+    results are the same at any count."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 @pytest.fixture(scope='module')
 def packs():
     jpack = jfields.synthetic_pack(JNamelist(), 12, 91, 180, seed=0)

@@ -39,20 +39,19 @@ def main():
     # every process sees the primary's value
     bseed = distributed.broadcast_from_primary(1000 + 17 * rank)
 
-    writes = []
+    writes, groups = [], []
     orig_write = runtime.write_tracks_nc
     runtime.write_tracks_nc = lambda *a: (writes.append(a[0]),
                                           orig_write(*a))[1]
+    # this process's own tracks (the non-primary writes no file): what
+    # run_downscaling's fused driver returns here
+    orig_fused = pipeline.run_tracks_years_fused
+    pipeline.run_tracks_years_fused = lambda *a, **k: (
+        groups.append(orig_fused(*a, **k)), groups[-1])[1]
     fn = runtime.run_downscaling(cfg, 'GL', pack, key=rng.key(SEED),
                                  mesh=mesh)
-    # this process's own tracks (the non-primary writes no file): the
-    # fused driver again, with run_downscaling's cap resolution
-    key = rng.key(SEED)
-    cfg_r = pipeline.auto_integrate_cap(rng.fold_in(key, 2016), pack, cfg,
-                                        'GL')
-    yts = pipeline.run_tracks_years_fused(key, pack, cfg_r, 'GL',
-                                          [2016, 2017],
-                                          adapt={'cfg': cfg_r}, mesh=mesh)
+    assert len(groups) == 1, len(groups)
+    yts = groups[0]
     np.savez(os.path.join(out_dir, f'rank{rank}.npz'), fn=np.array(fn),
              writes=np.int32(len(writes)),
              rank=np.int32(torch.distributed.get_rank()),

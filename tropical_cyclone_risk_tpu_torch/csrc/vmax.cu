@@ -39,7 +39,12 @@
 // with two levels a sample's four winds are one 16-byte load; with more,
 // the deep-layer shear's two (u, v) pairs are two 8-byte loads, the other
 // levels unread (the wrapper checks the alignment and that each shear pair
-// is an aligned (u, v)).
+// is an aligned (u, v)).  Three and four levels have instances of their
+// own (kW = 6, 8); every other even count takes the instances kW = 0, which
+// take W, a sample's stride, as a trailing kernel argument (only the
+// stride: the loads are the same two pairs).  Each entry's pass is a
+// device function that both kinds of instance call, so the compile-time
+// instances keep their parameter block and their code.
 //
 // The peak is a reduction across the chunks of a storm: each block writes
 // its storms' alive-masked partial peaks to a [chunks, N] scratch, fences,
@@ -87,15 +92,21 @@ __device__ __forceinline__ float pick(float4 w, int i) {
 }
 
 // the deep-layer shear's winds (u250, v250, u850, v850) of sample o of a
-// [.., kW] wind buffer: one 16-byte load of all four winds at kW = 4, else
-// the two aligned (u, v) pairs
+// [.., kW] wind buffer (kW = 0: [.., W]): one 16-byte load of all four
+// winds at kW = 4, else the two aligned (u, v) pairs
 template <int kW>
 __device__ __forceinline__ float4 shear_winds(const float* __restrict__ wnds,
-                                              int64_t o, const Params& p) {
+                                              int64_t o, const Params& p,
+                                              int W) {
   if constexpr (kW == 4) {
     const float4 w = __ldg(reinterpret_cast<const float4*>(wnds) + o);
     return make_float4(pick(w, p.iu2), pick(w, p.iv2), pick(w, p.iu8),
                        pick(w, p.iv8));
+  } else if constexpr (kW == 0) {
+    const float* row = wnds + o * W;
+    const float2 a = __ldg(reinterpret_cast<const float2*>(row + p.iu2));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(row + p.iu8));
+    return make_float4(a.x, a.y, b.x, b.y);
   } else {
     const float2 a = __ldg(reinterpret_cast<const float2*>(wnds + o * kW +
                                                            p.iu2));
@@ -114,17 +125,16 @@ __device__ __forceinline__ float vmax_at(const Params& p, float lat,
                         s.y - s.w);
 }
 
+// vmax_kernel's pass; W is the winds per sample where kW is 0
 template <int kW>
-__global__ void __launch_bounds__(kThreads)
-vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
-            const float* __restrict__ lat, const float* __restrict__ tc_v,
-            const float* __restrict__ wnds,
-            const uint8_t* __restrict__ alive,
-            const int64_t* __restrict__ last,
-            const float* __restrict__ before,
-            const float* __restrict__ after, float* __restrict__ vmax,
-            float* __restrict__ peak, float* __restrict__ partial,
-            unsigned* __restrict__ count) {
+__device__ __forceinline__ void vmax_pass(
+    const Params& p, int W, const float* __restrict__ lon,
+    const float* __restrict__ lat, const float* __restrict__ tc_v,
+    const float* __restrict__ wnds, const uint8_t* __restrict__ alive,
+    const int64_t* __restrict__ last, const float* __restrict__ before,
+    const float* __restrict__ after, float* __restrict__ vmax,
+    float* __restrict__ peak, float* __restrict__ partial,
+    unsigned* __restrict__ count) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = n < p.N;
   const int64_t N = p.N;
@@ -166,7 +176,7 @@ vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
       nxt_lat = end_lat;
     }
     float v = tc_v[t0 * N + n];
-    float4 w = shear_winds<kW>(wnds, t0 * N + n, p);
+    float4 w = shear_winds<kW>(wnds, t0 * N + n, p, W);
     bool live = alive[t0 * N + n] != 0;
     for (int t = t0; t < t1; ++t) {
       // row t+1's samples and row t+2's position, loaded ahead
@@ -176,7 +186,7 @@ vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
       if (t + 1 < t1) {
         const int64_t o = (int64_t)(t + 1) * N + n;
         v_n = tc_v[o];
-        w_n = shear_winds<kW>(wnds, o, p);
+        w_n = shear_winds<kW>(wnds, o, p, W);
         live_n = alive[o] != 0;
       }
       if (t + 2 < T && t + 1 < t1) {
@@ -239,6 +249,38 @@ vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
   if (threadIdx.x == 0) count[blockIdx.x] = 0u;
 }
 
+template <int kW>
+__global__ void __launch_bounds__(kThreads)
+vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
+            const float* __restrict__ lat, const float* __restrict__ tc_v,
+            const float* __restrict__ wnds,
+            const uint8_t* __restrict__ alive,
+            const int64_t* __restrict__ last,
+            const float* __restrict__ before,
+            const float* __restrict__ after, float* __restrict__ vmax,
+            float* __restrict__ peak, float* __restrict__ partial,
+            unsigned* __restrict__ count) {
+  vmax_pass<kW>(p, kW, lon, lat, tc_v, wnds, alive, last, before, after,
+                vmax, peak, partial, count);
+}
+
+// the run-time-stride instance <0>: W winds per sample
+template <int kW>
+__global__ void __launch_bounds__(kThreads)
+vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
+            const float* __restrict__ lat, const float* __restrict__ tc_v,
+            const float* __restrict__ wnds,
+            const uint8_t* __restrict__ alive,
+            const int64_t* __restrict__ last,
+            const float* __restrict__ before,
+            const float* __restrict__ after, float* __restrict__ vmax,
+            float* __restrict__ peak, float* __restrict__ partial,
+            unsigned* __restrict__ count, int W) {
+  static_assert(kW == 0, "the run-time-stride instance is <0>");
+  vmax_pass<0>(p, W, lon, lat, tc_v, wnds, alive, last, before, after, vmax,
+               peak, partial, count);
+}
+
 // The last-sample entry (diagnostics.fix_last_sample_plain): one thread per
 // storm re-derives the sample at its segment-local last step L with the
 // reference's edge extrapolation, next = pos[L] + (pos[L] - pos[L-1])
@@ -248,17 +290,13 @@ vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
 // latency at the launch's widths; it exists so that the vmax of the card's
 // in-scan path is vmax_at throughout.
 template <int kW>
-__global__ void __launch_bounds__(kThreads)
-last_sample_kernel(const __grid_constant__ Params p,
-                   const float* __restrict__ lon,
-                   const float* __restrict__ lat,
-                   const float* __restrict__ tc_v,
-                   const float* __restrict__ wnds,
-                   const uint8_t* __restrict__ alive,
-                   const int64_t* __restrict__ last,
-                   const float* __restrict__ before,
-                   float* __restrict__ vmax, float* __restrict__ vmax_L,
-                   uint8_t* __restrict__ ok) {
+__device__ __forceinline__ void last_sample_pass(
+    const Params& p, int W, const float* __restrict__ lon,
+    const float* __restrict__ lat, const float* __restrict__ tc_v,
+    const float* __restrict__ wnds, const uint8_t* __restrict__ alive,
+    const int64_t* __restrict__ last, const float* __restrict__ before,
+    float* __restrict__ vmax, float* __restrict__ vmax_L,
+    uint8_t* __restrict__ ok) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= p.N) return;
   const int64_t N = p.N, T = p.T, L = last[n];
@@ -272,11 +310,45 @@ last_sample_kernel(const __grid_constant__ Params p,
   }
   const float vm = vmax_at(p, lat_L, lon_P, lat_P, lon_L + (lon_L - lon_P),
                            lat_L + (lat_L - lat_P), tc_v[Lc * N + n],
-                           shear_winds<kW>(wnds, Lc * N + n, p));
+                           shear_winds<kW>(wnds, Lc * N + n, p, W));
   const bool good = L >= 0 && L < T && alive[Lc * N + n] != 0;
   vmax_L[n] = vm;
   ok[n] = good;
   if (good) vmax[Lc * N + n] = vm;
+}
+
+template <int kW>
+__global__ void __launch_bounds__(kThreads)
+last_sample_kernel(const __grid_constant__ Params p,
+                   const float* __restrict__ lon,
+                   const float* __restrict__ lat,
+                   const float* __restrict__ tc_v,
+                   const float* __restrict__ wnds,
+                   const uint8_t* __restrict__ alive,
+                   const int64_t* __restrict__ last,
+                   const float* __restrict__ before,
+                   float* __restrict__ vmax, float* __restrict__ vmax_L,
+                   uint8_t* __restrict__ ok) {
+  last_sample_pass<kW>(p, kW, lon, lat, tc_v, wnds, alive, last, before, vmax,
+                       vmax_L, ok);
+}
+
+// the run-time-stride instance <0>: W winds per sample
+template <int kW>
+__global__ void __launch_bounds__(kThreads)
+last_sample_kernel(const __grid_constant__ Params p,
+                   const float* __restrict__ lon,
+                   const float* __restrict__ lat,
+                   const float* __restrict__ tc_v,
+                   const float* __restrict__ wnds,
+                   const uint8_t* __restrict__ alive,
+                   const int64_t* __restrict__ last,
+                   const float* __restrict__ before,
+                   float* __restrict__ vmax, float* __restrict__ vmax_L,
+                   uint8_t* __restrict__ ok, int W) {
+  static_assert(kW == 0, "the run-time-stride instance is <0>");
+  last_sample_pass<0>(p, W, lon, lat, tc_v, wnds, alive, last, before, vmax,
+                      vmax_L, ok);
 }
 
 // the shared parameter block of both entries; false if it is not valid
@@ -286,7 +358,7 @@ bool read_params(const int* ip, const float* fp, Params* p) {
   p->iu2 = ip[5]; p->iv2 = ip[6]; p->iu8 = ip[7]; p->iv8 = ip[8];
   p->c = vmaxc::Consts{fp[0], fp[1], fp[2]};
   const int W = ip[12];
-  if (W != 4 && W != 6 && W != 8) return false;
+  if (W < 4 || W % 2 != 0) return false;
   const int shear[4] = {p->iu2, p->iv2, p->iu8, p->iv8};
   for (int i : shear)
     if (i < 0 || i >= W) return false;
@@ -298,7 +370,8 @@ bool read_params(const int* ip, const float* fp, Params* p) {
 }  // namespace
 
 // ip: T, N, chunk, has_before, has_after, iu2, iv2, iu8, iv8, threads,
-// storm blocks, chunks, W; fp: 1 / dt_s, km2, deg2rad.  partial [chunks, N]
+// storm blocks, chunks, W (any even W >= 4; the instance <W> at 4, 6 and
+// 8, else <0>); fp: 1 / dt_s, km2, deg2rad.  partial [chunks, N]
 // and count [storm blocks] (zeroed) are the wrapper's scratch, unread with
 // one chunk.
 extern "C" int tc_vmax(const int* ip, const float* fp, const float* lon,
@@ -316,12 +389,29 @@ extern "C" int tc_vmax(const int* ip, const float* fp, const float* lon,
       chunks > kMaxChunks || (int64_t)chunks * p.chunk < p.T ||
       (int64_t)(chunks - 1) * p.chunk >= p.T || (p.T < 2 && !p.has_before))
     return (int)cudaErrorInvalidValue;
-  auto kern = ip[12] == 4   ? vmax_kernel<4>
-              : ip[12] == 6 ? vmax_kernel<6>
-                            : vmax_kernel<8>;
-  kern<<<dim3(sblocks, chunks), threads, 0, (cudaStream_t)stream>>>(
-      p, lon, lat, tc_v, wnds, alive, last, before, after, vmax, peak,
-      partial, count);
+  const dim3 grid(sblocks, chunks);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (ip[12]) {
+    case 4:
+      vmax_kernel<4><<<grid, threads, 0, s>>>(p, lon, lat, tc_v, wnds, alive,
+                                               last, before, after, vmax, peak,
+                                               partial, count);
+      break;
+    case 6:
+      vmax_kernel<6><<<grid, threads, 0, s>>>(p, lon, lat, tc_v, wnds, alive,
+                                               last, before, after, vmax, peak,
+                                               partial, count);
+      break;
+    case 8:
+      vmax_kernel<8><<<grid, threads, 0, s>>>(p, lon, lat, tc_v, wnds, alive,
+                                               last, before, after, vmax, peak,
+                                               partial, count);
+      break;
+    default:
+      vmax_kernel<0><<<grid, threads, 0, s>>>(p, lon, lat, tc_v, wnds, alive,
+                                               last, before, after, vmax, peak,
+                                               partial, count, ip[12]);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -340,10 +430,24 @@ extern "C" int tc_vmax_last(const int* ip, const float* fp, const float* lon,
   if (!good || p.T < 1 || p.N < 1 || threads < 32 || threads > kThreads ||
       threads % 32 != 0 || (int64_t)blocks * threads < p.N)
     return (int)cudaErrorInvalidValue;
-  auto kern = ip[12] == 4   ? last_sample_kernel<4>
-              : ip[12] == 6 ? last_sample_kernel<6>
-                            : last_sample_kernel<8>;
-  kern<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      p, lon, lat, tc_v, wnds, alive, last, before, vmax, vmax_L, ok);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (ip[12]) {
+    case 4:
+      last_sample_kernel<4><<<blocks, threads, 0, s>>>(
+          p, lon, lat, tc_v, wnds, alive, last, before, vmax, vmax_L, ok);
+      break;
+    case 6:
+      last_sample_kernel<6><<<blocks, threads, 0, s>>>(
+          p, lon, lat, tc_v, wnds, alive, last, before, vmax, vmax_L, ok);
+      break;
+    case 8:
+      last_sample_kernel<8><<<blocks, threads, 0, s>>>(
+          p, lon, lat, tc_v, wnds, alive, last, before, vmax, vmax_L, ok);
+      break;
+    default:
+      last_sample_kernel<0><<<blocks, threads, 0, s>>>(
+          p, lon, lat, tc_v, wnds, alive, last, before, vmax, vmax_L, ok,
+          ip[12]);
+  }
   return (int)cudaGetLastError();
 }

@@ -13,10 +13,12 @@ the storms' Fourier rows with w_n from ops/fourier._omega.  The launch's
 shape follows the segment's width and the card's SM count
 (launch_geometry).
 
-The source builds into one library per unit: a steering-level count of
-LEVELS_TAKEN, with or without the in-scan vmax (Namelist.vmax_in_scan,
-the DiagState carry of models/simulator.py); the launch takes the unit of
-its configuration.
+The source builds into one library per unit: a steering-level count
+(any count fast.deep_layer_indices takes), with or without the in-scan
+vmax (Namelist.vmax_in_scan, the DiagState carry of models/simulator.py);
+the launch takes the unit of its configuration, built the first time a
+run asks for it (kernels/build.py keeps it for later runs).  UNITS lists
+the units chip_smoke.py builds up front.
 
 K7, the genesis gate (genesis_gate_cuda), is the file's second kernel:
 the step-0 keep mask from K1's gather, Cholesky and coloring at t = 0.
@@ -45,8 +47,12 @@ GATE_POINTERS = 9        # device pointers of tc_genesis_gate
 # csrc/integrator.cu sincos_rad: CUDA's sinf/cosf fast path below this |x|
 FAST_TRIG_LIMIT = 105615.0
 WARP = 32
-# the steering-level counts csrc/integrator.cu is built for (TC_K1_LEVELS)
-LEVELS_TAKEN = (2, 3, 4)
+# the (levels, in-scan vmax) units chip_smoke.py builds before its phases
+# (TC_K1_LEVELS, TC_K1_DIAG): two to four levels with and without the
+# in-scan vmax, and the level sets of its [levels4] phase; any other unit is
+# built at its first launch
+UNITS = ((2, False), (2, True), (3, False), (3, True), (4, False),
+         (4, True), (5, False), (5, True), (7, False), (15, False))
 # csrc/integrator.cu's stack layouts (kInCell, kFusedGeo, kSeparateGeo)
 IN_CELL, FUSED_GEO, SEPARATE_GEO = 0, 1, 2
 
@@ -66,13 +72,10 @@ def cell_row(layout: int, levels: int) -> int:
     return 4 * (wind_channels(levels) + (7 if layout == IN_CELL else 5))
 
 
-def units():
-    """Every (levels, diag) unit of csrc/integrator.cu."""
-    return tuple((lv, d) for lv in LEVELS_TAKEN for d in (False, True))
-
-
 def build(levels: int = 2, diag: bool = False) -> dict:
-    """Build (or find) the library of one unit; see kernels/build.py."""
+    """Build (or find) the library of one unit; see kernels/build.py.  A
+    unit of five or more levels keeps its loops rolled (csrc/integrator.cu),
+    so any count builds in about the time of the small ones."""
     return kbuild.library('integrator', (('TC_K1_LEVELS', int(levels)),
                                          ('TC_K1_DIAG', int(diag))))
 
@@ -115,17 +118,11 @@ def launch_geometry(width: int, n_sm: int):
 
 
 def levels(cfg: Namelist) -> int:
-    """cfg's steering-level count, one of LEVELS_TAKEN; raises for the
-    counts fast.deep_layer_indices refuses (ValueError) and for those the
-    kernels are not built for (NotImplementedError)."""
+    """cfg's steering-level count, the unit its launches take; raises
+    what fast.deep_layer_indices raises (ValueError: 250 or 850 hPa
+    missing) and takes every other count."""
     fast.deep_layer_indices(cfg)
-    n = cfg.n_steering_levels
-    if n not in LEVELS_TAKEN:
-        *most, last = map(str, LEVELS_TAKEN)
-        raise NotImplementedError(f'the integrator kernel takes '
-                                  f'{", ".join(most)} or {last} steering '
-                                  f'levels, got {n}')
-    return n
+    return cfg.n_steering_levels
 
 
 def trig_check(lo: int, count: int, device) -> tuple:

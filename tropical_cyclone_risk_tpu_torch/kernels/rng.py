@@ -25,7 +25,6 @@ MODES = {'bits': (0, torch.int64), 'uniform': (1, torch.float32),
          'normal': (2, torch.float32), 'randint': (3, torch.int32)}
 TWO_PI_F32 = float(np.float32(2 * math.pi))
 N_FOURIER = 15          # csrc/rng.cu kNF
-ROW_CHANNELS = (4, 6, 8)  # csrc/rng.cu's row-entry instances: wind channels
 PHASES = 1 << 23        # uniforms on [0, 1): the float32 mantissas
 INT32_MAX = 2 ** 31 - 1
 
@@ -130,15 +129,16 @@ def fourier_cuda(key, shape, amp: torch.Tensor):
 def fourier_rows_cuda(key, shape, rows: torch.Tensor, amp: torch.Tensor):
     """Launch K5's row entry: (A, B) [k, C, 15], row j the draw of
     ``fourier_cuda(key, shape, amp)`` at source row rows[j], without the
-    full draw.  shape: (n, C), C the wind channels, one of ROW_CHANNELS
-    (NotImplementedError otherwise); rows [k] int64 on the card, each in
-    [0, n) (not checked on the card: the caller's partition order)."""
+    full draw.  shape: (n, C), C the wind channels, an even count from 4
+    (two or more steering levels; NotImplementedError otherwise: 4, 6 and
+    8 have instances of their own, the others the run-time-count one);
+    rows [k] int64 on the card, each in [0, n) (not checked on the card:
+    the caller's partition order)."""
     n, C = (int(s) for s in shape)
-    if C not in ROW_CHANNELS:
-        raise NotImplementedError(f'the Fourier row entry takes '
-                                  f'{ROW_CHANNELS} wind channels (two, '
-                                  f'three or four steering levels), got '
-                                  f'{C}')
+    if C < 4 or C % 2:
+        raise NotImplementedError(f'the Fourier row entry takes an even '
+                                  f'count of wind channels from 4 (two or '
+                                  f'more steering levels), got {C}')
     dev = _amp(amp)
     if rows.device != dev or rows.dtype != torch.int64 or rows.dim() != 1 \
             or not rows.is_contiguous():

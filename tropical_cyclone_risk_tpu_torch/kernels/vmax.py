@@ -8,8 +8,9 @@ axi_to_max_wind_raw_plain.  The launch is a 2-D grid of storm blocks by
 chunks of rows whose shape follows the segment's length, width and the
 card's SM count (launch_geometry).  The source's second entry, the in-scan
 vmax's last-sample fix (fix_last_sample_cuda), has the twin
-diagnostics.fix_last_sample_plain.  Both take winds of W_TAKEN components
-(two, three or four steering levels).
+diagnostics.fix_last_sample_plain.  Both take any even count of winds
+from four (two or more steering levels): four, six and eight have
+instances of their own, every other count the run-time-stride instance.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ from tropical_cyclone_risk_tpu_torch.kernels import build as kbuild
 
 N_POINTERS = 12          # device pointers of tc_vmax
 LAST_POINTERS = 10       # device pointers of tc_vmax_last
-W_TAKEN = (4, 6, 8)      # csrc/vmax.cu's instances: winds per sample
 THREADS = 128            # csrc/vmax.cu kThreads (__launch_bounds__)
 MAX_CHUNKS = 65535       # csrc/vmax.cu kMaxChunks (gridDim.y)
 WARP = 32
@@ -78,13 +78,15 @@ def _check(name, t, dtype, shape, device):
 
 
 def _check_winds(env_wnds, T, N, shear_channels, dev):
-    """The winds [T, N, W] the kernels read: W one of W_TAKEN, the shear
+    """The winds [T, N, W] the kernels read: W an even count from four
+    (two or more steering levels; NotImplementedError otherwise), the shear
     channels the deep-layer (u, v) pairs among them, aligned for the
     kernels' loads (16 bytes for four winds, 8 for each pair)."""
     W = env_wnds.shape[-1] if env_wnds.dim() == 3 else -1
-    if W not in W_TAKEN:
-        raise NotImplementedError(f'the vmax kernels take {W_TAKEN} winds '
-                                  f'per sample, got {tuple(env_wnds.shape)}')
+    if W < 4 or W % 2:
+        raise NotImplementedError(f'the vmax kernels take an even count of '
+                                  f'winds per sample from 4, got '
+                                  f'{tuple(env_wnds.shape)}')
     _check('env_wnds', env_wnds, torch.float32, (T, N, W), dev)
     iu2, iv2, iu8, iv8 = shear_channels
     if not (all(0 <= i < W for i in shear_channels) and iu2 % 2 == 0
