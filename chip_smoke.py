@@ -170,7 +170,12 @@ Phases (any failure raises, and the script exits non-zero):
                rk_exact_stage_fields and rk_substeps=2 bit for bit, and
                vmax_in_scan bit for bit the post-pass, the five-level
                set also through cli.main GL on a one-degree workspace of
-               its winds; plev19's seven levels in the layer; the ERA5
+               its winds; plev19's seven levels in the layer; at five and
+               seven levels also the launch on packs with land and
+               bathymetry on grids of their own (fused and separate, as
+               phase geo; default mode and time_interp_fields), K1 bit
+               for bit against its twin on the first and last segment and
+               K7 against its twin; the ERA5
                request's fifteen, with K1 against its twin on the first
                segment (the twin's Python Cholesky is the cost) and every
                other kernel over the whole launch.  Per set: each kernel's
@@ -1574,64 +1579,80 @@ def k1_differs(out, ref):
                if not same(a, b)])
 
 
-def check_geo(key, pack_y, cfg_t, plane0, card):
-    """Phase geo: one N_SEEDS launch (_simulate_batch) on a pack with land
-    and bathymetry on one grid of their own (fused) and on two (separate),
-    in the default mode and with time_interp_fields: K1 bit for bit against
-    its twin on the first and the last segment, K7 against its twin on the
-    launch; then K1's time alone on every segment of the default launch
-    beside its bound, for each layout and for the in-cell pack pack_y.
-    Returns {layout: K1's segment times and bounds}."""
+def geo_stacks(pack, layout):
+    """The GatherStacks of `pack`, required to be in `layout` ('in-cell'
+    or one of GEO_LAYOUTS) as the kernels read it."""
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
-    from tropical_cyclone_risk_tpu_torch.models import fields, simulator
+    from tropical_cyclone_risk_tpu_torch.models import fields
     want = {'in-cell': integrator.IN_CELL, 'fused': integrator.FUSED_GEO,
-            'separate': integrator.SEPARATE_GEO}
+            'separate': integrator.SEPARATE_GEO}[layout]
+    stacks = fields.build_stacks(pack)
+    if integrator.geo_layout(stacks) != want:
+        raise AssertionError(f'geo {layout}: the stacks are in layout '
+                             f'{integrator.geo_layout(stacks)}')
+    return stacks
+
+
+def geo_modes(label, key, pack, cfg, plane0, layout):
+    """K1 and K7 on a pack whose land and bathymetry lie on grids of their
+    own (geo_pack's `layout`), in each of GEO_MODES: one N_SEEDS launch
+    (_simulate_batch), K7 against its twin on it, K1 bit for bit against
+    its twin on the first and the last segment.  Returns the default
+    mode's K1 calls (mode_calls)."""
+    from tropical_cyclone_risk_tpu_torch.models import simulator
+    out = None
+    for mode, kw in GEO_MODES.items():
+        calls, gates = mode_calls(key, pack, cfg.replace(**kw), plane0,
+                                  gate=True)
+        k7_results(f'{label} {layout} {mode}', gates)
+        for args, _, res, _ in (calls[0], calls[-1]):
+            bad = k1_differs(res, uncounted(simulator.integrate_segment_plain,
+                                            *args))
+            log(f'[{label}] {layout}, {mode}: K1 segment of {args[7]} '
+                f'steps x {args[3].lon.shape[0]} storms from sample '
+                f'{args[6]}: not bit-exact against its twin: '
+                f'{bad or "none"}')
+            if bad:
+                raise AssertionError(f'{label}: K1 in the {layout} layout '
+                                     f'({mode}) differs from its twin in '
+                                     f'{bad}')
+        if mode == 'default':
+            out = calls
+        del calls, gates
+    return out
+
+
+def check_geo(key, pack_y, cfg_t, plane0, card):
+    """Phase geo: geo_modes on a pack with land and bathymetry on one grid
+    of their own (fused) and on two (separate); then K1's time alone on
+    every segment of the default launch beside its bound, for each layout
+    and for the in-cell pack pack_y.  Returns {layout: K1's segment times
+    and bounds}."""
     out = {}
     for layout in ('in-cell',) + GEO_LAYOUTS:
         pack = (pack_y if layout == 'in-cell'
                 else geo_pack(cfg_t, pack_y.device, layout))
-        stacks = fields.build_stacks(pack)
-        if integrator.geo_layout(stacks) != want[layout]:
-            raise AssertionError(f'geo {layout}: the stacks are in layout '
-                                 f'{integrator.geo_layout(stacks)}')
-        for mode, kw in GEO_MODES.items():
-            if layout == 'in-cell' and mode != 'default':
-                continue
-            calls, gates = mode_calls(key, pack, cfg_t.replace(**kw), plane0,
-                                      gate=True)
-            if layout != 'in-cell':
-                k7_results(f'geo {layout} {mode}', gates)
-                for args, _, res, _ in (calls[0], calls[-1]):
-                    bad = k1_differs(res,
-                                     simulator.integrate_segment_plain(*args))
-                    log(f'[geo] {layout}, {mode}: K1 segment of {args[7]} '
-                        f'steps x {args[3].lon.shape[0]} storms from sample '
-                        f'{args[6]}: not bit-exact against its twin: '
-                        f'{bad or "none"}')
-                    if bad:
-                        raise AssertionError(f'K1 in the {layout} layout '
-                                             f'({mode}) differs from its '
-                                             f'twin in {bad}')
-            if mode != 'default':
-                continue
-            segs = [{'steps': args[7], 'width': args[3].lon.shape[0],
-                     'ms': cuda_ms(k1_launcher(args), 5),
-                     'bound_ms': k1_bound(args, res)[0]}
-                    for args, _, res, _ in calls]
-            out[layout] = {
-                'segments': segs,
-                'cell_row_bytes': stacks.cell4.shape[-1] * 4,
-                **{k: sum(sg[k] for sg in segs) for k in ('ms', 'bound_ms')}}
-            log(f'[geo] {card}: K1 in the {layout} layout (cell row '
-                f'{stacks.cell4.shape[-1] * 4} bytes; land grid '
-                f'{stacks.land_grid.nlat} x {stacks.land_grid.nlon}, '
-                f'bathymetry grid {stacks.bathy_grid.nlat} x '
-                f'{stacks.bathy_grid.nlon}): per launch ({len(segs)} '
-                f'segments) {out[layout]["ms"]:.4f} ms, bound '
-                f'{out[layout]["bound_ms"]:.5f} ms; segment 0 '
-                f'{segs[0]["ms"]:.4f} ms, bound {segs[0]["bound_ms"]:.5f} '
-                f'ms; the kernel alone')
-            del calls, gates
+        stacks = geo_stacks(pack, layout)
+        calls = (mode_calls(key, pack, cfg_t, plane0) if layout == 'in-cell'
+                 else geo_modes('geo', key, pack, cfg_t, plane0, layout))
+        segs = [{'steps': args[7], 'width': args[3].lon.shape[0],
+                 'ms': cuda_ms(k1_launcher(args), 5),
+                 'bound_ms': k1_bound(args, res)[0]}
+                for args, _, res, _ in calls]
+        out[layout] = {
+            'segments': segs,
+            'cell_row_bytes': stacks.cell4.shape[-1] * 4,
+            **{k: sum(sg[k] for sg in segs) for k in ('ms', 'bound_ms')}}
+        log(f'[geo] {card}: K1 in the {layout} layout (cell row '
+            f'{stacks.cell4.shape[-1] * 4} bytes; land grid '
+            f'{stacks.land_grid.nlat} x {stacks.land_grid.nlon}, '
+            f'bathymetry grid {stacks.bathy_grid.nlat} x '
+            f'{stacks.bathy_grid.nlon}): per launch ({len(segs)} '
+            f'segments) {out[layout]["ms"]:.4f} ms, bound '
+            f'{out[layout]["bound_ms"]:.5f} ms; segment 0 '
+            f'{segs[0]["ms"]:.4f} ms, bound {segs[0]["bound_ms"]:.5f} '
+            f'ms; the kernel alone')
+        del calls
     return out
 
 
@@ -2055,16 +2076,19 @@ ERA5_LAYER = (250, 300, 350, 400, 450, 500, 550, 600, 650, 700, 750, 775,
 # launch through the twins keeps K1: its Python Cholesky of W^3/6 steps a
 # gather is the cost at fifteen levels), else the whole launch;
 # 'interp' the launch again with time_interp_fields; 'modes' K1 on the
-# first and last segment in each of LEVELS4_MODES, bit for bit;
+# first and last segment in each of LEVELS4_MODES, bit for bit; 'geo'
+# geo_modes on the set's pack with land and bathymetry on grids of their
+# own (geo_pack: fused and separate, each in GEO_MODES);
 # 'in_scan' vmax_in_scan bit for bit the post-pass; 'cli' cli.main GL one
 # year on a one-degree workspace with the set's winds.  The kernels line
 # names the instances of each set (level_entries).
 LEVEL_SETS = (
     ('levels4', LEVELS4, 88, dict(interp=True, modes=True, in_scan=True)),
     ('L5', steering_fields((250, 300, 500, 700, 850)), 78,
-     dict(interp=True, modes=True, in_scan=True, cli=True)),
+     dict(interp=True, modes=True, geo=True, in_scan=True, cli=True)),
     # CMIP6's plev19 levels in the layer
-    ('L7', steering_fields((250, 300, 400, 500, 600, 700, 850)), 74, {}),
+    ('L7', steering_fields((250, 300, 400, 500, 600, 700, 850)), 74,
+     dict(geo=True)),
     ('L15', steering_fields(ERA5_LAYER), 72, dict(k1_segments=1)))
 
 
@@ -2311,6 +2335,12 @@ def check_level_set(dev, card, libs, tmp, label, steer, key, checks,
     if checks.get('modes'):
         res['k1_modes_max_abs_err'] = k1_modes(label, pack, cfg_t, plane0,
                                                LEVELS4_MODES)
+    if checks.get('geo'):
+        for layout in GEO_LAYOUTS:
+            pack_g = geo_pack(cfg_t, dev, layout)
+            geo_stacks(pack_g, layout)
+            geo_modes(label, rng.key(key - 3), pack_g, cfg_t, plane0, layout)
+            del pack_g
     if checks.get('in_scan'):
         res['in_scan_max_abs_err'], res['in_scan_last_max_abs_err'] = \
             in_scan_k1(label, rng.key(key - 2), pack, cfg_t, plane0, True,

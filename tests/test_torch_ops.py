@@ -121,6 +121,25 @@ def test_fourier_matches_jax():
                                atol=ATOL)
 
 
+def test_evaluate_in_order_is_the_ordered_sum():
+    """evaluate_in_order adds the A sin and the B cos terms in index order,
+    each chain on its own, then the two, bit for bit; evaluate (matrix
+    products) agrees within 1e-6."""
+    r = np.random.default_rng(2)
+    A, B = (r.normal(0, 0.3, (50, 4, 15)).astype(np.float32)
+            for _ in range(2))
+    T_s, t = 20 * 86400.0, 7200.0
+    fs = fourier.FourierSeries(torch.from_numpy(A), torch.from_numpy(B), T_s)
+    phase = fourier._omega(T_s, 'cpu') * float(np.float32(t))
+    sa, cb = (A * torch.sin(phase).numpy(), B * torch.cos(phase).numpy())
+    a, b = sa[..., 0].copy(), cb[..., 0].copy()
+    for n in range(1, fourier.N_FOURIER):
+        a, b = a + sa[..., n], b + cb[..., n]
+    np.testing.assert_array_equal(fs.evaluate_in_order(t).numpy(), a + b)
+    np.testing.assert_allclose(fs.evaluate(t).numpy(), a + b, rtol=0,
+                               atol=1e-6)
+
+
 @pytest.mark.parametrize('frac, w', [(0.3, None), (0.5, 700), (0.0, 256),
                                      (1.0, 100)])
 def test_stable_partition_order_bit_exact(frac, w):

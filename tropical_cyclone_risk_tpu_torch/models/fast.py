@@ -245,7 +245,8 @@ def rhs_from_sample(cfg: Namelist, t: float, y: State, params: SeedParams,
                     smp: FieldSample) -> Tuple[State, torch.Tensor]:
     """Coupled tendency with the winds colored at time t (the exact
     per-stage form; the default integrator colors once per step)."""
-    wnds = color_winds(cfg, smp.wind_stats, params.fourier, t)
+    wnds = color_winds_given_f(cfg, smp.wind_stats,
+                               params.fourier.evaluate_in_order(t))
     return rhs_given_winds(cfg, y, params, smp, wnds)
 
 

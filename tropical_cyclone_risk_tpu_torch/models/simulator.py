@@ -113,7 +113,7 @@ def _rk4_step_frozen_fields(stacks, cfg, params, t: float, y: fast.State,
                                      params.plane, t)
     drv = fast.derive_sample(cfg, smp)
     if f_t is None:
-        f_t = params.fourier.evaluate(t)
+        f_t = params.fourier.evaluate_in_order(t)
     wnds = fast.color_winds_given_f(cfg, smp.wind_stats, f_t)
     return _rk4_step(lambda tt, yy: fast.rhs_given_winds(
         cfg, yy, params, smp, wnds, drv), t, y, dt)

@@ -33,12 +33,16 @@ class FourierSeries(NamedTuple):
     T_s: float          # period (seconds)
 
     def evaluate(self, t: float) -> torch.Tensor:
-        """F(t) -> [..., C] at a scalar time t: A @ sin(w t) + B @ cos(w t),
-        each product summed over the components in index order as
-        elementwise adds, the order K1 sums in where it evaluates F(t)
-        (rk_exact_stage_fields, rk_substeps > 1), so that the kernel is bit
-        for bit the twin there (a matrix product's summation order is its
-        library's)."""
+        """F(t) -> [..., C] at a scalar time t."""
+        phase = _omega(self.T_s, self.A.device) * float(np.float32(t))
+        return self.A @ torch.sin(phase) + self.B @ torch.cos(phase)
+
+    def evaluate_in_order(self, t: float) -> torch.Tensor:
+        """``evaluate`` with each product summed over the components in
+        index order as elementwise adds: the order K1 sums in where it
+        evaluates F(t) (rk_exact_stage_fields, rk_substeps > 1), so that the
+        kernel is bit for bit the twin there (a matrix product's summation
+        order is its library's)."""
         phase = _omega(self.T_s, self.A.device) * float(np.float32(t))
         # the A and B terms side by side: one chain of adds for both sums
         terms = torch.stack((self.A * torch.sin(phase),
@@ -50,9 +54,9 @@ class FourierSeries(NamedTuple):
 
     def evaluate_at_zero(self) -> torch.Tensor:
         """F(0) -> [..., C]: the B components summed in index order, as 14
-        elementwise adds.  At t = 0 the A terms of ``evaluate`` are A * 0 =
-        +-0, which change no finite sum, so this is its B chain alone, the
-        order K7 adds F(0) in."""
+        elementwise adds.  At t = 0 the A terms of ``evaluate_in_order`` are
+        A * 0 = +-0, which change no finite sum, so this is its B chain
+        alone, the order K7 adds F(0) in."""
         f0 = self.B[..., 0]
         for n in range(1, N_FOURIER):
             f0 = f0 + self.B[..., n]
