@@ -5,6 +5,7 @@
     python3 chip_smoke.py --drivers ROOT         (see drivers_times)
     python3 chip_smoke.py --ranks N              (see ranks_times; N cards)
     python3 chip_smoke.py --sass ROOT            (see sass_against)
+    python3 chip_smoke.py --lanes                (see lanes_times)
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -12,8 +13,9 @@ Phases (any failure raises, and the script exits non-zero):
 2. build     - build the CUDA integrator and genesis gate (K1, K7; one
                library per unit of kernels/integrator.py UNITS: two, three
                and four steering levels, each with and without the in-scan
-               vmax, five with and without it, seven and fifteen; any
-               other count builds at its first launch), vmax (K2, with its
+               vmax, five with and without it, seven, fifteen and
+               seventeen; any other count builds at its first launch),
+               vmax (K2, with its
                last-sample entry), seeding (K3), compaction (K4), threefry
                (K5) and CAPE-PI (K6) kernels with nvcc, one process each,
                all started together; print the build times, nvcc's register,
@@ -178,7 +180,16 @@ Phases (any failure raises, and the script exits non-zero):
                K7 against its twin; the ERA5
                request's fifteen, with K1 against its twin on the first
                segment (the twin's Python Cholesky is the cost) and every
-               other kernel over the whole launch.  Per set: each kernel's
+               other kernel over the whole launch; the fifteen and 200 and
+               225 hPa (34 winds, more than a warp's lanes) the same way.
+               K1's instances not launched otherwise, each on the card and
+               bit for bit against its twin on the first 4 steps (2 in
+               the analytic modes) of segment 0 of a launch in its stack
+               layout, K7 against its twin on those launches: at five
+               levels the analytic ones with time_interp_fields or on geo
+               packs and 11 of the in-scan unit's 12, at seven the
+               analytic ones and time_interp_fields in the cell row, at
+               fifteen all but the default (check_instances).  Per set: each kernel's
                per-launch time alone beside its bound, its twin and the
                set before's, the unit's registers, stack and spills and
                nvcc seconds, the launch's peak memory and the share of
@@ -293,6 +304,10 @@ IN_SCAN_KERNELS = ('integrator', 'vmax_last', 'seeding', 'threefry',
 WS_YEAR = 2016      # the workspace: one year at one degree
 # repetitions of each K1 segment, K2 and K4 call when timed alone
 K1_REPS = 20
+# K7's kernels: the thread-per-seed gate of two to four levels and the
+# group gate from GROUP_LEVELS (csrc/integrator.cu kGroupLevels) on
+K7_KERNELS = ('genesis_gate_kernel', 'genesis_group_kernel')
+GROUP_LEVELS = 5
 K2_REPS = 20
 K4_REPS = 20
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
@@ -1797,7 +1812,7 @@ def launch_kernel_times(k1_calls, k2_calls, k7_calls, draws, stitches,
             ('K2', lambda: device_ms(lambda: [f() for f in k2_fns], K2_REPS,
                                      ('vmax_kernel',))),
             ('K7', lambda: device_ms(cold(integrator.gate_launcher(
-                *g_args)[0]), 20, ('genesis_gate_kernel',))),
+                *g_args)[0]), 20, K7_KERNELS)),
             ('K5', lambda: device_ms(cold(lambda: fourier.draw_fourier(
                 *d_args, **d_kw)), 20, ('rng_fourier',))),
             ('K4_stitch', lambda: device_ms(cold(k4.launcher(
@@ -2068,6 +2083,87 @@ def steering_fields(levels):
 # LEVELS_HPA): the deepest steering layer a user can ask of a workspace
 ERA5_LAYER = (250, 300, 350, 400, 450, 500, 550, 600, 650, 700, 750, 775,
               800, 825, 850)
+# the stack layouts of K1's instances (csrc/integrator.cu kInCell,
+# kFusedGeo, kSeparateGeo), and the namelist of each analytic mode
+LAYOUTS = ('in-cell', 'fused', 'separate')
+ANALYTIC_MODES = {'exact': dict(rk_exact_stage_fields=True),
+                  'substeps': dict(rk_substeps=2)}
+# the steps of the first segment on which check_instances holds an
+# instance against its twin: one strided block of three and a per-step
+# remainder, or two analytic steps
+INSTANCE_STEPS = {False: 4, True: 2}
+
+
+def k1_instances(diag):
+    """The twelve K1 instances of a unit (diag: the in-scan unit) as
+    (diag, time_interp_fields, analytic mode or None, layout); each
+    analytic instance in one of ANALYTIC_MODES (rk_exact_stage_fields and
+    rk_substeps=2 take turns, both run its code)."""
+    out = []
+    for n, layout in enumerate(LAYOUTS):
+        for interp in (False, True):
+            mode = 'exact' if (n + interp) % 2 == 0 else 'substeps'
+            out += [(diag, interp, None, layout), (diag, interp, mode, layout)]
+    return out
+
+
+def instance_label(levels, inst):
+    """A K1 instance's template arguments, <L,diag,interp,analytic,layout>,
+    and its analytic mode."""
+    diag, interp, mode, layout = inst
+    return (f'<{levels},{int(diag)},{int(interp)},{int(mode is not None)},'
+            f'{LAYOUTS.index(layout)}>' + (f' {mode}' if mode else ''))
+
+
+def check_instances(label, dev, pack, cfg_t, plane0, key, instances):
+    """K1's `instances` (k1_instances' tuples) of the set's units, each
+    launched on the card and held bit for bit against its twin on the first
+    INSTANCE_STEPS steps of the first segment of a launch on the pack in
+    its layout (geo_pack for fused and separate; with the launch's
+    DiagState for the in-scan unit), K7 against its twin on each of those
+    launches (mode_calls).  Returns the labels held."""
+    from tropical_cyclone_risk_tpu_torch.models import simulator
+    lv = cfg_t.n_steering_levels
+    held = []
+    for layout in LAYOUTS:
+        if not any(i[3] == layout for i in instances):
+            continue
+        pack_l = pack if layout == 'in-cell' else geo_pack(cfg_t, dev,
+                                                           layout)
+        geo_stacks(pack_l, layout)
+        for diag in (False, True):
+            todo = [i for i in instances if i[0] == diag and i[3] == layout]
+            if not todo:
+                continue
+            cfg_l = cfg_t.replace(vmax_in_scan=diag)
+            calls, gates = mode_calls(key, pack_l, cfg_l, plane0, gate=True)
+            k7_results(f'{label} {layout}{" in-scan" if diag else ""}',
+                       gates)
+            args, kw = calls[0][:2]
+            del calls, gates
+            for inst in todo:
+                _, interp, mode, _ = inst
+                cfg_i = cfg_l.replace(time_interp_fields=interp,
+                                      **ANALYTIC_MODES.get(mode, {}))
+                short = ((args[0], cfg_i) + tuple(args[2:7])
+                         + (INSTANCE_STEPS[mode is not None],)
+                         + tuple(args[8:]))
+                out = uncounted(simulator.integrate_segment, *short, **kw)
+                ref = uncounted(simulator.integrate_segment_plain, *short,
+                                **kw)
+                same_bits, diff = k1_exact(out, ref)
+                name = instance_label(lv, inst)
+                if not same_bits:
+                    raise AssertionError(f'{label}: K1 {name} differs from '
+                                         f'its twin in {diff}')
+                held.append(name)
+        del pack_l
+    log(f'[{label}] K1 instances launched and bit-exact against their twins '
+        f'on the first {INSTANCE_STEPS[False]} (analytic: '
+        f'{INSTANCE_STEPS[True]}) steps of segment 0: {held}')
+    return held
+
+
 # The [levels4] phase's level sets, each a bench-width launch through K1,
 # K7 (the unit TC_K1_LEVELS of its count), K2, K5's row entry and K4's
 # stitch at W = 2 L, held against the same launch through the twins on the
@@ -2080,16 +2176,30 @@ ERA5_LAYER = (250, 300, 350, 400, 450, 500, 550, 600, 650, 700, 750, 775,
 # geo_modes on the set's pack with land and bathymetry on grids of their
 # own (geo_pack: fused and separate, each in GEO_MODES);
 # 'in_scan' vmax_in_scan bit for bit the post-pass; 'cli' cli.main GL one
-# year on a one-degree workspace with the set's winds.  The kernels line
-# names the instances of each set (level_entries).
+# year on a one-degree workspace with the set's winds; 'instances' K1's
+# instances held on a short first segment (check_instances).  The kernels
+# line names the instances of each set (level_entries).
 LEVEL_SETS = (
     ('levels4', LEVELS4, 88, dict(interp=True, modes=True, in_scan=True)),
     ('L5', steering_fields((250, 300, 500, 700, 850)), 78,
-     dict(interp=True, modes=True, geo=True, in_scan=True, cli=True)),
+     dict(interp=True, modes=True, geo=True, in_scan=True, cli=True,
+          instances=[i for i in k1_instances(False)
+                     if i[2] and i[1:] != (False, 'exact', 'in-cell')]
+          + [i for i in k1_instances(True)
+             if i[1:] != (False, None, 'in-cell')])),
     # CMIP6's plev19 levels in the layer
     ('L7', steering_fields((250, 300, 400, 500, 600, 700, 850)), 74,
-     dict(geo=True)),
-    ('L15', steering_fields(ERA5_LAYER), 72, dict(k1_segments=1)))
+     dict(geo=True, instances=[
+         i for i in k1_instances(False) if (i[2] or i[3] == 'in-cell')
+         and i[1:] != (False, None, 'in-cell')])),
+    ('L15', steering_fields(ERA5_LAYER), 72,
+     dict(k1_segments=1,
+          instances=[i for i in k1_instances(False)
+                     if i[1:] != (False, None, 'in-cell')])),
+    # the ERA5 request's fifteen and 200 and 225 hPa: W = 34 winds, more
+    # than a warp's lanes, so lanes own several rows and levels
+    ('L17', steering_fields((200, 225) + ERA5_LAYER), 70,
+     dict(k1_segments=1)))
 
 
 def level_entries():
@@ -2102,14 +2212,15 @@ def level_entries():
         lv = len(steer['steering_levels'])
         w = 2 * lv
         k25 = w if lv == 4 else 0          # K2's and K5's instance
+        k1, k7 = (('integrate_group_kernel', 'genesis_group_kernel')
+                  if lv >= GROUP_LEVELS else
+                  ('integrate_segment_kernel', 'genesis_gate_kernel'))
         out += [
             (label, f'integrator_l{lv}', 'K1', 'integrator', 'integrator',
              'integrator.cu', 'models/simulator.py:111',
-             f'integrate_segment_kernel<{lv},*,*,*,*> (unit '
-             f'TC_K1_LEVELS={lv})'),
+             f'{k1}<{lv},*,*,*,*> (unit TC_K1_LEVELS={lv})'),
             (label, f'genesis_l{lv}', 'K7', 'genesis', 'genesis',
-             'integrator.cu', 'models/simulator.py:295',
-             f'genesis_gate_kernel<{lv},*>'),
+             'integrator.cu', 'models/simulator.py:295', f'{k7}<{lv},*>'),
             (label, 'vmax_l4' if lv == 4 else f'vmax_w{w}', 'K2', 'vmax',
              'vmax', 'vmax.cu', 'models/diagnostics.py:193',
              f'vmax_kernel<{k25}> at W = {w}'),
@@ -2276,8 +2387,8 @@ def level_setup(dev, steer):
     from tropical_cyclone_risk_tpu_torch.models import fast, fields, pipeline
     cfg = Namelist(seed_batch=N_SEEDS, start_year=2016, end_year=2016,
                    **steer)
-    W = cfg.n_wind_levels
-    if fast.deep_layer_indices(cfg) != (0, 1, W - 2, W - 1):
+    i2, i8 = (2 * cfg.steering_levels.index(p) for p in (250, 850))
+    if fast.deep_layer_indices(cfg) != (i2, i2 + 1, i8, i8 + 1):
         raise AssertionError(fast.deep_layer_indices(cfg))
     pack = fields.synthetic_pack(cfg, 12, 181, 360, seed=0, device=dev)
     cfg_t = pipeline.auto_integrate_cap(rng.fold_in(rng.key(0), 2016), pack,
@@ -2345,6 +2456,12 @@ def check_level_set(dev, card, libs, tmp, label, steer, key, checks,
         res['in_scan_max_abs_err'], res['in_scan_last_max_abs_err'] = \
             in_scan_k1(label, rng.key(key - 2), pack, cfg_t, plane0, True,
                        vmax_tol=0.0)
+    if checks.get('instances'):
+        t_inst = time.perf_counter()
+        res['instances'] = check_instances(label, dev, pack, cfg_t, plane0,
+                                           rng.key(key - 4),
+                                           checks['instances'])
+        res['instances_s'] = time.perf_counter() - t_inst
     del pack
     if checks.get('cli'):
         res['cli_s'] = workspace_cli(tmp, card, label, steer)
@@ -2841,7 +2958,8 @@ def build_all(dev):
     """nvcc for K1 with K7 (a library per unit of
     kernels/integrator.py UNITS: two, three and four steering levels, each
     with and without the in-scan vmax, and the level sets of [levels4]: five
-    with and without it, seven and fifteen), K2, K3, K4, K5 and K6, one
+    with and without it, seven, fifteen and seventeen), K2, K3, K4, K5
+    and K6, one
     thread each (sixteen processes at once); logs the wall
     time of the builds, each build's seconds, each kernel's registers,
     stack frame, spills and SASS local-memory instructions (K1's and K7's
@@ -3667,6 +3785,8 @@ def main():
                 **{k: got[g] for k, g in (
                     ('modes_max_abs_err', 'k1_modes_max_abs_err'),
                     ('in_scan_max_abs_err', 'in_scan_max_abs_err'),
+                    ('instances', 'instances'),
+                    ('instances_s', 'instances_s'),
                     ('cli_s', 'cli_s')) if g in got})
     log(f'[summary] {card}: host synchronisations per launch {n_sync}; '
         f'BAM {json.dumps(bam_res)}; '
@@ -4428,7 +4548,7 @@ TIMED_AS = {'vmax': ('vmax_kernel',), 'seeding': ('seed_kernel',),
             'threefry': ('rng_fourier',), 'compact': ('stitch_kernel',),
             'cape_pi': ('cape_pi_kernel',),
             'vmax_last': ('last_sample_kernel',),
-            'genesis': ('genesis_gate_kernel',)}
+            'genesis': K7_KERNELS}
 
 
 def ms_timing(name):
@@ -4449,17 +4569,25 @@ def ms_timing(name):
 def device_ops(fn, reps):
     """(device operations per fn(), {their short names: count per fn()}):
     the kernels, memsets and copies on the card in a torch.profiler trace
-    over reps runs."""
+    over reps runs.  A trace whose count is not a whole number per run has
+    lost records (the card's tracer drops one now and then, as it drops
+    whole profiles: profiled), so it is taken again, up to PROFILE_TRIES
+    times; the last one counts."""
     import collections
-    prof, _, _ = profiled(fn, reps)
-    with tempfile.TemporaryDirectory(prefix='device_ops_') as tmp:
-        prof.export_chrome_trace(f'{tmp}/trace.json')
-        with open(f'{tmp}/trace.json') as f:
-            events = json.load(f)['traceEvents']
-    names = collections.Counter(
-        kernel_label(str(e.get('name')))[:48] for e in events
-        if e.get('ph') == 'X'
-        and e.get('cat') in ('kernel', 'gpu_memset', 'gpu_memcpy'))
+    for _ in range(PROFILE_TRIES):
+        prof, _, _ = profiled(fn, reps)
+        with tempfile.TemporaryDirectory(prefix='device_ops_') as tmp:
+            prof.export_chrome_trace(f'{tmp}/trace.json')
+            with open(f'{tmp}/trace.json') as f:
+                events = json.load(f)['traceEvents']
+        names = collections.Counter(
+            kernel_label(str(e.get('name')))[:48] for e in events
+            if e.get('ph') == 'X'
+            and e.get('cat') in ('kernel', 'gpu_memset', 'gpu_memcpy'))
+        if sum(names.values()) % reps == 0:
+            break
+        log(f'[profiler] {sum(names.values())} device operations in {reps} '
+            f'runs: a record lost, profiled again')
     return (sum(names.values()) / reps,
             {k: v / reps for k, v in sorted(names.items())})
 
@@ -4749,6 +4877,148 @@ def sass_against(root):
     return 0
 
 
+# the level sets and lanes per storm at which lanes_times builds and times
+# the group units, and the first-segment steps on which it holds them
+# against the twin
+LANE_SETS = ('L5', 'L7', 'L15', 'L17')
+LANE_COUNTS = (4, 8, 16, 32)
+LANE_TWIN_STEPS = 7
+
+
+@contextlib.contextmanager
+def group_lanes_as(lanes):
+    """Within the block, kernels/integrator.py builds and launches the
+    group units with `lanes` lanes per storm (csrc/integrator.cu
+    TC_K1_LANES, a library of its own) in place of group_lanes' count."""
+    from tropical_cyclone_risk_tpu_torch.kernels import build as kbuild
+    from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    saved = integrator.build, integrator.group_lanes
+    integrator.build = lambda levels=2, diag=False: kbuild.library(
+        'integrator', (('TC_K1_LEVELS', int(levels)),
+                       ('TC_K1_DIAG', int(diag)), ('TC_K1_LANES', lanes)))
+    integrator.group_lanes = lambda levels: lanes
+    integrator._lib.cache_clear()
+    try:
+        yield
+    finally:
+        integrator.build, integrator.group_lanes = saved
+        integrator._lib.cache_clear()
+
+
+def lanes_times():
+    """python3 chip_smoke.py --lanes: K1's and K7's group units built at
+    each of LANE_COUNTS lanes per storm (TC_K1_LANES; all nvcc processes
+    at once) for the level sets LANE_SETS, with each build's ptxas report
+    of the default instances; per set one bench-width launch (caps
+    auto-tuned) through the units at group_lanes' count, and then per lane
+    count K1 on the launch's segments (event time, summed, as [levels4]
+    times it) and K7 on its gate (device time, after an L2 flush), in
+    TIME_ROUNDS rounds, lane counts in turn, and K1 on the first
+    LANE_TWIN_STEPS steps of segment 0 and K7 held bit for bit against
+    their twins.  Prints one JSON line; needs one card."""
+    from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.kernels import build as kbuild
+    from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    from tropical_cyclone_risk_tpu_torch.models import pipeline, simulator
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke --lanes: no CUDA device')
+    dev = torch.device('cuda', 0)
+    card = card_line()
+    sets = [(label, steer, key) for label, steer, key, _ in LEVEL_SETS
+            if label in LANE_SETS]
+    jobs = [(len(steer['steering_levels']), g) for _, steer, _ in sets
+            for g in LANE_COUNTS]
+    infos, errors = {}, []
+
+    def nvcc(lv, g):
+        try:
+            infos[lv, g] = kbuild.library(
+                'integrator', (('TC_K1_LEVELS', lv), ('TC_K1_DIAG', 0),
+                               ('TC_K1_LANES', g)))
+        except Exception as e:        # noqa: BLE001 — raised below
+            errors.append(e)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=nvcc, args=j) for j in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    log(f'[lanes] {len(jobs)} nvcc processes at once: '
+        f'{time.perf_counter() - t0:.1f} s')
+    out = {'card': card, 'sets': {}}
+    for label, steer, key in sets:
+        lv = len(steer['steering_levels'])
+        reps = {g: {fn: rep for fn, rep in ptxas_report(
+            infos[lv, g]['log']).items()
+            if fn in (f'integrate_group_kernel<{lv},0,0,0,0>',
+                      f'genesis_group_kernel<{lv},0>')}
+            for g in LANE_COUNTS}
+        for g in LANE_COUNTS:
+            log(f'[lanes] {label} G={g}: nvcc '
+                f'{infos[lv, g]["seconds"]:.1f} s; {reps[g]}')
+        cfg, pack, cfg_t = level_setup(dev, steer)
+        rule = integrator.group_lanes(lv)
+        with group_lanes_as(rule), launch_captures() as caps:
+            pipeline._simulate_batch(rng.key(key), pack, cfg_t, BASIN,
+                                     N_SEEDS, 64, cfg.start_month - 1)
+        torch.cuda.synchronize()
+        k1c, _, k7c, _, _ = caps
+        args0 = k1c[0][0]
+        short = args0[:7] + (min(args0[7], LANE_TWIN_STEPS),) + args0[8:]
+        ref = uncounted(simulator.integrate_segment_plain, *short)
+        g_args = k7c[0][0]
+        gate_ref = uncounted(simulator.genesis_alive_plain, *g_args)
+        times = {g: {'K1': [], 'K7': []} for g in LANE_COUNTS}
+        exact = {}
+        for g in LANE_COUNTS:
+            with group_lanes_as(g):
+                k1_same, diff = k1_exact(
+                    uncounted(simulator.integrate_segment, *short), ref)
+                k7_same = same(uncounted(simulator.genesis_alive, *g_args),
+                               gate_ref)
+                exact[g] = (k1_same, diff, k7_same)
+        for _ in range(TIME_ROUNDS):
+            for g in LANE_COUNTS:
+                with group_lanes_as(g):
+                    fns = [k1_launcher(a) for a, *_ in k1c]
+                    times[g]['K1'].append(sum(k1_ms(f) for f in fns))
+                    times[g]['K7'].append(device_ms(cold(
+                        integrator.gate_launcher(*g_args)[0]), 20,
+                        K7_KERNELS))
+        bounds = {'K1': sum(k1_bound(a, o)[0] for a, _, o, _ in k1c),
+                  'K7': k7_bound(g_args, k7c[0][2])[0]}
+        res = {}
+        for g in LANE_COUNTS:
+            res[g] = {k: {'median': statistics.median(v), 'range':
+                          [min(v), max(v)]} for k, v in times[g].items()}
+            res[g].update(k1_exact=exact[g][0], k1_differs=exact[g][1],
+                          k7_exact=exact[g][2], ptxas=reps[g],
+                          nvcc_s=infos[lv, g]['seconds'])
+            log(f'[lanes] {card}: {label} G={g}: K1 per launch '
+                f'{res[g]["K1"]["median"]:.4f} ms {res[g]["K1"]["range"]}, '
+                f'K7 {res[g]["K7"]["median"]:.4f} ms {res[g]["K7"]["range"]}'
+                f' (bounds {bounds["K1"]:.4f}, {bounds["K7"]:.5f}); K1 '
+                f'bit-exact against its twin on {short[7]} steps x '
+                f'{short[3].lon.shape[0]} storms {exact[g][0]} '
+                f'{exact[g][1] or ""}, K7 {exact[g][2]}')
+        out['sets'][label] = {'levels': lv, 'rule_lanes': rule,
+                              'bounds_ms': bounds, 'by_lanes': res,
+                              'segments': [(a[7], a[3].lon.shape[0])
+                                           for a, *_ in k1c]}
+        del caps, k1c, k7c, pack, ref
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    bad = [(label, g) for label, r in out['sets'].items()
+           for g, v in r['by_lanes'].items()
+           if not (v['k1_exact'] and v['k7_exact'])]
+    if bad:
+        log(f'[lanes] not bit-exact against the twins: {bad}')
+        return 1
+    return 0
+
+
 def ranks_cfg(out_dir):
     """The --ranks mode's namelist: the bench's seeds per launch over two
     years of the 24-plane pack, written under out_dir."""
@@ -4902,4 +5172,6 @@ if __name__ == '__main__':
         sys.exit(ranks_times(int(sys.argv[2])))
     if len(sys.argv) == 3 and sys.argv[1] == '--sass':
         sys.exit(sass_against(sys.argv[2]))
+    if len(sys.argv) == 2 and sys.argv[1] == '--lanes':
+        sys.exit(lanes_times())
     sys.exit(main())

@@ -253,3 +253,63 @@ def test_k1_fourier_phases_within_the_fast_trig_range():
     with pytest.raises(NotImplementedError, match='phases'):
         integrator._params(*args, 60.0, True, geometry)
     integrator._params(*args, 60.0, False, geometry)   # F(t) streamed
+
+
+def test_group_constants_match_the_source():
+    """The group units' constants the wrapper shares with
+    csrc/integrator.cu: the level count from which a unit runs the group
+    kernels, their threads per block and a block's shared memory."""
+    assert integrator.GROUP_LEVELS == _constant('integrator.cu',
+                                                'kGroupLevels')
+    assert integrator.GROUP_THREADS == _constant('integrator.cu',
+                                                 'kGroupThreads')
+    assert integrator.MAX_SHARED_BYTES == _constant('integrator.cu',
+                                                    'kMaxSharedBytes')
+    assert integrator.MAX_SHARED_BYTES <= 227 * 1024
+
+
+# per level count: lanes per storm, the slice's floats, and the geometry
+# of the widest segment (40960 storms) on an H100
+GROUP_CASES = {5: (4, 93, (32, 128, 1280)), 7: (4, 155, (32, 128, 1280)),
+               15: (8, 563, (16, 128, 2560)), 17: (8, 705, (16, 128, 2560)),
+               37: (16, 3005, (8, 128, 5120))}
+
+
+@pytest.mark.parametrize('levels', sorted(GROUP_CASES))
+def test_k1_group_geometry(levels):
+    """The group units' launch shape at 5, 7, 15, 17 and 37 levels: a
+    power-of-two group of at least W / 6 lanes per storm (two to six wind
+    rows a lane, also past 32 winds), whole warps
+    holding whole groups with no warp empty, blocks covering every storm
+    of every segment width on at least min(width, SMs) blocks, and the
+    slices with the analytic tables within a block's 227 KB; K7 takes as
+    many seeds as a block holds."""
+    lanes, stride, widest = GROUP_CASES[levels]
+    W = 2 * levels
+    assert integrator.group_lanes(levels) == lanes
+    assert lanes & (lanes - 1) == 0 and 6 * lanes >= W and lanes <= 32
+    assert lanes == 4 or 3 * lanes < W        # the smallest such count
+    assert 2 <= -(-W // lanes) <= 6           # rows a lane
+    cell = W + W * (W + 1) // 2 + 7
+    assert integrator.group_stride(levels) == stride == (cell + 2 * W) | 1
+    assert integrator.launch_geometry(40960, H100_SMS, levels) == widest
+    for n_sm in (H100_SMS, 114):
+        for width in (1, 7, 31, 100, 133, 4097, 7168, 38912, 40960, 131072):
+            per, threads, blocks = integrator.launch_geometry(width, n_sm,
+                                                              levels)
+            assert threads % 32 == 0
+            assert 32 <= threads <= integrator.GROUP_THREADS
+            assert per * lanes <= threads < per * lanes + 32, width
+            assert blocks * per >= width > (blocks - 1) * per, width
+            assert blocks >= min(width, n_sm), width
+            # csrc/integrator.cu group_bytes: a slice per storm
+            assert (4 * per * stride + integrator.TABLE_BYTES
+                    <= integrator.MAX_SHARED_BYTES <= 227 * 1024)
+    cfg = Namelist(steering_levels=tuple(
+        int(x) for x in np.linspace(250, 850, levels)))
+    _, gate_ip = integrator.gate_params(_stacks(), cfg, 38912)
+    assert tuple(gate_ip[-3:]) == integrator.launch_geometry(38912, 1,
+                                                             levels)
+    assert gate_ip[-3] == min(integrator.GROUP_THREADS // lanes,
+                              (integrator.MAX_SHARED_BYTES
+                               - integrator.TABLE_BYTES) // (4 * stride))

@@ -262,7 +262,7 @@ def test_k1_k7_wrappers_take_three_levels(packs):
     850 hPa raise fast.deep_layer_indices' ValueError; the units built up
     front are two to four levels, each with and without the in-scan vmax,
     and the level sets of chip_smoke.py's [levels4] phase (five with and
-    without it, seven and fifteen)."""
+    without it, seven, fifteen and seventeen)."""
     _, tpack = packs
     stacks = fields.build_stacks(tpack)
     r = np.random.default_rng(1)
@@ -302,7 +302,7 @@ def test_k1_k7_wrappers_take_three_levels(packs):
     assert integrator.UNITS == ((2, False), (2, True), (3, False),
                                 (3, True), (4, False), (4, True),
                                 (5, False), (5, True), (7, False),
-                                (15, False))
+                                (15, False), (17, False))
 
 
 def _vmax_source_reads():

@@ -18,7 +18,10 @@ The source builds into one library per unit: a steering-level count
 vmax (Namelist.vmax_in_scan, the DiagState carry of models/simulator.py);
 the launch takes the unit of its configuration, built the first time a
 run asks for it (kernels/build.py keeps it for later runs).  UNITS lists
-the units chip_smoke.py builds up front.
+the units chip_smoke.py builds up front.  From GROUP_LEVELS levels on a
+unit runs the group kernels, a group of group_lanes(levels) lanes per
+storm with its vectors in a slice of shared memory (group_stride floats),
+which launch_geometry sizes.
 
 K7, the genesis gate (genesis_gate_cuda), is the file's second kernel:
 the step-0 keep mask from K1's gather, Cholesky and coloring at t = 0.
@@ -52,7 +55,16 @@ WARP = 32
 # in-scan vmax, and the level sets of its [levels4] phase; any other unit is
 # built at its first launch
 UNITS = ((2, False), (2, True), (3, False), (3, True), (4, False),
-         (4, True), (5, False), (5, True), (7, False), (15, False))
+         (4, True), (5, False), (5, True), (7, False), (15, False),
+         (17, False))
+# csrc/integrator.cu's group units: the level count from which a unit runs
+# them (kGroupLevels), their threads per block (kGroupThreads), a block's
+# shared memory (kMaxSharedBytes) and the analytic instances' static
+# sin/cos tables (2 kMaxTimes kNF floats)
+GROUP_LEVELS = 5
+GROUP_THREADS = 128
+MAX_SHARED_BYTES = 232448
+TABLE_BYTES = 2 * 3 * MAX_SUB * fourier.N_FOURIER * 4
 # csrc/integrator.cu's stack layouts (kInCell, kFusedGeo, kSeparateGeo)
 IN_CELL, FUSED_GEO, SEPARATE_GEO = 0, 1, 2
 
@@ -74,8 +86,10 @@ def cell_row(layout: int, levels: int) -> int:
 
 def build(levels: int = 2, diag: bool = False) -> dict:
     """Build (or find) the library of one unit; see kernels/build.py.  A
-    unit of five or more levels keeps its loops rolled (csrc/integrator.cu),
-    so any count builds in about the time of the small ones."""
+    unit of GROUP_LEVELS levels or more compiles the group kernels
+    (csrc/integrator.cu), whose loops over the winds, the channels and the
+    factor's columns stay rolled, so any count builds in about the time of
+    the small ones."""
     return kbuild.library('integrator', (('TC_K1_LEVELS', int(levels)),
                                          ('TC_K1_DIAG', int(diag))))
 
@@ -102,18 +116,50 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def launch_geometry(width: int, n_sm: int):
+def group_lanes(levels: int) -> int:
+    """Lanes per storm of a group unit (csrc/integrator.cu group_lanes):
+    the smallest power of two of at least W / 6 winds (at most six rows a
+    lane), from 4 to 32."""
+    W, g = 2 * levels, 4
+    while g < WARP and 6 * g < W:
+        g *= 2
+    return g
+
+
+def group_stride(levels: int) -> int:
+    """Floats of a storm's slice of shared memory in a group unit
+    (csrc/integrator.cu Group::Stride): the cell row, F(t) and the winds,
+    made odd."""
+    W = 2 * levels
+    return (wind_channels(levels) + 7 + 2 * W) | 1
+
+
+def launch_geometry(width: int, n_sm: int, levels: int = 2):
     """(storms per block, threads per block, blocks) for a segment of
     `width` storms on a card of n_sm SMs: as many storms per block as
-    leaves at least min(width, n_sm) blocks, in whole warps from one warp
-    up, at most MAX_THREADS; below a warp, that many storms in one warp.
-    So every segment spreads over every SM it can fill, and the widest
-    ones take blocks of two warps, which share warps evenly (40960 storms:
-    640 blocks, 9.7 warps per SM; 128-thread blocks left 2 or 3 blocks)."""
-    per = max(1, width // n_sm)
-    if per >= WARP:
-        per = min(MAX_THREADS, per // WARP * WARP)
-    threads = -(-per // WARP) * WARP
+    leaves at least min(width, n_sm) blocks, so every segment spreads over
+    every SM it can fill.  Below GROUP_LEVELS levels a thread per storm,
+    in whole warps from one warp up, at most MAX_THREADS; below a warp,
+    that many storms in one warp (40960 storms: 640 blocks of two warps,
+    9.7 warps per SM; 128-thread blocks left 2 or 3 blocks).  From
+    GROUP_LEVELS on group_lanes(levels) lanes per storm, at most
+    GROUP_THREADS threads and as many slices (group_stride) as a block's
+    shared memory holds beside the analytic tables, in whole warps once a
+    block fills one."""
+    if levels < GROUP_LEVELS:
+        per = max(1, width // n_sm)
+        if per >= WARP:
+            per = min(MAX_THREADS, per // WARP * WARP)
+        threads = -(-per // WARP) * WARP
+        return per, threads, -(-width // per)
+    lanes = group_lanes(levels)
+    cap = min(GROUP_THREADS // lanes,
+              (MAX_SHARED_BYTES - TABLE_BYTES) // (4 * group_stride(levels)))
+    per = max(1, min(cap, width // n_sm))
+    per_warp = WARP // lanes
+    if per >= per_warp:
+        per = per // per_warp * per_warp
+    threads = -(-(per * lanes) // WARP) * WARP
     return per, threads, -(-width // per)
 
 
@@ -307,7 +353,7 @@ def launcher(stacks, cfg: Namelist, bounds, y0, alive0,
     result = tuple(out) + tuple(d_out[:1] if diag is not None else ()), carry
     if m == 0:
         return (lambda: None), result
-    geometry = launch_geometry(m, _sm_count(dev.index))
+    geometry = launch_geometry(m, _sm_count(dev.index), levels(cfg))
     fp, ip = _params(stacks, cfg, bounds, m, n_steps, stride, n_blocks, k0,
                      fs.T_s, f_all is None, geometry, diag is not None,
                      t_last)
@@ -331,10 +377,14 @@ def launcher(stacks, cfg: Namelist, bounds, y0, alive0,
 def gate_params(stacks, cfg: Namelist, m: int):
     """K7's parameter block: K1's layout (_params) for m seeds with no
     steps, basin bounds of zeros (the gate does not read them) and one
-    thread per seed in GATE_THREADS-wide blocks."""
-    blocks = -(-m // GATE_THREADS)
+    thread per seed in GATE_THREADS-wide blocks, or from GROUP_LEVELS
+    levels on a group per seed, as many as a block takes
+    (launch_geometry)."""
+    lv = levels(cfg)
+    geometry = (launch_geometry(m, 1, lv) if lv >= GROUP_LEVELS else
+                (GATE_THREADS, GATE_THREADS, -(-m // GATE_THREADS)))
     return _params(stacks, cfg, (0.0,) * 4, m, 0, 1, 0, 0, 0.0, False,
-                   (GATE_THREADS, GATE_THREADS, blocks))
+                   geometry)
 
 
 def genesis_gate_cuda(stacks, cfg: Namelist, y0, params: fast.SeedParams,
