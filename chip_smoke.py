@@ -608,23 +608,35 @@ def k2_launcher(args, kw):
                        kw.get('pos_before'), kw.get('pos_after'))[0]
 
 
-# K7's operations per seed (csrc/integrator.cu genesis_gate_kernel): the
-# 21-channel blend, the 4x4 Cholesky, F(0)'s 56 adds, the coloring, the
-# shear and the compare, a square root or division as one
-OPS_PER_GATE = 260
+def gate_ops(levels):
+    """K7's float32 operations per seed at `levels` steering levels
+    (csrc/integrator.cu gate_keep, genesis_group_kernel), a square root,
+    division or power as one: the cell weights (seven a grid axis), the
+    blend of the W + W (W + 1) / 2 + 7 channels (nine a channel and the
+    two complements), the W x W Cholesky (pivot j: 2 j for its sum, a
+    compare, a clamp, the root and the reciprocal; each entry below it 2 j
+    and a product), the derived sample (seven), F(0)'s 14 adds a wind, the
+    colouring (W products and W - 1 adds a row, the mean and the select),
+    the shear's magnitude times chi (eight) and the compare (six)."""
+    W = 2 * levels
+    cell = W + W * (W + 1) // 2 + 7
+    blend = 14 + 9 * cell + 2
+    chol = sum(2 * j + 4 + (W - 1 - j) * (2 * j + 1) for j in range(W))
+    colour = W * (2 * W + 1) + 8
+    return blend + chol + 7 + 14 * W + colour + 6
 
 
 def k7_bound(args, out):
     """K7's bound on one call.  Bytes: the corner-packed rows of the
     distinct cells the seeds sample (gather_bytes: what this run's data
     reads of the stacks), and lon, lat, the int32 plane, B, the integrate
-    mask and the keep mask once each.  Operations: OPS_PER_GATE per
-    seed."""
+    mask and the keep mask once each.  Operations: gate_ops at the call's
+    level count per seed."""
     stacks, _, y0, params, integrate = args
     m = y0.lon.shape[0]
     b = (gather_bytes(stacks, y0.lon, y0.lat, params.plane) + 4 * m
          + nbytes(y0.lon, y0.lat, params.fourier.B, integrate, out))
-    return bound(b, OPS_PER_GATE * m)
+    return bound(b, gate_ops(params.fourier.B.shape[1] // 2) * m)
 
 
 def k6_bound(args, out):
@@ -1873,13 +1885,33 @@ L2_FLUSH = []
 def cold(fn):
     """fn preceded by a write of L2_FLUSH_BYTES on the card (a fill
     kernel, which device_ms leaves out when it times fn's kernels by
-    name), into one buffer that every cold() shares."""
+    name), into one buffer that every cold() shares.  The flush leaves
+    the L2 full of dirty lines, whose write-backs then share the HBM
+    with fn's reads (as after a kernel that wrote its outputs)."""
     if not L2_FLUSH:
         L2_FLUSH.append(torch.empty(L2_FLUSH_BYTES // 4,
                                     dtype=torch.float32, device='cuda'))
 
     def run():
         L2_FLUSH[0].zero_()
+        return fn()
+    return run
+
+
+def clean(fn):
+    """cold(fn) with a read of another L2_FLUSH_BYTES between the write
+    and fn (a reduction, left out by name like the fill): the flush's
+    dirty lines are written back before fn starts, and fn finds an L2 of
+    clean lines that are not its inputs, so it moves the bytes a bytes
+    bound counts and no write-backs of others'."""
+    write = cold(lambda: None)
+    if len(L2_FLUSH) < 2:
+        L2_FLUSH.append(torch.zeros(L2_FLUSH_BYTES // 4,
+                                    dtype=torch.float32, device='cuda'))
+
+    def run():
+        write()
+        L2_FLUSH[1].sum()
         return fn()
     return run
 
@@ -2670,48 +2702,80 @@ def check_regrid(cfg, interp, netcdf, dev, card):
 
 
 def fix_calls():
-    """A context that wraps diagnostics.fix_last_sample, which fixes its
-    first argument in place on the card: each call's input buffer is
-    copied first and the plain twin runs on the copy (uncounted); yields
-    the list of (args, kw, out, (bit-exact, max abs err of vmax_L))."""
+    """A context that wraps diagnostics.fix_in_scan, which on the card
+    fixes every segment's vmax buffer and the peak in place in one launch:
+    each call's buffers are copied first and the plain twin (the loop of
+    fix_last_sample_plain and bank_peak) runs on the copies, uncounted;
+    yields the list of (args, kw, out, (bit-exact, largest error of the
+    fixed buffers and of the finite peaks)), args holding the copies."""
     from tropical_cyclone_risk_tpu_torch.models import diagnostics
-    fn, calls = diagnostics.fix_last_sample, []
+    fn, calls = diagnostics.fix_in_scan, []
 
-    def wrap(vmax_tm, *args, **kw):
-        before = vmax_tm.clone()
-        out = fn(vmax_tm, *args, **kw)
-        ref = uncounted(diagnostics.fix_last_sample_plain, before, *args,
-                        **kw)
-        exact = all(same(a, b) for a, b in zip(out, ref))
-        calls.append(((before,) + args, kw, out,
-                      (exact, max_err(out[1], ref[1]))))
+    def wrap(raws, edges, a_idxs, orders, last_step, peak, dt_s, cfg=None):
+        before = [dict(r, vmax=r['vmax'].clone()) for r in raws]
+        peak0 = peak.clone()
+        out = fn(raws, edges, a_idxs, orders, last_step, peak, dt_s, cfg)
+        args = (before, edges, a_idxs, orders, last_step, peak0, dt_s, cfg)
+        ref = uncounted(diagnostics.fix_in_scan_plain,
+                        [dict(r) for r in before], *args[1:])
+        exact = (all(same(a, b) for a, b in zip(out[0], ref[0]))
+                 and same(out[1], ref[1]))
+        fin = torch.isfinite(ref[1])
+        err = max([max_err(a, b) for a, b in zip(out[0], ref[0])]
+                  + [max_err(out[1][fin], ref[1][fin])])
+        calls.append((args, {}, out, (exact, err)))
         return out
 
     @contextlib.contextmanager
     def ctx():
-        diagnostics.fix_last_sample = wrap
+        diagnostics.fix_in_scan = wrap
         try:
             yield calls
         finally:
-            diagnostics.fix_last_sample = fn
+            diagnostics.fix_in_scan = fn
     return ctx()
 
 
+def fix_launcher(args):
+    """The launch function of the last-sample entry (the kernel alone) on
+    copies of the buffers of one captured fix_in_scan call (fix_calls'
+    args); the entry is idempotent, so it may be launched again and
+    again."""
+    from tropical_cyclone_risk_tpu_torch.kernels import vmax as k2
+    from tropical_cyclone_risk_tpu_torch.models import diagnostics
+    raws, edges, a_idxs, orders, last_step, peak0, dt_s, cfg = args
+    segs = diagnostics.in_scan_segments(
+        [dict(r, vmax=r['vmax'].clone()) for r in raws], edges, a_idxs,
+        orders)
+    return k2.last_launcher(segs, last_step, dt_s,
+                            diagnostics._shear_channels(cfg),
+                            peak0.clone())[0]
+
+
 def last_bound(args, kw, out):
-    """The last-sample entry's bound on one call: per storm the rows L and
-    L-1 of lon and lat, v, the four shear winds and alive at L and
-    last_step read once, vmax_L and ok written once; pos_before read for
-    the storms whose last sample is the segment's first, and the fixed
-    sample written for those whose last sample is in the segment (this
-    call's data); ~45 float32 operations per storm (vmax_at and the
-    extrapolation)."""
-    lon, last = args[1], args[6]
-    N = lon.shape[1]
-    per = 4 * 4 + 4 + 16 + 1 + 8 + 4 + 1
-    extra = 4 * int(out[2].sum())
-    if kw.get('pos_before') is not None:
-        extra += 8 * int((last == 0).sum())
-    return bound(N * per + extra, 45 * N)
+    """The last-sample entry's bound on one in-scan launch (fix_calls'
+    args), summed over its segments: per column the rows L and L-1 of lon
+    and lat, v, the four shear winds and alive at L, its slot's last step
+    and (after segment 0) its slot map read once; for the columns whose
+    last sample is the segment's first row (after segment 0) the boundary
+    order and the row before; for the ok columns the fixed sample written
+    and the slot's peak read and written (this call's data); ~45 float32
+    operations per column (vmax_at and the extrapolation)."""
+    raws, edges, a_idxs, *_ = args
+    last_step = args[4]
+    n_bytes = n_cols = 0
+    for k, r in enumerate(raws):
+        T, N = r['lon'].shape
+        ls = (last_step[a_idxs[k - 1]] if k else last_step) - edges[k]
+        Lc = ls.clamp(0, T - 1)
+        ok = (ls >= 0) & (ls < T) & torch.gather(r['alive'], 0,
+                                                 Lc[None, :])[0]
+        n_bytes += N * (4 * 4 + 4 + 16 + 1 + 8 + (8 if k else 0))
+        n_bytes += 12 * int(ok.sum())
+        if k:
+            n_bytes += 16 * int((ls == 0).sum())
+        n_cols += N
+    return bound(n_bytes, 45 * n_cols)
 
 
 # the in-scan instances the in-scan phase holds against their twins besides
@@ -2751,9 +2815,10 @@ def in_scan_k1(label, key, pack, cfg, plane0, exact, vmax_tol=K2_TOL):
     as K1 wrote it (the last-sample entry then fixes it in place):
     bit-exact where `exact`, else K1_ALIVE_AGREE of the storms on the
     same alive history, within K1_TOL and K1_VMAX_TOL; the last-sample
-    entry bit-exact against fix_last_sample_plain on every segment.
+    entry, one launch over every segment, bit-exact against
+    fix_in_scan_plain (each segment's fixed buffer and the banked peak).
     Returns ({field: K1's largest error}, the last-sample entry's largest
-    vmax_L error)."""
+    error)."""
     from tropical_cyclone_risk_tpu_torch.models import pipeline, simulator
     off = pipeline._simulate_batch(key, pack, cfg, BASIN, N_SEEDS, 64,
                                    plane0)
@@ -2790,13 +2855,15 @@ def in_scan_k1(label, key, pack, cfg, plane0, exact, vmax_tol=K2_TOL):
     log(f'[in-scan] {label}: {len(k1c)} segments; K1 with the DiagState '
         f'against its twin on the first and last (steps, storms, t_last, '
         f'alive agreement, max abs err, bit-exact) {res}; the last-sample '
-        f'entry on {len(fixes)} segments (winds '
-        f'{tuple(fixes[0][0][4].shape) if fixes else None}) bit-exact '
-        f'against fix_last_sample_plain: {not fix_bad}')
-    if fix_bad or not fixes:
+        f'entry in {len(fixes)} launch(es) over '
+        f'{[len(c[0][0]) for c in fixes]} segments (winds '
+        f'{tuple(fixes[0][0][0][0]["wnds"].shape) if fixes else None}), '
+        f'each segment\'s fixed buffer and the banked peak bit-exact '
+        f'against fix_in_scan_plain: {not fix_bad}')
+    if fix_bad or len(fixes) != 1:
         raise AssertionError(f'in-scan {label}: the last-sample entry '
-                             f'differs on segments {fix_bad} of '
-                             f'{len(fixes)}')
+                             f'differs in calls {fix_bad} of '
+                             f'{len(fixes)} (one a launch)')
     return worst, fix_err
 
 
@@ -2815,7 +2882,6 @@ def check_in_scan(dev, card, pack_y, cfg_t, plane0, k1_base, levels):
     wall time with and without, and the kernels' per-launch times.
     Returns the phase's numbers."""
     from tropical_cyclone_risk_tpu_torch import kernels, rng
-    from tropical_cyclone_risk_tpu_torch.kernels import vmax as k2
     from tropical_cyclone_risk_tpu_torch.models import (diagnostics,
                                                         pipeline, simulator)
     t_phase = time.perf_counter()
@@ -2889,12 +2955,14 @@ def check_in_scan(dev, card, pack_y, cfg_t, plane0, k1_base, levels):
     fix_bad = [i for i, c in enumerate(fixes) if not c[3][0]]
     fix_err = max(c[3][1] for c in fixes)
     log(f'[in-scan] K1 with the DiagState against its twin (steps, storms, '
-        f't_last, bit-exact, differing) {res}; the last-sample entry on '
-        f'{len(fixes)} segments bit-exact against fix_last_sample_plain: '
-        f'{not fix_bad} (max abs err of vmax_L {fix_err:.3e})')
-    if fix_bad:
-        raise AssertionError(f'in-scan: the last-sample entry differs on '
-                             f'segments {fix_bad}')
+        f't_last, bit-exact, differing) {res}; the last-sample entry in '
+        f'{len(fixes)} launch over {len(fixes[0][0][0])} segments, each '
+        f'segment\'s fixed buffer and the banked peak bit-exact against '
+        f'fix_in_scan_plain: {not fix_bad} (max abs err {fix_err:.3e})')
+    if fix_bad or len(fixes) != 1 or launches['vmax_last'] != 1:
+        raise AssertionError(f'in-scan: the last-sample entry differs in '
+                             f'calls {fix_bad} of {len(fixes)}, or launched '
+                             f'{launches["vmax_last"]} times (one a launch)')
     # K1's other in-scan instances and the last-sample entry at W = 6
     cfg3, pack3, cfg3_t = levels
     modes = {}
@@ -2906,18 +2974,43 @@ def check_in_scan(dev, card, pack_y, cfg_t, plane0, k1_base, levels):
         fix_err = max(fix_err, f_err)
     # times: K1's in-scan instance per launch (every segment, the kernel
     # alone) beside the post-pass instance's from the K1 phase; the
-    # last-sample entry per launch (device time) beside its twin; the
-    # launch's wall time with and without, in turns
+    # last-sample entry per launch (device time, after an L2 flush and
+    # warm) beside its twin; the launch's wall time with and without, in
+    # turns
     k1_on = sum(cuda_ms(k1_launcher(a), K1_REPS) for a, _, _, _ in k1c)
     k1_on_bound = sum(k1_bound(a, out)[0] for a, _, out, _ in k1c)
-    fix_ms = sum(device_ms(k2.last_launcher(
-        a[0].clone(), *a[1:8], diagnostics._shear_channels(a[8]),
-        kw.get('pos_before'))[0], 20, ('last_sample_kernel',))
-        for a, kw, _, _ in fixes)
-    fix_plain = sum(cuda_ms(lambda a=a, kw=kw: uncounted(
-        diagnostics.fix_last_sample_plain, *a, **kw), 5)
-        for a, kw, _, _ in fixes)
-    fix_bound = [last_bound(a, kw, o) for a, kw, o, _ in fixes]
+    (f_args, f_kw, f_out, _), = fixes
+    # the per-segment API (diagnostics.fix_last_sample) through the same
+    # entry on one segment, the launch's last (vmax_L and ok written)
+    raws, edges, a_idxs, orders, last_step, _, dt_s, cfg_f = f_args
+    k, r = len(raws) - 1, raws[-1]
+    one_args = (r['vmax'], r['lon'], r['lat'], r['v'], r['wnds'],
+                r['alive'], last_step[a_idxs[k - 1]] - edges[k] if k
+                else last_step, dt_s, cfg_f)
+    one_kw = {'pos_before': torch.stack(
+        [raws[k - 1]['lon'][-1][orders[k - 1]],
+         raws[k - 1]['lat'][-1][orders[k - 1]]]) if k else None}
+    one = diagnostics.fix_last_sample(r['vmax'].clone(), *one_args[1:],
+                                      **one_kw)
+    one_ref = uncounted(diagnostics.fix_last_sample_plain,
+                        r['vmax'].clone(), *one_args[1:], **one_kw)
+    one_exact = all(same(a, b) for a, b in zip(one, one_ref))
+    log(f'[in-scan] the per-segment API on segment {k} '
+        f'({tuple(r["lon"].shape)}, {int(one[2].sum())} tracks ending '
+        f'there) through the same '
+        f'entry: vmax, vmax_L and ok bit-exact against '
+        f'fix_last_sample_plain: {one_exact}')
+    if not one_exact:
+        raise AssertionError('in-scan: the one-segment last-sample entry '
+                             'differs from fix_last_sample_plain')
+    fix_launch = fix_launcher(f_args)
+    fix_ms = device_ms(clean(fix_launch), 20, ('last_sample_kernel',))
+    fix_cold_ms = device_ms(cold(fix_launch), 20, ('last_sample_kernel',))
+    fix_warm_ms = device_ms(fix_launch, 20, ('last_sample_kernel',))
+    fix_plain = cuda_ms(lambda: uncounted(
+        diagnostics.fix_in_scan_plain, [dict(r) for r in f_args[0]],
+        *f_args[1:]), 5)
+    fix_bound = [last_bound(f_args, f_kw, f_out)]
     wall = {False: [], True: []}
     for i in range(5):
         for flag in (False, True, True, False):
@@ -2932,15 +3025,19 @@ def check_in_scan(dev, card, pack_y, cfg_t, plane0, k1_base, levels):
     log(f'[in-scan] {card}: K1 per launch, the kernel alone: in-scan '
         f'{k1_on:.4f} ms (bound {k1_on_bound:.5f} ms), post-pass instance '
         f'{k1_base:.4f} ms (K1 phase); '
-        f'the last-sample entry per launch {fix_ms:.4f} ms device (plain '
-        f'twin {fix_plain:.3f} ms, bound '
+        f'the last-sample entry per launch (one launch over the segments) '
+        f'{fix_ms:.4f} ms device after a clean L2 flush, {fix_cold_ms:.4f} '
+        f'after a write flush, {fix_warm_ms:.4f} warm (plain twin '
+        f'{fix_plain:.3f} ms, bound '
         f'{sum(b for b, _ in fix_bound):.5f} ms); launch wall time, median '
         f'of 10 in turns: in-scan {med[True]:.2f} ms, post-pass '
         f'{med[False]:.2f} ms; phase {time.perf_counter() - t_phase:.1f} s')
     return {'launches': launches, 'vmax_max_abs_err': v_err,
             'vmax_exact_share': v_exact, 'k1_ms': k1_on,
             'k1_bound_ms': k1_on_bound,
-            'fix_ms': fix_ms, 'fix_plain_ms': fix_plain,
+            'fix_ms': fix_ms, 'fix_cold_ms': fix_cold_ms,
+            'fix_warm_ms': fix_warm_ms,
+            'fix_plain_ms': fix_plain,
             'fix_bound_ms': sum(b for b, _ in fix_bound),
             'fix_bound_by': fix_bound[0][1], 'fix_max_abs_err': fix_err,
             'k1_modes_max_abs_err': modes,
@@ -3314,13 +3411,19 @@ def main():
     k7_results('K7', k7_calls)
     g_args, _, g_out, _ = k7_calls[0]
     launch7 = integrator.gate_launcher(*g_args)[0]
-    ms_k7 = device_ms(launch7, 20, ('genesis_gate_kernel',))
+    # after a clean L2 flush (the bound counts the rows from HBM), after
+    # a write flush, and warm
+    ms_k7 = device_ms(clean(launch7), 20, ('genesis_gate_kernel',))
+    ms_k7_cold = device_ms(cold(launch7), 20, ('genesis_gate_kernel',))
+    ms_k7_warm = device_ms(launch7, 20, ('genesis_gate_kernel',))
     ms_k7_event = cuda_ms(launch7, 20)
     ms_k7_call = cuda_ms(lambda: simulator.genesis_alive(*g_args), 20)
     ms_k7_plain = cuda_ms(lambda: simulator.genesis_alive_plain(*g_args), 5)
     k7_bound_ms, k7_by = k7_bound(g_args, g_out)
     log(f'[K7] {card}: genesis gate over {g_out.shape[0]} seeds: kernel '
-        f'{ms_k7:.4f} ms device ({ms_k7_event:.4f} ms event, '
+        f'{ms_k7:.4f} ms device after a clean L2 flush, {ms_k7_cold:.4f} '
+        f'after a write flush, {ms_k7_warm:.4f} ms warm ({ms_k7_event:.4f} '
+        f'ms event, warm, '
         f'{ms_k7_call:.4f} ms through the dispatcher), plain twin '
         f'{ms_k7_plain:.3f} ms, bound {k7_bound_ms:.5f} ms ({k7_by})')
     del k1_calls, k2_calls, k7_calls, args0, v_args, v_kw, g_args, g_out
@@ -3730,16 +3833,24 @@ def main():
          'plain_ms': in_scan['fix_plain_ms'],
          'bound_ms': in_scan['fix_bound_ms'],
          'bound_by': in_scan['fix_bound_by'], 'library_ms': None,
-         'per': 'in-scan launch (every segment, the kernel alone, device '
-                'time); launches from the in-scan phase\'s launch'},
+         'cold_ms': in_scan['fix_cold_ms'],
+         'warm_ms': in_scan['fix_warm_ms'],
+         'per': 'in-scan launch (one launch over every segment, the kernel '
+                'alone, device time after a clean L2 flush; cold_ms after a '
+                'write flush, warm_ms without); launches from the in-scan '
+                'phase\'s launch'},
         {'name': 'genesis', 'route': 'cuda',
          'source': src + 'csrc/integrator.cu',
          'replaces': 'tropical_cyclone_risk_tpu/models/simulator.py:295',
          'launches': launches['genesis'], 'max_abs_err': 0.0, 'ms': ms_k7,
          'plain_ms': ms_k7_plain, 'bound_ms': k7_bound_ms,
          'bound_by': k7_by, 'library_ms': None,
-         'per': 'one launch\'s gate (the kernel alone, device time)',
-         'event_ms': ms_k7_event, 'dispatch_ms': ms_k7_call,
+         'per': 'one launch\'s gate (the kernel alone, device time after '
+                'a clean L2 flush; cold_ms after a write flush, warm_ms '
+                'without)',
+         'cold_ms': ms_k7_cold, 'warm_ms': ms_k7_warm,
+         'event_ms': ms_k7_event,
+         'dispatch_ms': ms_k7_call,
          'stage_host_ms': g_host, 'stage_device_span_ms': g_span,
          'device_kernels_per_launch': per_launch}]
     for k in entries:
@@ -3995,6 +4106,7 @@ def twins_on_card(keep=()):
     swaps = [(seeding, 'propose_seeds'), (fourier, 'draw_fourier'),
              (simulator, 'genesis_alive'), (simulator, 'integrate_segment'),
              (diagnostics, 'axi_to_max_wind_raw'),
+             (diagnostics, 'fix_in_scan'),
              (compact_ops, 'partition_take'),
              (compact_ops, 'stitch_survivors')]
     swaps = [(mod, nm) for mod, nm in swaps if nm not in keep]
@@ -4763,6 +4875,161 @@ def kernel_times(root):
     print(json.dumps(res))
 
 
+# the level counts and K7 block shapes at which gate_times times the
+# staged gate: threads a block, tried where the tree has gate_plan
+GATE_SETS = {2: (250, 850), 3: (250, 500, 850), 4: (250, 500, 700, 850)}
+GATE_PLANS = (32, 64, 96, 128)
+
+
+def gate_times(root):
+    """--gate-times ROOT: with the port imported from the tree at ROOT, K7
+    at two, three and four levels in each stack layout (the seeds of one
+    N_SEEDS launch's launch_inputs on a pack of that count, in-cell or
+    with land and bathymetry on grids of their own, geo_pack): its device
+    time after a clean L2 flush (clean) and after a write flush (cold)
+    in TIME_ROUNDS rounds, and warm, its bound (k7_bound) and share of
+    the clean time, and its keep mask bit for bit against the twin; where
+    ROOT's integrator has gate_plan, each of GATE_PLANS threads a block
+    (GATE_THREADS set for the launcher), clean.  Then
+    the bench's two-level launch with vmax_in_scan: the kernel launches
+    of one launch (vmax_last among them), the last-sample
+    entry's device time in a launch (every launch of it, under
+    torch.profiler), the host ms from the fix's first call (ROOT's
+    diagnostics.fix_in_scan, or its first fix_last_sample) to
+    launch_body's return (median of five launches), and the device
+    kernels of a launch (profile_launches).  Prints one JSON line.  Run on
+    a parent and its change in one chip call (parent, change, change,
+    parent), it compares the two on one card."""
+    import concurrent.futures
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke: no CUDA device')
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import tropical_cyclone_risk_tpu_torch as pkg
+    if not pkg.__file__.startswith(root + os.sep):
+        raise SystemExit(f'the port was imported from {pkg.__file__}')
+    from tropical_cyclone_risk_tpu_torch import kernels, rng
+    from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
+    from tropical_cyclone_risk_tpu_torch.kernels import integrator
+    from tropical_cyclone_risk_tpu_torch.kernels import rng as k5_kernel
+    from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3_kernel
+    from tropical_cyclone_risk_tpu_torch.kernels import vmax as k2_kernel
+    from tropical_cyclone_risk_tpu_torch.models import (diagnostics,
+                                                        pipeline, simulator)
+    t0 = time.perf_counter()
+    jobs = [lambda lv=lv: integrator.build(lv, False) for lv in GATE_SETS]
+    jobs += [lambda: integrator.build(2, True), k2_kernel.build, k4.build,
+             k3_kernel.build, k5_kernel.build]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        built = [f.result() for f in [pool.submit(j) for j in jobs]]
+    t_build = time.perf_counter() - t0
+    # the ptxas reports of the gates and the last-sample entry
+    ptxas = {k: v for info in built
+             for k, v in ptxas_report(info['log']).items()
+             if 'genesis_gate' in k or 'last_sample' in k}
+    dev = torch.device('cuda', 0)
+    takes_plan = hasattr(integrator, 'gate_plan')
+    gate = {}
+    for lv, levels in GATE_SETS.items():
+        cfg, pack, cfg_t = level_setup(dev, steering_fields(levels))
+        plane0 = cfg.start_month - 1
+        for layout in LAYOUTS:
+            pk = pack if layout == 'in-cell' else geo_pack(cfg, dev, layout)
+            with captured(simulator, 'genesis_alive') as gc:
+                pipeline.launch_inputs(rng.key(93), pk, cfg_t, BASIN,
+                                       N_SEEDS, plane0)
+            (g_args, _, g_out, _), = gc
+            ref = uncounted(simulator.genesis_alive_plain, *g_args)
+            launch, keep = integrator.gate_launcher(*g_args)
+            launch()
+            torch.cuda.synchronize()
+            b_ms, b_by = k7_bound(g_args, g_out)
+            row = {'seeds': g_out.shape[0], 'exact': same(keep, ref)
+                   and same(g_out, ref), 'bound_ms': b_ms, 'bound_by': b_by}
+            for name, flush in (('clean', clean), ('cold', cold)):
+                rounds = sorted(device_ms(flush(launch), 20, K7_KERNELS)
+                                for _ in range(TIME_ROUNDS))
+                row[name + '_ms'] = rounds[len(rounds) // 2]
+                row[name + '_range'] = [rounds[0], rounds[-1]]
+            row['warm_ms'] = device_ms(launch, 20, K7_KERNELS)
+            row['share'] = b_ms / row['clean_ms']
+            if takes_plan:
+                row['plans'] = {}
+                for plan in GATE_PLANS:
+                    default = integrator.GATE_THREADS
+                    integrator.GATE_THREADS = plan
+                    try:
+                        pl, kp = integrator.gate_launcher(*g_args)
+                    finally:
+                        integrator.GATE_THREADS = default
+                    pl()
+                    torch.cuda.synchronize()
+                    row['plans'][plan] = {
+                        'exact': same(kp, ref),
+                        'clean_ms': device_ms(clean(pl), 20, K7_KERNELS)}
+            gate[f'L{lv} {layout}'] = row
+            log(f'[gate-times] L{lv} {layout}: {row}')
+            del gc, g_args, g_out, ref, launch, keep, pk
+    # the in-scan launch at two levels
+    cfg, _, pack_y, cfg_t = launch_setup(dev)
+    plane0 = cfg.start_month - 1
+    cfg_on = cfg_t.replace(vmax_in_scan=True)
+    fix_name = ('fix_in_scan' if hasattr(diagnostics, 'fix_in_scan')
+                else 'fix_last_sample')
+    run = lambda i: pipeline._simulate_batch(rng.key(300 + i), pack_y,
+                                             cfg_on, BASIN, N_SEEDS, 64,
+                                             plane0)
+    run(0)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    run(1)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    marks = {}
+    fix_fn, body_fn = getattr(diagnostics, fix_name), pipeline.launch_body
+
+    def fix_marked(*a, **kw):
+        marks.setdefault('first', time.perf_counter())
+        return fix_fn(*a, **kw)
+
+    def body_marked(*a, **kw):
+        out = body_fn(*a, **kw)
+        marks['end'] = time.perf_counter()
+        return out
+
+    host = []
+    setattr(diagnostics, fix_name, fix_marked)
+    pipeline.launch_body = body_marked
+    try:
+        for i in range(6):
+            marks.clear()
+            torch.cuda.synchronize()
+            run(2 + i)
+            torch.cuda.synchronize()
+            host.append((marks['end'] - marks['first']) * 1e3)
+    finally:
+        setattr(diagnostics, fix_name, fix_fn)
+        pipeline.launch_body = body_fn
+    fix_dev = device_ms(lambda: run(9), 5, ('last_sample_kernel',))
+    with tempfile.TemporaryDirectory(prefix='gate_times_') as tmp:
+        per_launch, share, traced_ms, stage_ms, _ = profile_launches(
+            lambda: run(10), 3, f'{tmp}/launches.json')
+    in_scan = {'fix': fix_name, 'launches': launches,
+               'fix_device_ms_per_launch': fix_dev,
+               'fix_to_body_end_host_ms': statistics.median(host[1:]),
+               'fix_to_body_end_host_ms_all': host[1:],
+               'device_kernels_per_launch': per_launch,
+               'busy_share': share, 'traced_ms_per_launch': traced_ms,
+               'stage_host_and_span_ms': stage_ms}
+    log(f'[gate-times] in-scan: {in_scan}')
+    bad = [k for k, v in gate.items() if not v['exact'] or any(
+        not p['exact'] for p in v.get('plans', {}).values())]
+    res = {'gate_times': root, 'card': card_line(), 'build_s': t_build,
+           'ptxas': ptxas, 'gate': gate, 'in_scan': in_scan, 'not_exact': bad}
+    print(json.dumps(res))
+    return 1 if bad else 0
+
+
 def drivers_times(root):
     """--drivers ROOT: with the port imported from the tree at ROOT, its
     kernels built (build_all) and compare_drivers on the bench's workload;
@@ -5166,6 +5433,8 @@ def ranks_times(n_ranks):
 if __name__ == '__main__':
     if len(sys.argv) == 3 and sys.argv[1] == '--kernel-times':
         sys.exit(kernel_times(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == '--gate-times':
+        sys.exit(gate_times(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == '--drivers':
         sys.exit(drivers_times(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == '--ranks':

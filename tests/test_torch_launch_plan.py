@@ -313,3 +313,152 @@ def test_k1_group_geometry(levels):
     assert gate_ip[-3] == min(integrator.GROUP_THREADS // lanes,
                               (integrator.MAX_SHARED_BYTES
                                - integrator.TABLE_BYTES) // (4 * stride))
+
+
+def test_gate_constants_match_the_source():
+    """K7's most threads a block at two to four levels
+    (__launch_bounds__), shared by the wrapper and csrc/integrator.cu."""
+    assert integrator.GATE_MAX_THREADS == _constant('integrator.cu',
+                                                    'kGateThreads')
+    assert integrator.GATE_THREADS % 32 == 0
+    assert integrator.GATE_THREADS <= integrator.GATE_MAX_THREADS
+
+
+# per level count: a seed's slot in floats (cell row, geo rows, B row)
+GATE_SLOTS = {2: 148, 3: 228, 4: 324}
+
+
+@pytest.mark.parametrize('levels', sorted(GATE_SLOTS))
+@pytest.mark.parametrize('layout', [integrator.IN_CELL, integrator.FUSED_GEO,
+                                    integrator.SEPARATE_GEO])
+def test_gate_slot_and_plan(levels, layout):
+    """K7's slot (csrc/integrator.cu GateRows) and blocks (gate_plan) at
+    every level count and stack layout: the cell row at 0, the geo rows
+    after it, the B row after those, 16-byte aligned, in an odd count of
+    16-byte words (the same in every layout); whole warps of a batch of
+    32 seeds each within a block's 227 KB, one warp for every batch of the
+    seeds (the entry keeps as many blocks as stay resident); blocks of
+    other than whole warps up to GATE_MAX_THREADS refused."""
+    W = 2 * levels
+    slot = integrator.gate_slot(levels, layout)
+    row = integrator.cell_row(layout, levels)
+    geo = 0 if layout == integrator.IN_CELL else 8
+    assert slot == {'cell': 0, 'geo': row, 'b': row + geo,
+                    'stride': GATE_SLOTS[levels]}
+    assert slot['b'] % 4 == 0 and slot['stride'] % 8 == 4
+    assert slot['b'] + W * 15 <= slot['stride'] < slot['b'] + W * 15 + 8
+    for threads in (32, 64, 96, 128):
+        nbytes = 4 * threads * slot['stride']
+        assert integrator.gate_bytes(levels, threads) == nbytes
+        assert nbytes <= integrator.MAX_SHARED_BYTES <= 227 * 1024
+        for m in (1, 31, 33, 150, 38912, 40960):
+            per, t, blocks = integrator.gate_plan(m, levels, threads)
+            assert per == t == threads
+            warps, batches = threads // 32, -(-m // 32)
+            assert blocks * warps >= batches > (blocks - 1) * warps
+    assert integrator.gate_plan(40960, levels) == (
+        integrator.GATE_THREADS, integrator.GATE_THREADS,
+        -(-1280 // (integrator.GATE_THREADS // 32)))
+    for threads in (16, 160, 48):
+        with pytest.raises(ValueError, match='K7 takes'):
+            integrator.gate_plan(100, levels, threads)
+
+
+def _vmax_seg(T, N, W=4, edge=0, a_idx=None, before=None, order=None):
+    f = lambda: torch.zeros(T, N)
+    seg = {'lon': f(), 'lat': f(), 'v': f(), 'vmax': f(),
+           'wnds': torch.zeros(T, N, W),
+           'alive': torch.zeros(T, N, dtype=torch.bool), 'edge': edge,
+           'a_idx': a_idx, 'order': order}
+    if before is not None:
+        seg.update(before_lon=before[0], before_lat=before[1])
+    return seg
+
+
+def _last_segment_reads():
+    """The reads of csrc/vmax.cu tc_vmax_last's segment loop, in order."""
+    from tropical_cyclone_risk_tpu_torch.kernels import vmax as k2
+    src = (CSRC / 'vmax.cu').read_text()
+    body = src[src.index('extern "C" int tc_vmax_last('):]
+    loop = body[body.index('for (int k = 0; k < lp.n_segs; ++k) {'):]
+    loop = loop[:loop.index('if (T < 1')]
+    return re.findall(r'([\w.]+) = (?:reinterpret_cast<[^>]*>\()?ip\[q\+\+\]',
+                      loop), k2
+
+
+def test_last_sample_segment_table():
+    """K2's last-sample entry over a launch's segments: the table as
+    csrc/vmax.cu tc_vmax_last reads it (twelve header entries, fourteen a
+    segment in its order), the first block of each segment after the
+    blocks of the ones before it (last_plan, as K4's gather numbers its
+    tensors), null pointers where a segment has no slot map, order or row
+    before it."""
+    reads, k2 = _last_segment_reads()
+    assert reads == ['g.edge', 'T', 'width', 'first', 'g.lon', 'g.lat',
+                     'g.v', 'g.wnds', 'g.alive', 'g.vmax', 'g.a_idx',
+                     'g.order', 'g.before_lon', 'g.before_lat']
+    assert k2.MAX_SEGS == _constant('vmax.cu', 'kMaxSegs')
+    widths = [40960, 38912, 0, 7168, 1]
+    first, blocks = k2.last_plan(widths)
+    assert first == [0, 320, 624, 624, 680] and blocks == 681
+    m = widths[0]
+    segs = [_vmax_seg(60, m)]
+    prev = segs[0]
+    for k, w in enumerate(widths[1:], 1):
+        ai = torch.arange(w, dtype=torch.int64)
+        segs.append(_vmax_seg(40, w, edge=20 + 40 * k, a_idx=ai,
+                              before=(prev['lon'][-1], prev['lat'][-1]),
+                              order=ai))
+        prev = segs[-1]
+    last = torch.zeros(m, dtype=torch.int64)
+    peak = torch.zeros(m)
+    full = [{'a_idx': None, 'order': None, 'before_lon': None,
+             'before_lat': None, **g} for g in segs]
+    ip, fp, n_blocks = k2._last_table(full, last, peak, None, (0, 1, 2, 3),
+                                      4, 3600.0, torch.device('cpu'))
+    assert n_blocks == blocks and ip.dtype == np.int64
+    assert ip.size == 12 + 14 * len(segs)
+    assert ip[:8].tolist() == [len(segs), 4, 0, 1, 2, 3, k2.THREADS, blocks]
+    assert ip[8:12].tolist() == [last.data_ptr(), peak.data_ptr(), 0, 0]
+    assert fp[0] == np.float32(1.0) / np.float32(3600.0)
+    for k, (g, f) in enumerate(zip(segs, first)):
+        row = ip[12 + 14 * k:26 + 14 * k].tolist()
+        T, N = g['lon'].shape
+        assert row[:4] == [g['edge'], T, N, f]
+        assert row[4:10] == [g[n].data_ptr() for n in ('lon', 'lat', 'v',
+                                                       'wnds', 'alive',
+                                                       'vmax')]
+        if k == 0:
+            assert row[10:] == [0, 0, 0, 0]
+        else:
+            assert row[10:12] == [g['a_idx'].data_ptr(),
+                                  g['order'].data_ptr()]
+            assert row[12:] == [segs[k - 1]['lon'][-1].data_ptr(),
+                                segs[k - 1]['lat'][-1].data_ptr()]
+
+
+def test_last_sample_entry_refusals():
+    """The last-sample entry refuses more than MAX_SEGS segments, an odd
+    or too small wind count, winds that differ between segments, vmax_L
+    and ok beyond one segment, and CPU tensors, before it launches."""
+    from tropical_cyclone_risk_tpu_torch import kernels
+    from tropical_cyclone_risk_tpu_torch.kernels import vmax as k2
+    last = torch.zeros(8, dtype=torch.int64)
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match='1 to 16 segments'):
+        k2.last_launcher([_vmax_seg(5, 8)] * 17, last, 3600.0, (0, 1, 2, 3))
+    with pytest.raises(ValueError, match='1 to 16 segments'):
+        k2.last_launcher([], last, 3600.0, (0, 1, 2, 3))
+    for W in (3, 5, 2):
+        with pytest.raises(NotImplementedError, match='even count'):
+            k2.last_launcher([_vmax_seg(5, 8, W=W)], last, 3600.0,
+                             (0, 1, 2, 3))
+    with pytest.raises(ValueError, match='winds, not'):
+        k2.last_launcher([_vmax_seg(5, 8), _vmax_seg(5, 8, W=6)], last,
+                         3600.0, (0, 1, 2, 3))
+    with pytest.raises(ValueError, match='one segment'):
+        k2.last_launcher([_vmax_seg(5, 8)] * 2, last, 3600.0, (0, 1, 2, 3),
+                         outs=True)
+    with pytest.raises(ValueError, match='CUDA'):
+        k2.last_launcher([_vmax_seg(5, 8)] * 16, last, 3600.0, (0, 1, 2, 3))
+    assert not any(kernels.LAUNCHES.values())

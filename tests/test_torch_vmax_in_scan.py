@@ -224,3 +224,118 @@ def test_fix_last_sample_matches_jax(before):
     # only the ok tracks' final samples moved
     moved = tf.numpy() != vmax
     assert moved.sum() <= int(tok.sum())
+
+
+def _captured_fix(pack, cfg, seed=7):
+    """The arguments of diagnostics.fix_in_scan in one in-scan launch of
+    the twin (raws, edges, a_idxs, orders, last_step, peak, dt_s, cfg),
+    copied as the call received them."""
+    calls = []
+    fn = diagnostics.fix_in_scan
+
+    def capture(raws, *args):
+        calls.append(([{k: v.clone() for k, v in r.items()} for r in raws],)
+                     + tuple(a.clone() if isinstance(a, torch.Tensor)
+                             else a for a in args))
+        return fn(raws, *args)
+
+    diagnostics.fix_in_scan = capture
+    try:
+        pipeline._simulate_batch(rng.key(seed), pack, cfg, 'GL',
+                                 CFG.seed_batch, 64, 0)
+    finally:
+        diagnostics.fix_in_scan = fn
+    (call,) = calls
+    return call
+
+
+SEGMENTED = CFG.replace(recompact_schedule=((60, 0.75), (120, 0.6),
+                                            (180, 0.5)),
+                        integrate_cap=0.75, vmax_in_scan=True)
+
+
+def test_fix_in_scan_twin_matches_jax_loop(packs):
+    """The whole-launch fix twin (diagnostics.fix_in_scan_plain, the loop
+    the one-launch entry replaces) against the JAX package's in-scan
+    branch (models/pipeline.py:515-535: per segment fix_last_sample at
+    last_step[a_idx] - edge with the previous segment's last row gathered
+    by the boundary order, banked with jnp.maximum on segment 0 and
+    .at[a_idx].max after) on the inputs of a four-segment launch of the
+    twin: the ok masks and every written sample position equal, the
+    fixed buffers and the banked peak within VMAX_TOL (the JAX package's
+    own vmax noise: its XLA kernels round the translation's sines
+    otherwise, and a few samples differ in the last bits), and JAX's
+    banking of the twin's own fixed samples bit for bit the twin's
+    peak."""
+    raws, edges, a_idxs, orders, last_step, peak0, dt_s, cfg = \
+        _captured_fix(packs[1], SEGMENTED)
+    assert len(raws) == 4
+    fixed, peak = diagnostics.fix_in_scan_plain(
+        raws, edges, a_idxs, orders, last_step, peak0, dt_s, cfg)
+    j = lambda x: jnp.asarray(x.numpy())
+    last = last_step.numpy()
+    jpeak = bank = j(peak0)
+    for k, r in enumerate(raws):
+        if k == 0:
+            ls_k, pos = last, None
+        else:
+            ai = a_idxs[k - 1].numpy()
+            ls_k = last[ai] - edges[k]
+            o = orders[k - 1].numpy()
+            pos = jnp.stack([j(raws[k - 1]['lon'][-1])[o],
+                             j(raws[k - 1]['lat'][-1])[o]])
+        jf, jL, jok = jdiag.fix_last_sample(
+            j(r['vmax']), j(r['lon']), j(r['lat']), j(r['v']), j(r['wnds']),
+            j(r['alive']), jnp.asarray(ls_k), dt_s, cfg, pos_before=pos)
+        contrib = jnp.where(jok, jL, -jnp.inf)
+        jpeak = (jnp.maximum(jpeak, contrib) if k == 0
+                 else jpeak.at[a_idxs[k - 1].numpy()].max(contrib))
+        _, tL, tok = diagnostics.fix_last_sample_plain(
+            r['vmax'], r['lon'], r['lat'], r['v'], r['wnds'], r['alive'],
+            torch.from_numpy(ls_k), dt_s, cfg,
+            None if pos is None else torch.from_numpy(np.array(pos)))
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+        mine = jnp.where(j(tok), j(tL), -jnp.inf)
+        bank = (jnp.maximum(bank, mine) if k == 0
+                else bank.at[a_idxs[k - 1].numpy()].max(mine))
+        moved_t = fixed[k].numpy() != r['vmax'].numpy()
+        moved_j = np.asarray(jf) != r['vmax'].numpy()
+        np.testing.assert_array_equal(moved_t, moved_j)
+        np.testing.assert_allclose(fixed[k].numpy(), np.asarray(jf), rtol=0,
+                                   atol=VMAX_TOL)
+    np.testing.assert_array_equal(peak.numpy(), np.asarray(bank))
+    jpeak = np.asarray(jpeak)
+    np.testing.assert_array_equal(np.isfinite(peak.numpy()),
+                                  np.isfinite(jpeak))
+    fin = np.isfinite(jpeak)
+    np.testing.assert_allclose(peak.numpy()[fin], jpeak[fin], rtol=0,
+                               atol=VMAX_TOL)
+    assert (peak.numpy() != peak0.numpy()).any()
+
+
+def test_each_slot_is_fixed_in_one_segment_at_most(packs):
+    """The one-launch entry writes each m slot's peak without atomics: on a
+    four-segment launch a slot's last step lies in at most one segment
+    (last_step - edge_k in [0, T_k)), so at most one segment's ok flags
+    it; and the fix banks into the peak exactly the slots some segment
+    flags."""
+    raws, edges, a_idxs, orders, last_step, peak0, dt_s, cfg = \
+        _captured_fix(packs[1], SEGMENTED)
+    m = last_step.shape[0]
+    hits = torch.zeros(m, dtype=torch.int64)
+    in_range = torch.zeros(m, dtype=torch.int64)
+    for k, r in enumerate(raws):
+        a = (a_idxs[k - 1] if k else torch.arange(m))
+        ls_k = last_step[a] - edges[k]
+        T = r['lon'].shape[0]
+        _, _, ok = diagnostics.fix_last_sample_plain(
+            r['vmax'], r['lon'], r['lat'], r['v'], r['wnds'], r['alive'],
+            ls_k, dt_s, cfg)
+        hits.index_add_(0, a, ok.to(torch.int64))
+        in_range.index_add_(0, a, ((ls_k >= 0) & (ls_k < T)).to(torch.int64))
+    assert int(in_range.max()) <= 1 and int(hits.max()) <= 1
+    assert int(hits.sum()) > 0
+    _, peak = diagnostics.fix_in_scan_plain(raws, edges, a_idxs, orders,
+                                            last_step, peak0, dt_s, cfg)
+    moved = peak != peak0
+    assert bool((moved <= (hits == 1)).all())

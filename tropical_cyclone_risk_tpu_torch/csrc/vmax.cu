@@ -5,9 +5,11 @@
 // _translation_tm and :69 _vmax_from_inc, called per re-compaction segment
 // of a launch (models/pipeline.py, nine segments on the bench's launch).
 // Its plain PyTorch twin is models/diagnostics.py axi_to_max_wind_raw_plain.
-// The file's second entry, the last-sample fix of the in-scan vmax
-// (models/diagnostics.py:148 fix_last_sample; twin fix_last_sample_plain),
-// is at the end.
+// The file's second entry, the last-sample fix of the in-scan vmax over
+// every segment of a launch (models/diagnostics.py:148 fix_last_sample and
+// the launch's banking of the fixed samples into the peak,
+// models/pipeline.py:527-535; twin diagnostics.fix_in_scan_plain), is at
+// the end.
 //
 // Per sample (t, n) of a segment's [T, N] buffers: the centred-chord
 // translation speed on the sphere from the neighbouring rows (the samples
@@ -281,74 +283,108 @@ vmax_kernel(const __grid_constant__ Params p, const float* __restrict__ lon,
                peak, partial, count);
 }
 
-// The last-sample entry (diagnostics.fix_last_sample_plain): one thread per
-// storm re-derives the sample at its segment-local last step L with the
-// reference's edge extrapolation, next = pos[L] + (pos[L] - pos[L-1])
-// (pos[L-1] from pos_before where L is 0), writes vmax_L and ok (L in the
-// segment and alive there), and where ok writes vmax_L into the in-scan
-// buffer in place.  It reads one sample per storm and is bound by launch
-// latency at the launch's widths; it exists so that the vmax of the card's
-// in-scan path is vmax_at throughout.
+// The last-sample entry (diagnostics.fix_in_scan_plain, and
+// fix_last_sample_plain on one segment): the in-scan vmax's fix of every
+// track's final sample, over every segment of a launch in one launch.  A
+// thread takes one column n of one segment k: its m slot a (a_idx[n], or
+// n), its segment-local last step L = last[a] - edge_k, the sample at L
+// with the reference's edge extrapolation next = pos[L] + (pos[L] -
+// pos[L-1]) (pos[L-1] from the row before the segment where L is 0: the
+// previous segment's last row at column order[n]), and where L lies in the
+// segment and the track is alive there (ok), the fixed sample written in
+// place and peak[a] = nan_max(peak[a], vmax_L), _bank's update of that
+// slot.  last[a] - edge_k lies in [0, T_k) for one segment k at most, and
+// a segment's slots are distinct, so each slot is written by one thread
+// at most and no atomics are needed.  On one segment (the per-segment API)
+// it also writes vmax_L and ok for every column.
+//
+// What bounds it: bytes, one sample per column (lon, lat at L and L-1, v,
+// the shear winds, alive, last and the slot map), far below a launch's
+// other work; one launch replaces a launch per segment and the torch
+// operations around each (the pos_before gather, the slot map's index, the
+// banking's scatter and maximum).  The grid covers the segments' widths
+// back to back, each segment's blocks from its first_block (the segment of
+// a block is the last one whose blocks start at or before it), as K4's
+// gather pass finds its tensor.
+constexpr int kMaxSegs = 16;
+
+// one segment of the fix: its time-major [T, width] buffers (winds [T,
+// width, W]) and vmax buffer (fixed in place), the m slot of each column
+// (null: the column itself), and the row before its first (null: none),
+// read at column order[n] (null: n)
+struct LastSeg {
+  const float *lon, *lat, *v, *wnds;
+  const uint8_t* alive;
+  float* vmax;
+  const int64_t* a_idx;
+  const int64_t* order;
+  const float *before_lon, *before_lat;
+  int64_t edge;
+  int T, width, first_block;
+};
+
+// the segment table and what the segments share: the shear channels and
+// constants (in sp), the last step of each slot on the launch's time axis,
+// the banked peak (null: none) and, on one segment, vmax_L and ok (null:
+// not written)
+struct LastParams {
+  Params sp;
+  int n_segs;
+  const int64_t* last;
+  float* peak;
+  float* vmax_L;
+  uint8_t* ok;
+  LastSeg segs[kMaxSegs];
+};
+
 template <int kW>
-__device__ __forceinline__ void last_sample_pass(
-    const Params& p, int W, const float* __restrict__ lon,
-    const float* __restrict__ lat, const float* __restrict__ tc_v,
-    const float* __restrict__ wnds, const uint8_t* __restrict__ alive,
-    const int64_t* __restrict__ last, const float* __restrict__ before,
-    float* __restrict__ vmax, float* __restrict__ vmax_L,
-    uint8_t* __restrict__ ok) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= p.N) return;
-  const int64_t N = p.N, T = p.T, L = last[n];
+__device__ __forceinline__ void last_sample_pass(const LastParams& lp,
+                                                 int W) {
+  int k = 0;
+  for (int s = 1; s < lp.n_segs; ++s)
+    if (lp.segs[s].first_block <= (int)blockIdx.x) k = s;
+  const LastSeg& g = lp.segs[k];
+  const int n = ((int)blockIdx.x - g.first_block) * blockDim.x + threadIdx.x;
+  if (n >= g.width) return;
+  const int64_t N = g.width, T = g.T;
+  const int64_t a = g.a_idx != nullptr ? g.a_idx[n] : n;
+  const int64_t L = lp.last[a] - g.edge;
   const int64_t Lc = min(max(L, (int64_t)0), T - 1);
   const int64_t Lm1 = min(max(L - 1, (int64_t)0), T - 1);
-  const float lon_L = lon[Lc * N + n], lat_L = lat[Lc * N + n];
-  float lon_P = lon[Lm1 * N + n], lat_P = lat[Lm1 * N + n];
-  if (p.has_before && L == 0) {
-    lon_P = before[n];
-    lat_P = before[N + n];
+  const float lon_L = g.lon[Lc * N + n], lat_L = g.lat[Lc * N + n];
+  float lon_P = g.lon[Lm1 * N + n], lat_P = g.lat[Lm1 * N + n];
+  if (g.before_lon != nullptr && L == 0) {
+    const int64_t j = g.order != nullptr ? g.order[n] : n;
+    lon_P = g.before_lon[j];
+    lat_P = g.before_lat[j];
   }
-  const float vm = vmax_at(p, lat_L, lon_P, lat_P, lon_L + (lon_L - lon_P),
-                           lat_L + (lat_L - lat_P), tc_v[Lc * N + n],
-                           shear_winds<kW>(wnds, Lc * N + n, p, W));
-  const bool good = L >= 0 && L < T && alive[Lc * N + n] != 0;
-  vmax_L[n] = vm;
-  ok[n] = good;
-  if (good) vmax[Lc * N + n] = vm;
+  const float vm = vmax_at(lp.sp, lat_L, lon_P, lat_P,
+                           lon_L + (lon_L - lon_P), lat_L + (lat_L - lat_P),
+                           g.v[Lc * N + n],
+                           shear_winds<kW>(g.wnds, Lc * N + n, lp.sp, W));
+  const bool good = L >= 0 && L < T && g.alive[Lc * N + n] != 0;
+  if (lp.vmax_L != nullptr) {
+    lp.vmax_L[n] = vm;
+    lp.ok[n] = good;
+  }
+  if (good) {
+    g.vmax[Lc * N + n] = vm;
+    if (lp.peak != nullptr) lp.peak[a] = nan_max(lp.peak[a], vm);
+  }
 }
 
 template <int kW>
 __global__ void __launch_bounds__(kThreads)
-last_sample_kernel(const __grid_constant__ Params p,
-                   const float* __restrict__ lon,
-                   const float* __restrict__ lat,
-                   const float* __restrict__ tc_v,
-                   const float* __restrict__ wnds,
-                   const uint8_t* __restrict__ alive,
-                   const int64_t* __restrict__ last,
-                   const float* __restrict__ before,
-                   float* __restrict__ vmax, float* __restrict__ vmax_L,
-                   uint8_t* __restrict__ ok) {
-  last_sample_pass<kW>(p, kW, lon, lat, tc_v, wnds, alive, last, before, vmax,
-                       vmax_L, ok);
+last_sample_kernel(const __grid_constant__ LastParams lp) {
+  last_sample_pass<kW>(lp, kW);
 }
 
 // the run-time-stride instance <0>: W winds per sample
 template <int kW>
 __global__ void __launch_bounds__(kThreads)
-last_sample_kernel(const __grid_constant__ Params p,
-                   const float* __restrict__ lon,
-                   const float* __restrict__ lat,
-                   const float* __restrict__ tc_v,
-                   const float* __restrict__ wnds,
-                   const uint8_t* __restrict__ alive,
-                   const int64_t* __restrict__ last,
-                   const float* __restrict__ before,
-                   float* __restrict__ vmax, float* __restrict__ vmax_L,
-                   uint8_t* __restrict__ ok, int W) {
+last_sample_kernel(const __grid_constant__ LastParams lp, int W) {
   static_assert(kW == 0, "the run-time-stride instance is <0>");
-  last_sample_pass<0>(p, W, lon, lat, tc_v, wnds, alive, last, before, vmax,
-                      vmax_L, ok);
+  last_sample_pass<0>(lp, W);
 }
 
 // the shared parameter block of both entries; false if it is not valid
@@ -415,39 +451,71 @@ extern "C" int tc_vmax(const int* ip, const float* fp, const float* lon,
   return (int)cudaGetLastError();
 }
 
-// The last-sample entry on the parameter block of tc_vmax (chunk, has_after
-// and the storm blocks by chunks unread; threads per block and blocks of
-// storms): vmax [T, N] updated in place, vmax_L [N], ok [N].
-extern "C" int tc_vmax_last(const int* ip, const float* fp, const float* lon,
-                            const float* lat, const float* tc_v,
-                            const float* wnds, const uint8_t* alive,
-                            const int64_t* last, const float* before,
-                            float* vmax, float* vmax_L, uint8_t* ok,
+// The last-sample entry.  ip: n_segs, W, iu2, iv2, iu8, iv8, threads,
+// blocks, last, peak, vmax_L, ok, then per segment edge, T, width,
+// first_block, lon, lat, v, wnds, alive, vmax, a_idx, order, before_lon,
+// before_lat (pointers as integers, 0 for null); fp: 1 / dt_s, km2,
+// deg2rad.  vmax_L and ok only on one segment.
+extern "C" int tc_vmax_last(const int64_t* ip, const float* fp,
                             void* stream) {
-  Params p;
-  const bool good = read_params(ip, fp, &p);
-  const int threads = ip[9], blocks = ip[10];
-  if (!good || p.T < 1 || p.N < 1 || threads < 32 || threads > kThreads ||
-      threads % 32 != 0 || (int64_t)blocks * threads < p.N)
+  LastParams lp{};
+  int q = 0;
+  lp.n_segs = (int)ip[q++];
+  const int W = (int)ip[q++];
+  int sp_ip[13] = {0};
+  for (int i = 0; i < 4; ++i) sp_ip[5 + i] = (int)ip[q++];
+  sp_ip[12] = W;
+  const bool shear_ok = read_params(sp_ip, fp, &lp.sp);
+  const int64_t threads = ip[q++], blocks = ip[q++];
+  lp.last = reinterpret_cast<const int64_t*>(ip[q++]);
+  lp.peak = reinterpret_cast<float*>(ip[q++]);
+  lp.vmax_L = reinterpret_cast<float*>(ip[q++]);
+  lp.ok = reinterpret_cast<uint8_t*>(ip[q++]);
+  if (!shear_ok || lp.n_segs < 1 || lp.n_segs > kMaxSegs || threads < 32 ||
+      threads > kThreads || threads % 32 != 0 || blocks < 1 ||
+      blocks > INT32_MAX || lp.last == nullptr ||
+      ((lp.vmax_L != nullptr || lp.ok != nullptr) &&
+       (lp.n_segs != 1 || lp.vmax_L == nullptr || lp.ok == nullptr)))
     return (int)cudaErrorInvalidValue;
+  int64_t next = 0;   // the first block after the segments so far
+  for (int k = 0; k < lp.n_segs; ++k) {
+    LastSeg& g = lp.segs[k];
+    g.edge = ip[q++];
+    const int64_t T = ip[q++], width = ip[q++], first = ip[q++];
+    g.lon = reinterpret_cast<const float*>(ip[q++]);
+    g.lat = reinterpret_cast<const float*>(ip[q++]);
+    g.v = reinterpret_cast<const float*>(ip[q++]);
+    g.wnds = reinterpret_cast<const float*>(ip[q++]);
+    g.alive = reinterpret_cast<const uint8_t*>(ip[q++]);
+    g.vmax = reinterpret_cast<float*>(ip[q++]);
+    g.a_idx = reinterpret_cast<const int64_t*>(ip[q++]);
+    g.order = reinterpret_cast<const int64_t*>(ip[q++]);
+    g.before_lon = reinterpret_cast<const float*>(ip[q++]);
+    g.before_lat = reinterpret_cast<const float*>(ip[q++]);
+    if (T < 1 || T > INT32_MAX || width < 0 || width > INT32_MAX ||
+        first != next ||
+        (g.before_lon == nullptr) != (g.before_lat == nullptr))
+      return (int)cudaErrorInvalidValue;
+    g.T = (int)T;
+    g.width = (int)width;
+    g.first_block = (int)first;
+    next = first + (width + threads - 1) / threads;
+  }
+  if (next != blocks) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (ip[12]) {
+  switch (W) {
     case 4:
-      last_sample_kernel<4><<<blocks, threads, 0, s>>>(
-          p, lon, lat, tc_v, wnds, alive, last, before, vmax, vmax_L, ok);
+      last_sample_kernel<4><<<(unsigned)blocks, (unsigned)threads, 0, s>>>(lp);
       break;
     case 6:
-      last_sample_kernel<6><<<blocks, threads, 0, s>>>(
-          p, lon, lat, tc_v, wnds, alive, last, before, vmax, vmax_L, ok);
+      last_sample_kernel<6><<<(unsigned)blocks, (unsigned)threads, 0, s>>>(lp);
       break;
     case 8:
-      last_sample_kernel<8><<<blocks, threads, 0, s>>>(
-          p, lon, lat, tc_v, wnds, alive, last, before, vmax, vmax_L, ok);
+      last_sample_kernel<8><<<(unsigned)blocks, (unsigned)threads, 0, s>>>(lp);
       break;
     default:
-      last_sample_kernel<0><<<blocks, threads, 0, s>>>(
-          p, lon, lat, tc_v, wnds, alive, last, before, vmax, vmax_L, ok,
-          ip[12]);
+      last_sample_kernel<0><<<(unsigned)blocks, (unsigned)threads, 0, s>>>(
+          lp, W);
   }
   return (int)cudaGetLastError();
 }

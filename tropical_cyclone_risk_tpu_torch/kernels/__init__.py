@@ -7,7 +7,8 @@
 - ``vmax`` (K2): the vmax diagnostic pass, CUDA C++ for sm_90a
   (csrc/vmax.cu).
 - ``vmax_last``: K2's second entry, the in-scan vmax's re-derivation of
-  each track's final sample (csrc/vmax.cu).
+  each track's final sample, banked into the lifetime peak, over every
+  segment of a launch in one launch (csrc/vmax.cu).
 - ``seeding`` (K3): genesis seeding in one launch, lazily drawn proposal
   rounds shared over each warp's lanes, the stream keys derived on the
   card, CUDA C++ for sm_90a (csrc/seeding.cu).
@@ -21,7 +22,8 @@
 - ``cape_pi`` (K6): potential intensity per column, the level-only and
   column-only work computed once, CUDA C++ for sm_90a (csrc/cape_pi.cu).
 - ``genesis`` (K7): the step-0 genesis gate, CUDA C++ for sm_90a, a second
-  kernel of csrc/integrator.cu that reuses K1's gather and coloring.
+  kernel of csrc/integrator.cu that reuses K1's blend, Cholesky and
+  coloring on rows staged in shared memory with cp.async.
 
 The CUDA sources are built with nvcc at first use (kernels/build.py) and
 bound with ctypes.  Each wrapper adds one to ``LAUNCHES[name]`` where it

@@ -25,7 +25,10 @@ which launch_geometry sizes.
 
 K7, the genesis gate (genesis_gate_cuda), is the file's second kernel:
 the step-0 keep mask from K1's gather, Cholesky and coloring at t = 0.
-Its plain twin is models/simulator.py genesis_alive_plain.
+Its plain twin is models/simulator.py genesis_alive_plain.  At two to
+four levels it stages each seed's rows in a slot of shared memory
+(gate_slot), the next batch's copies in flight while it computes;
+gate_plan sizes its blocks.
 """
 
 from __future__ import annotations
@@ -45,7 +48,10 @@ from tropical_cyclone_risk_tpu_torch.ops import fourier
 N_POINTERS = 31          # device pointers of tc_integrate_segment
 MAX_SUB = 8              # csrc/integrator.cu kMaxSub
 MAX_THREADS = 64         # csrc/integrator.cu kMaxThreads (__launch_bounds__)
-GATE_THREADS = 128       # csrc/integrator.cu kGateThreads (K7)
+# K7 at two to four levels (csrc/integrator.cu genesis_gate_kernel): its
+# threads per block (gate_plan) and their most (kGateThreads)
+GATE_THREADS = 32
+GATE_MAX_THREADS = 128
 GATE_POINTERS = 9        # device pointers of tc_genesis_gate
 # csrc/integrator.cu sincos_rad: CUDA's sinf/cosf fast path below this |x|
 FAST_TRIG_LIMIT = 105615.0
@@ -374,15 +380,53 @@ def launcher(stacks, cfg: Namelist, bounds, y0, alive0,
     return launch, result
 
 
+def gate_slot(levels: int, layout: int) -> dict:
+    """A seed's slot of K7's shared memory at two to four levels
+    (csrc/integrator.cu GateRows), in floats: the cell row at 'cell' (0),
+    land_geo4's row (fused: 8 floats) or land_geo4's and bathy4's rows
+    (separate: 4 each) at 'geo', the [W, 15] B row at 'b', and the slot's
+    'stride', an odd count of 16-byte words (148 / 228 / 324 floats at
+    two / three / four levels, in every layout)."""
+    geo = cell_row(layout, levels)
+    b = geo + (0 if layout == IN_CELL else 8)
+    words = (b + 2 * levels * fourier.N_FOURIER + 3) // 4 | 1
+    return {'cell': 0, 'geo': geo, 'b': b, 'stride': 4 * words}
+
+
+def gate_plan(m: int, levels: int, threads: int = None):
+    """(seeds per block, threads per block, blocks) of K7 at two to four
+    levels for m seeds: `threads` (GATE_THREADS where None) in whole
+    warps, a warp's slots holding
+    one batch of 32 seeds at a time, and the blocks that give every batch
+    a warp; the kernel's entry launches as many of them as the card keeps
+    resident, each warp then taking every n-th batch (csrc/integrator.cu
+    gate_launch).  One warp a block by default (18.9 / 29.2 / 41.5 KB of
+    slots at two / three / four levels), so that blocks pack an SM's
+    shared memory.  Raises ValueError for a shape the kernel refuses."""
+    threads = threads or GATE_THREADS
+    if not (WARP <= threads <= GATE_MAX_THREADS and threads % WARP == 0
+            and gate_bytes(levels, threads) <= MAX_SHARED_BYTES):
+        raise ValueError(f'K7 takes whole warps up to {GATE_MAX_THREADS} '
+                         f'threads a block within {MAX_SHARED_BYTES} bytes '
+                         f'of slots, got {threads} at {levels} levels')
+    batches = max(1, -(-m // WARP))
+    return threads, threads, -(-batches // (threads // WARP))
+
+
+def gate_bytes(levels: int, per_block: int) -> int:
+    """The dynamic shared memory of a K7 block of per_block seeds at two
+    to four levels (csrc/integrator.cu gate_bytes)."""
+    return 4 * per_block * gate_slot(levels, IN_CELL)['stride']
+
+
 def gate_params(stacks, cfg: Namelist, m: int):
     """K7's parameter block: K1's layout (_params) for m seeds with no
-    steps, basin bounds of zeros (the gate does not read them) and one
-    thread per seed in GATE_THREADS-wide blocks, or from GROUP_LEVELS
-    levels on a group per seed, as many as a block takes
-    (launch_geometry)."""
+    steps, basin bounds of zeros (the gate does not read them) and
+    gate_plan's blocks, or from GROUP_LEVELS levels on a group per seed,
+    as many as a block takes (launch_geometry)."""
     lv = levels(cfg)
     geometry = (launch_geometry(m, 1, lv) if lv >= GROUP_LEVELS else
-                (GATE_THREADS, GATE_THREADS, -(-m // GATE_THREADS)))
+                gate_plan(m, lv))
     return _params(stacks, cfg, (0.0,) * 4, m, 0, 1, 0, 0, 0.0, False,
                    geometry)
 

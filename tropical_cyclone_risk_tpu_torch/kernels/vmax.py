@@ -7,10 +7,13 @@ the source.  Its plain twin is models/diagnostics.py
 axi_to_max_wind_raw_plain.  The launch is a 2-D grid of storm blocks by
 chunks of rows whose shape follows the segment's length, width and the
 card's SM count (launch_geometry).  The source's second entry, the in-scan
-vmax's last-sample fix (fix_last_sample_cuda), has the twin
-diagnostics.fix_last_sample_plain.  Both take any even count of winds
-from four (two or more steering levels): four, six and eight have
-instances of their own, every other count the run-time-stride instance.
+vmax's last-sample fix, takes every segment of a launch in one launch
+(fix_in_scan_cuda: the fixed samples written in place and banked into the
+peak, twin diagnostics.fix_in_scan_plain) or one segment
+(fix_last_sample_cuda, twin diagnostics.fix_last_sample_plain).  Both
+entries take any even count of winds from four (two or more steering
+levels): four, six and eight have instances of their own, every other
+count the run-time-stride instance.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from tropical_cyclone_risk_tpu_torch import kernels
 from tropical_cyclone_risk_tpu_torch.kernels import build as kbuild
 
 N_POINTERS = 12          # device pointers of tc_vmax
-LAST_POINTERS = 10       # device pointers of tc_vmax_last
+MAX_SEGS = 16            # csrc/vmax.cu kMaxSegs (the last-sample entry)
 THREADS = 128            # csrc/vmax.cu kThreads (__launch_bounds__)
 MAX_CHUNKS = 65535       # csrc/vmax.cu kMaxChunks (gridDim.y)
 WARP = 32
@@ -45,7 +48,7 @@ def _lib():
     lib = ctypes.CDLL(str(build()['path']))
     lib.tc_vmax.argtypes = [ctypes.c_void_p] * (2 + N_POINTERS + 1)
     lib.tc_vmax.restype = ctypes.c_int
-    lib.tc_vmax_last.argtypes = [ctypes.c_void_p] * (2 + LAST_POINTERS + 1)
+    lib.tc_vmax_last.argtypes = [ctypes.c_void_p] * 3
     lib.tc_vmax_last.restype = ctypes.c_int
     return lib
 
@@ -180,58 +183,144 @@ def launcher(lon, lat, dt_track, tc_v, env_wnds, alive, last_step,
     return launch, (vmax, peak)
 
 
-def fix_last_sample_cuda(vmax_tm, lon, lat, tc_v, env_wnds, alive,
-                         last_step, dt_s, shear_channels, pos_before=None):
-    """Launch K2's last-sample entry: (vmax_tm fixed in place, vmax_L [N],
-    ok [N]) as models/diagnostics.py fix_last_sample_plain."""
-    launch, result = last_launcher(vmax_tm, lon, lat, tc_v, env_wnds, alive,
-                                   last_step, dt_s, shear_channels,
-                                   pos_before)
-    launch()
-    return result
+def last_plan(widths, threads: int = THREADS):
+    """The last-sample entry's grid over segments of these widths: (first
+    block of each segment, total blocks), each segment ceil(width /
+    threads) blocks after the ones before it (a segment without columns
+    has none)."""
+    first, total = [], 0
+    for w in widths:
+        first.append(total)
+        total += -(-int(w) // threads)
+    return first, total
 
 
-def last_launcher(vmax_tm, lon, lat, tc_v, env_wnds, alive, last_step, dt_s,
-                  shear_channels, pos_before=None):
-    """(launch, (vmax_tm, vmax_L, ok)): a function that launches the
-    last-sample entry on these inputs, one thread per storm in blocks of
-    THREADS; the checks, the outputs and the parameter block are made
-    here, once."""
-    dev = lon.device
+def _last_table(segs, last, peak, outs, shear_channels, W, dt_s, dev):
+    """The last-sample entry's parameter blocks (ip int64, fp float32) of
+    csrc/vmax.cu tc_vmax_last: the segment table with its first blocks
+    (last_plan) and every pointer as an integer (0 for None)."""
+    from tropical_cyclone_risk_tpu_torch.models.diagnostics import (
+        DEG2RAD, KM2)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    widths = [g['lon'].shape[1] for g in segs]
+    first, blocks = last_plan(widths)
+    vmax_L, ok = outs if outs is not None else (None, None)
+    ip = [len(segs), W, *shear_channels, THREADS, max(blocks, 1),
+          ptr(last), ptr(peak), ptr(vmax_L), ptr(ok)]
+    for g, f in zip(segs, first):
+        ip += [int(g['edge']), g['lon'].shape[0], g['lon'].shape[1], f,
+               *(ptr(g[k]) for k in ('lon', 'lat', 'v', 'wnds', 'alive',
+                                     'vmax', 'a_idx', 'order', 'before_lon',
+                                     'before_lat'))]
+    fp = np.array([np.float32(1.0) / np.float32(dt_s), KM2, DEG2RAD],
+                  np.float32)
+    return np.array(ip, np.int64), fp, blocks
+
+
+def last_launcher(segs, last_step, dt_s, shear_channels, peak=None,
+                  outs=False):
+    """(launch, result): a function that launches the last-sample entry
+    once over the segments `segs` (at most MAX_SEGS), writing the tensors
+    of ``result``; the checks, the outputs and the parameter blocks are
+    made here, once.  Each segment is a dict of its time-major [T, w]
+    buffers 'lon', 'lat', 'v', 'alive' (bool), 'wnds' [T, w, W] and
+    'vmax' (fixed in place), its first step 'edge' on the launch's time
+    axis, 'a_idx' ([w] int64 m slots, or None: the column itself),
+    'before_lon' / 'before_lat' (float32 rows of the samples before its
+    first row, or None) read at 'order' ([w] int64 columns, or None: the
+    column itself).  last_step [m] int64 is each slot's last step on the
+    launch's time axis; peak [m] float32 (or None) takes each ok fixed
+    sample in place; with outs (one segment) the result is (vmax, vmax_L,
+    ok), else (the vmax buffers, peak)."""
+    if not 1 <= len(segs) <= MAX_SEGS:
+        raise ValueError(f'the last-sample entry takes 1 to {MAX_SEGS} '
+                         f'segments, got {len(segs)}')
+    dev = segs[0]['lon'].device
+    if outs and len(segs) != 1:
+        raise ValueError('vmax_L and ok are written on one segment only')
+    f32, i64 = torch.float32, torch.int64
+    W = None
+    for k, g in enumerate(segs):
+        T, N = g['lon'].shape
+        if T < 1:
+            raise ValueError(f'segment {k}: no rows')
+        for name in ('vmax', 'lon', 'lat', 'v'):
+            _check(name, g[name], f32, (T, N), dev)
+        w = _check_winds(g['wnds'], T, N, shear_channels, dev)
+        if W is not None and w != W:
+            raise ValueError(f'segment {k}: {w} winds, not {W}')
+        W = w
+        _check('alive', g['alive'], torch.bool, (T, N), dev)
+        for name in ('a_idx', 'order'):
+            if g.get(name) is not None:
+                _check(name, g[name], i64, (N,), dev)
+        rows = [g.get('before_lon'), g.get('before_lat')]
+        if (rows[0] is None) != (rows[1] is None):
+            raise ValueError(f'segment {k}: before_lon and before_lat '
+                             f'go together')
+        for name, r in zip(('before_lon', 'before_lat'), rows):
+            if r is not None:
+                _check(name, r, f32, (r.shape[0],), dev)
     if dev.type != 'cuda':
         raise ValueError(f'vmax kernel needs CUDA tensors, got {dev}')
-    T, N = lon.shape
-    f32 = torch.float32
-    for name, t in (('vmax', vmax_tm), ('lon', lon), ('lat', lat),
-                    ('tc_v', tc_v)):
-        _check(name, t, f32, (T, N), dev)
-    W = _check_winds(env_wnds, T, N, shear_channels, dev)
-    _check('alive', alive, torch.bool, (T, N), dev)
-    last = last_step.to(torch.int64).contiguous()
-    _check('last_step', last, torch.int64, (N,), dev)
-    if pos_before is not None:
-        _check('pos_before', pos_before, f32, (2, N), dev)
-    vmax_L = torch.empty((N,), dtype=f32, device=dev)
-    ok = torch.empty((N,), dtype=torch.bool, device=dev)
-    if N == 0 or T == 0:
-        ok.zero_()
-        return (lambda: None), (vmax_tm, vmax_L, ok)
-    threads = min(THREADS, -(-N // WARP) * WARP)
-    ip, fp = _block(T, N, 1, pos_before, None, shear_channels,
-                    (threads, -(-N // threads), 1), W, dt_s)
-    ptrs = [t.data_ptr() if t is not None else 0
-            for t in (lon, lat, tc_v, env_wnds, alive, last, pos_before,
-                      vmax_tm, vmax_L, ok)]
+    last = last_step.to(i64).contiguous()
+    _check('last_step', last, i64, (last.shape[0],), dev)
+    if peak is not None:
+        _check('peak', peak, f32, tuple(last.shape), dev)
+    N0 = segs[0]['lon'].shape[1]
+    res_outs = None
+    if outs:
+        res_outs = (torch.empty((N0,), dtype=f32, device=dev),
+                    torch.zeros((N0,), dtype=torch.bool, device=dev))
+    table = [{'a_idx': None, 'order': None, 'before_lon': None,
+              'before_lat': None, **g} for g in segs]
+    ip, fp, blocks = _last_table(table, last, peak, res_outs,
+                                 shear_channels, W, dt_s, dev)
+    result = ((segs[0]['vmax'],) + res_outs if outs
+              else (tuple(g['vmax'] for g in segs), peak))
+    if blocks == 0:
+        return (lambda: None), result
     entry = _lib().tc_vmax_last
 
     def launch():
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = entry(ip.ctypes.data, fp.ctypes.data, *ptrs, stream)
+            err = entry(ip.ctypes.data, fp.ctypes.data, stream)
         if err != 0:
             raise RuntimeError(f'vmax last-sample kernel launch failed: CUDA '
                                f'error {err}')
         kernels.LAUNCHES['vmax_last'] += 1
 
-    launch.inputs = (last,)      # alive as long as the launch
-    return launch, (vmax_tm, vmax_L, ok)
+    launch.inputs = (last, table)    # alive as long as the launch
+    return launch, result
+
+
+def fix_in_scan_cuda(segs, last_step, peak, dt_s, shear_channels):
+    """Launch the last-sample entry once over every segment of an in-scan
+    launch (last_launcher's segs): each segment's vmax fixed in place and
+    peak [m] updated in place, as models/diagnostics.py
+    fix_in_scan_plain.  Returns (the vmax buffers, peak)."""
+    launch, result = last_launcher(segs, last_step, dt_s, shear_channels,
+                                   peak)
+    launch()
+    return result
+
+
+def fix_last_sample_cuda(vmax_tm, lon, lat, tc_v, env_wnds, alive,
+                         last_step, dt_s, shear_channels, pos_before=None):
+    """The last-sample entry on one segment: (vmax_tm fixed in place,
+    vmax_L [N], ok [N]) as models/diagnostics.py fix_last_sample_plain
+    (last_step segment-local, pos_before [2, N] or None)."""
+    if lon.device.type != 'cuda':
+        raise ValueError(f'vmax kernel needs CUDA tensors, got {lon.device}')
+    seg = {'lon': lon, 'lat': lat, 'v': tc_v, 'wnds': env_wnds,
+           'alive': alive, 'vmax': vmax_tm, 'edge': 0}
+    if pos_before is not None:
+        if tuple(pos_before.shape) != (2, lon.shape[1]):
+            raise ValueError(f'pos_before: shape {tuple(pos_before.shape)} '
+                             f'!= {(2, lon.shape[1])}')
+        seg.update(before_lon=pos_before[0], before_lat=pos_before[1])
+    launch, result = last_launcher([seg], last_step, dt_s, shear_channels,
+                                   outs=True)
+    launch()
+    return result

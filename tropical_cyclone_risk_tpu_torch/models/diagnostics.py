@@ -4,10 +4,11 @@ tropical_cyclone_risk_tpu/models/diagnostics.py).
 ``axi_to_max_wind``, ``_extrapolate_nan_tail`` and ``vmax_filter`` are the
 per-track API of one-shot callers, in plain torch.  ``axi_to_max_wind_raw``
 is the launch's vmax pass and runs over every launch row; with the in-scan
-vmax (Namelist.vmax_in_scan) ``fix_last_sample`` re-derives each track's
-final sample instead.  On a CUDA tensor each launches its entry of
-csrc/vmax.cu (kernels/vmax.py); on a CPU tensor it runs its ``*_plain``
-twin, the same arithmetic in torch ops.
+vmax (Namelist.vmax_in_scan) ``fix_in_scan`` re-derives each track's final
+sample instead, over every segment of the launch, and banks it into the
+lifetime peak (``fix_last_sample`` on one segment).  On a CUDA tensor each
+launches its entry of csrc/vmax.cu (kernels/vmax.py); on a CPU tensor it
+runs its ``*_plain`` twin, the same arithmetic in torch ops.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from tropical_cyclone_risk_tpu_torch import constants
 from tropical_cyclone_risk_tpu_torch import kernels
 from tropical_cyclone_risk_tpu_torch.kernels import vmax as vmax_kernel
 from tropical_cyclone_risk_tpu_torch.models.fast import deep_layer_indices
+from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
 from tropical_cyclone_risk_tpu_torch.ops import sphere
 
 DEG2RAD = math.pi / 180.0
@@ -154,15 +156,83 @@ def fix_last_sample_plain(vmax_tm, lon, lat, tc_v, env_wnds, alive,
 def fix_last_sample(vmax_tm, lon, lat, tc_v, env_wnds, alive, last_step,
                     dt_s, cfg=None, pos_before=None):
     """fix_last_sample_plain on CPU tensors; on any other device K2's
-    last-sample entry, which writes the fixed samples into vmax_tm in
-    place (the launch's own buffer: a copy of it would move every row)
-    and returns it."""
+    last-sample entry on this one segment, which writes the fixed samples
+    into vmax_tm in place and returns it."""
     if lon.device.type == 'cpu':
         return fix_last_sample_plain(vmax_tm, lon, lat, tc_v, env_wnds,
                                      alive, last_step, dt_s, cfg, pos_before)
     return vmax_kernel.fix_last_sample_cuda(
         vmax_tm, lon, lat, tc_v, env_wnds, alive, last_step, dt_s,
         _shear_channels(cfg), pos_before)
+
+
+def bank_peak(peak, values, a_idx):
+    """max(peak, values) on the m axis: values [w] of a segment whose
+    slots a_idx [w] (injective; None for the m axis itself) are on it
+    (jnp's .at[a_idx].max)."""
+    if a_idx is None:
+        return torch.maximum(peak, values)
+    return torch.maximum(peak, compact_ops.scatter_fill(
+        peak.shape[0], a_idx, values, -math.inf))
+
+
+def fix_in_scan_plain(raws, edges, a_idxs, orders, last_step, peak, dt_s,
+                      cfg=None):
+    """The in-scan launch's last-sample fix (JAX models/pipeline.py:515-535
+    with use_diag): for each segment k, fix_last_sample_plain at its
+    segment-local last steps last_step[a_idxs[k-1]] - edges[k], with the
+    previous segment's last row gathered by orders[k-1] as pos_before,
+    and bank_peak of where(ok, vmax_L, -inf) into peak.  raws: per segment
+    its time-major dict ('lon', 'lat', 'v', 'wnds', 'alive', 'vmax');
+    a_idxs / orders: per later segment its slot map and its boundary's
+    order.  Returns (the fixed vmax buffers, the banked peak)."""
+    fixed = []
+    for k, r in enumerate(raws):
+        a_prev = a_idxs[k - 1] if k else None
+        ls_k, pos_before = last_step, None
+        if k:
+            ls_k = last_step[a_prev] - edges[k]
+            prev = raws[k - 1]
+            pos_before = torch.stack([prev['lon'][-1][orders[k - 1]],
+                                      prev['lat'][-1][orders[k - 1]]])
+        vmax_k, vmax_L, ok = fix_last_sample_plain(
+            r['vmax'], r['lon'], r['lat'], r['v'], r['wnds'], r['alive'],
+            ls_k, dt_s, cfg, pos_before)
+        peak = bank_peak(peak, torch.where(ok, vmax_L, -math.inf), a_prev)
+        fixed.append(vmax_k)
+    return tuple(fixed), peak
+
+
+def fix_in_scan(raws, edges, a_idxs, orders, last_step, peak, dt_s,
+                cfg=None):
+    """fix_in_scan_plain on CPU tensors; on any other device K2's
+    last-sample entry in one launch over every segment, which fixes each
+    segment's vmax buffer and the peak in place (the launch's own
+    buffers) and returns them."""
+    if last_step.device.type == 'cpu':
+        return fix_in_scan_plain(raws, edges, a_idxs, orders, last_step,
+                                 peak, dt_s, cfg)
+    return vmax_kernel.fix_in_scan_cuda(
+        in_scan_segments(raws, edges, a_idxs, orders), last_step, peak,
+        dt_s, _shear_channels(cfg))
+
+
+def in_scan_segments(raws, edges, a_idxs, orders):
+    """The segment table of K2's last-sample entry (kernels/vmax.py
+    last_launcher) for fix_in_scan's arguments: each segment's buffers and
+    edge, and after segment 0 its slot map, its boundary's order and the
+    previous segment's last row."""
+    segs = []
+    for k, r in enumerate(raws):
+        seg = {name: r[name] for name in ('lon', 'lat', 'v', 'wnds',
+                                          'alive', 'vmax')}
+        seg['edge'] = edges[k]
+        if k:
+            seg.update(a_idx=a_idxs[k - 1], order=orders[k - 1],
+                       before_lon=raws[k - 1]['lon'][-1],
+                       before_lat=raws[k - 1]['lat'][-1])
+        segs.append(seg)
+    return segs
 
 
 def axi_to_max_wind_raw_plain(lon, lat, dt_track, tc_v, env_wnds, alive,

@@ -320,7 +320,8 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
     with cfg.vmax_in_scan the integrator's in-scan value: its DiagState
     carry rides the boundary compactions, each segment's running peak is
     banked on the m axis (a storm dropped at a boundary keeps its peak), and
-    diagnostics.fix_last_sample re-derives each track's final sample.
+    diagnostics.fix_in_scan re-derives each track's final sample, over
+    every segment at once, and banks it.
 
     Returns {'seed': full-width [n] metadata, 'slot_rank': the integrate
     compaction's [n] ranks (None when m == n), 'trk': compacted [m] track
@@ -382,7 +383,7 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
             # bank the segment's running peak on the m axis: a storm dropped
             # at the next boundary keeps its lifetime maximum
             dstate = carry[2]
-            peak_acc = _bank(peak_acc, dstate.peak, a_idx)
+            peak_acc = diagnostics.bank_peak(peak_acc, dstate.peak, a_idx)
         bnd_states.append(state_k)
 
     # stitched per-slot reductions on the m axis
@@ -402,36 +403,35 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
     is_tc = reached & (v_2d >= cfg.seed_v_2d_threshold_ms) \
         & raws[0]['alive'][0]
 
-    # vmax per segment with exact boundary neighbours; tracks that end in
-    # another segment never trigger this segment's end fix-up
-    peak = None
-    for k, r in enumerate(raws):
-        if k == 0:
-            ls_k, pos_before = last_step, None
-        else:
-            ls_k = last_step[a_idxs[k - 1]] - edges[k]
-            prev = raws[k - 1]
-            pos_before = torch.stack([prev['lon'][-1][orders[k - 1]],
-                                      prev['lat'][-1][orders[k - 1]]])
-        a_prev = a_idxs[k - 1] if k else None
-        if peak_acc is not None:
-            # in-scan: only each track's final valid sample is re-derived
-            # (edge extrapolation); it joins the banked running peaks
-            r['vmax'], vmax_L, ok = diagnostics.fix_last_sample(
-                r['vmax'], r['lon'], r['lat'], r['v'], r['wnds'], r['alive'],
-                ls_k, dt_out, cfg, pos_before=pos_before)
-            peak_acc = _bank(peak_acc, torch.where(ok, vmax_L, -math.inf),
-                             a_prev)
-            continue
-        # the carry at this segment's end is the sample after its last row
-        pos_after = (torch.stack([bnd_states[k].lon, bnd_states[k].lat])
-                     if k + 1 < len(raws) else None)
-        r['vmax'], peak_k = diagnostics.axi_to_max_wind_raw(
-            r['lon'], r['lat'], dt_out, r['v'], r['wnds'], r['alive'], ls_k,
-            cfg, pos_before=pos_before, pos_after=pos_after)
-        peak = peak_k if k == 0 else _bank(peak, peak_k, a_prev)
     if peak_acc is not None:
-        peak = peak_acc
+        # in-scan: only each track's final valid sample is re-derived
+        # (edge extrapolation) and joins the banked running peaks, over
+        # every segment at once
+        vmaxs, peak = diagnostics.fix_in_scan(raws, edges, a_idxs, orders,
+                                              last_step, peak_acc, dt_out,
+                                              cfg)
+        for r, v in zip(raws, vmaxs):
+            r['vmax'] = v
+    else:
+        # vmax per segment with exact boundary neighbours; tracks that end
+        # in another segment never trigger this segment's end fix-up
+        for k, r in enumerate(raws):
+            if k == 0:
+                ls_k, pos_before = last_step, None
+            else:
+                ls_k = last_step[a_idxs[k - 1]] - edges[k]
+                prev = raws[k - 1]
+                pos_before = torch.stack([prev['lon'][-1][orders[k - 1]],
+                                          prev['lat'][-1][orders[k - 1]]])
+            # the carry at this segment's end is the sample after its last
+            # row
+            pos_after = (torch.stack([bnd_states[k].lon, bnd_states[k].lat])
+                         if k + 1 < len(raws) else None)
+            r['vmax'], peak_k = diagnostics.axi_to_max_wind_raw(
+                r['lon'], r['lat'], dt_out, r['v'], r['wnds'], r['alive'],
+                ls_k, cfg, pos_before=pos_before, pos_after=pos_after)
+            peak = (peak_k if k == 0
+                    else diagnostics.bank_peak(peak, peak_k, a_idxs[k - 1]))
     keep = is_tc & (peak >= cfg.seed_vmax_threshold_ms)
 
     slot_rank = li.slot_rank
@@ -456,16 +456,6 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
         # per later segment: column of each m-axis slot in that segment
         body['segs'] = tuple(segs)
     return body
-
-
-def _bank(peak, values, a_idx):
-    """max(peak, values) on the m axis: values [w] of a segment whose
-    slots a_idx [w] (injective; None for the m axis itself) are on it
-    (jnp's .at[a_idx].max)."""
-    if a_idx is None:
-        return torch.maximum(peak, values)
-    return torch.maximum(peak, compact_ops.scatter_fill(
-        peak.shape[0], a_idx, values, -math.inf))
 
 
 def _count_all_body(counted, basin_idx, month, n_basins: int):
