@@ -51,7 +51,8 @@ Phases (any failure raises, and the script exits non-zero):
                compaction, every re-compaction boundary) and
                compact_survivors' partition and survivor stitch at k_max 64
                and at k_max = m through K4 and through the plain twins on
-               the same inputs, and the edge cases: all bit-exact; times of
+               the same inputs, and the edge cases (the stitch's at 1 to
+               16 segments, k 1 to 384, W 2 to 34): all bit-exact; times of
                each of the launch's ten partitions and their sum (beside
                torch.sort's stable order, and torch.sort with one
                index_select per row tensor), of the integrate compaction
@@ -1230,16 +1231,63 @@ def same_parts(a, b):
     """Names of the fields where two K4 results differ (None pairs equal).
     A result is an ops.compact.Partition or a stitch's (tracks, keep)."""
     if isinstance(a, tuple) and len(a) == 2 and isinstance(a[0], dict):
-        pairs = [(f'tracks.{k}', a[0][k], b[0][k]) for k in a[0]]
-        pairs.append(('keep_full', a[1], b[1]))
-    else:
-        pairs = [(f, x, y) for f, x, y in zip(a._fields, a, b)
-                 if f != 'rows']
-        pairs += [(f'rows[{i}]', x, y)
-                  for i, (x, y) in enumerate(zip(a.rows, b.rows))]
+        bad = [f'tracks.{k}' for k in a[0] if not same_bits(a[0][k], b[0][k])]
+        return bad + ([] if same(a[1], b[1]) else ['keep_full'])
+    pairs = [(f, x, y) for f, x, y in zip(a._fields, a, b) if f != 'rows']
+    pairs += [(f'rows[{i}]', x, y)
+              for i, (x, y) in enumerate(zip(a.rows, b.rows))]
     return [nm for nm, x, y in pairs
             if (x is None) != (y is None)
             or (x is not None and not same(x, y))]
+
+
+def same_bits(a, b):
+    """Equality of two float32 tensors bit for bit (NaNs by their bits)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+def stitch_edge_cases(dev):
+    """stitch_survivors through K4 and its twin on the card, bit for bit,
+    at utils/synthetic_segments.STITCH_CASES (one segment without
+    slot_rank, 2, 3, 9 and 16 segments with a segment of width 1; k = 1,
+    64, 77, 96, 384 and above the survivors; W = 2, 4, 6, 10, 34; tiles of
+    4, 8 and 32 steps), and each W = 4 case again with its first
+    segment's winds 8 bytes off a 16-byte boundary (8-byte words).
+    Returns the number of cases."""
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+    from tropical_cyclone_risk_tpu_torch.utils import synthetic_segments
+    cases = 0
+    for name in synthetic_segments.STITCH_CASES:
+        order, tms, segs, keep, rank = to_device(
+            synthetic_segments.stitch_case(name), dev)
+        variants = [tms]
+        if tms[0]['wnds'].shape[-1] == 4:
+            off = torch.empty(tms[0]['wnds'].numel() + 2,
+                              dtype=torch.float32, device=dev)[2:]
+            off = off.view(tms[0]['wnds'].shape).copy_(tms[0]['wnds'])
+            variants.append([dict(tms[0], wnds=off)] + tms[1:])
+        for tv in variants:
+            out = compact_ops.stitch_survivors(order, tv, segs, keep, rank)
+            ref = uncounted(compact_ops.stitch_survivors_plain, order, tv,
+                            segs, keep, rank)
+            bad = same_parts(out, ref)
+            if bad:
+                raise AssertionError(f'K4 stitch edge case {name}: {bad} '
+                                     f'differ from the twin')
+            cases += 1
+    return cases
+
+
+def to_device(x, dev):
+    """x with every tensor in it (in tuples, lists and dicts) on dev."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_device(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: to_device(v, dev) for k, v in x.items()}
+    return x
 
 
 def k4_edge_cases(dev):
@@ -1288,13 +1336,75 @@ def partition_bound(mask, out, a_prev=None):
     return bound(nbytes(mask, *picked, *outs, *out.rows), 12 * mask.numel())
 
 
-def stitch_bound(order, tms, segs, out):
-    """K4's bound on one survivor stitch: what the k survivors need of the
-    segment buffers (six fields and alive per survivor and step, their
-    map entries) read once, and the [k, T] outputs written once."""
+def stitch_needs(order, tms, segs):
+    """What a survivor stitch needs of its segments: for each, its
+    buffers, the slots of the survivors selected on it (all k on the
+    first), their columns and which of their samples are alive ([T_s,
+    columns])."""
+    slots = [order] + [order[seg['selected'][order]] for seg in segs]
+    cols = [order] + [seg['inv'][s] for seg, s in zip(segs, slots[1:])]
+    return [(tm, s, c, tm['alive'][:, c])
+            for tm, s, c in zip(tms, slots, cols)]
+
+
+def stitch_bound(args, out):
+    """K4's bound on one survivor stitch (args: order, tms, segs, keep,
+    slot_rank; out: its tracks and keep_full): what the function needs,
+    read once (order; on each later segment every survivor's selected
+    flag and the selected ones' map entry; alive of every selected
+    sample; the five fields and W winds of the selected samples that are
+    alive; with slot_rank, every rank and keep at the ranked slots), and
+    the [k, T] outputs and keep_full written once; 4 operations an output
+    sample."""
+    order, tms, segs, _, rank = args
     k, T, W = out[0]['wnds'].shape
-    reads = k * T * (5 * 4 + 4 * W + 1) + nbytes(order) + 9 * k * len(segs)
-    return bound(reads + nbytes(*out[0].values(), out[1]), 4 * k * T)
+    needs = stitch_needs(order, tms, segs)
+    reads = nbytes(order) + k * len(segs) + 8 * sum(
+        slots.numel() for _, slots, _, _ in needs[1:])
+    for *_, live in needs:
+        reads += live.numel() + int(live.sum()) * (5 * 4 + 4 * W)
+    writes = nbytes(*out[0].values())
+    if rank is not None:
+        reads += nbytes(rank) + int((rank >= 0).sum())
+        writes += nbytes(out[1])
+    return bound(reads + writes, 4 * k * T)
+
+
+def sectors(offsets, size):
+    """The number of 32-byte sectors that values of `size` bytes at the
+    byte offsets `offsets` (an integer tensor) touch."""
+    if offsets.numel() == 0:
+        return 0
+    first, last = offsets // 32, (offsets + size - 1) // 32
+    mark = torch.zeros(int(last.max()) + 1, dtype=torch.bool,
+                       device=offsets.device)
+    for j in range(int((last - first).max()) + 1):
+        mark[torch.minimum(first + j, last)] = True
+    return int(mark.sum())
+
+
+def stitch_sectors(args, out):
+    """stitch_bound's bytes at the card's 32-byte sector granularity: each
+    value it counts as read costs the sectors it touches, once, where
+    sparse survivors pay a sector for a 4-byte value (order, the ranks
+    and the [k, T] outputs are whole rows of sectors)."""
+    order, tms, segs, _, rank = args
+    k, T, W = out[0]['wnds'].shape
+    needs = stitch_needs(order, tms, segs)
+    n = sum(sectors(order, 1) + sectors(slots * 8, 8)
+            for _, slots, _, _ in needs[1:])
+    for tm, _, c, live in needs:
+        t, j = live.nonzero(as_tuple=True)
+        w_s = tm['alive'].shape[1]
+        steps = torch.arange(live.shape[0], device=c.device)
+        n += sectors((steps[:, None] * w_s + c[None]).reshape(-1), 1)
+        at = t * w_s + c[j]
+        n += 5 * sectors(at * 4, 4) + sectors(at * 4 * W, 4 * W)
+    rows = nbytes(order) + nbytes(*out[0].values())
+    if rank is not None:
+        n += sectors(rank[rank >= 0], 1)
+        rows += nbytes(rank, out[1])
+    return bound(32 * n + rows, 4 * k * T)[0]
 
 
 def launch_setup(dev):
@@ -1387,6 +1497,10 @@ def check_k4(key, pack_y, cfg_t, plane0, card):
     n_edge = k4_edge_cases(pack_y.device)
     log(f'[K4] {n_edge} edge cases (n 1, 1024, 4097, {N_SEEDS}; masks none, '
         f'all, sparse; w below, at, above the count and >= n): bit-exact')
+    n_stitch = stitch_edge_cases(pack_y.device)
+    log(f'[K4] {n_stitch} stitch edge cases (1 to 16 segments, a segment of '
+        f'width 1; k 1 to 384 and above the survivors; W 2 to 34; W = 4 '
+        f'in 8-byte words): bit for bit')
 
     # the launch's partitions: launch_body's and compact_survivors' at
     # k_max 64; each timed as K4's kernels alone, torch.sort's order
@@ -1456,7 +1570,7 @@ def check_k4(key, pack_y, cfg_t, plane0, card):
     ms_st_call = cuda_ms(lambda: compact_ops.stitch_survivors(*sargs), 50)
     ms_st_plain = cuda_ms(lambda: compact_ops.stitch_survivors_plain(*sargs),
                           20)
-    b4s, by4s = stitch_bound(sargs[0], sargs[1], sargs[2], sout)
+    b4s, by4s = stitch_bound(sargs, sout)
     log(f'[K4] {card}: integrate compaction {N_SEEDS} -> {w} with '
         f'{len(rows)} row tensors: kernels {first["ms"]:.4f} ms '
         f'({ms_call:.4f} ms through the dispatcher; the order alone '
@@ -1838,7 +1952,7 @@ def launch_kernel_times(k1_calls, k2_calls, k7_calls, draws, stitches,
     bounds = {'K1': (sum(b[0] for b in k1b), max(k1b)[1]),
               'K2': (sum(b[0] for b in k2b), max(k2b)[1]),
               'K7': k7_bound(g_args, g_out), 'K5': k5b,
-              'K4_stitch': stitch_bound(*s_args[:3], s_out)}
+              'K4_stitch': stitch_bound(s_args, s_out)}
     for key, (ms, by) in bounds.items():
         res[key + '_bound'], res[key + '_bound_by'] = ms, by
         res[key + '_below_bound'] = res[key + '_range'][0] < ms
@@ -4266,7 +4380,7 @@ def check_mesh(dev, card, tmp, cfg_t, pack24, pack_y, plane0):
                       entry='compact')
     ms_st_plain = cuda_ms(lambda: uncounted(
         compact_ops.stitch_survivors_plain, *sargs), 5)
-    b_st, by_st = stitch_bound(sargs[0], sargs[1], sargs[2], sout)
+    b_st, by_st = stitch_bound(sargs, sout)
     log(f'[mesh] {card}: launch {ms_mesh:.2f} ms wall on the mesh (median '
         f'of {[round(t, 2) for t in ts_mesh]}) against {ms_one:.2f} ms on '
         f'one device ({[round(t, 2) for t in ts_one]}); shard-major '
@@ -4736,6 +4850,90 @@ def k6_times(dev):
             'event_ms': cuda_ms(call, 20), 'host_ms': host_ms(call, 20)}
 
 
+# the bench launch's compact_survivors k_max at which --kernel-times times
+# the stitch (and at m, the integrate width), the wind widths it times at
+# k_max 64 (W = 2 x steering levels: three to seventeen levels), and the
+# seeds of the launch where it times k_max = m at the namelist's default
+# seed_batch
+STITCH_K_MAXES = (64, 4096)
+STITCH_WIDTHS = (6, 8, 10, 14, 30, 34)
+STITCH_DENSE_SEEDS = 8192
+
+
+def stitch_runs(key, pack_y, cfg_t, plane0, m):
+    """The survivor stitches --kernel-times times, as (label, arguments):
+    one bench launch's compact_survivors at k_max STITCH_K_MAXES and m;
+    the [mesh] phase's launch over MESH_SHARDS virtual shards (its one
+    shard-major stitch at MESH_K_MAX); a STITCH_DENSE_SEEDS-seed launch
+    at k_max = its width (every slot stitched, as at any tracks_per_year
+    at or above the width)."""
+    from tropical_cyclone_risk_tpu_torch import rng
+    from tropical_cyclone_risk_tpu_torch.models import pipeline
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+    from tropical_cyclone_risk_tpu_torch.parallel import sharding
+    n_basins = len(cfg_t.basin_ids_sorted())
+    body = pipeline.launch_body(key, pack_y, cfg_t, BASIN, N_SEEDS, plane0)
+    cfg_d = cfg_t.replace(seed_batch=STITCH_DENSE_SEEDS)
+    m_d = pipeline.launch_width(cfg_d, STITCH_DENSE_SEEDS)
+    with captured(compact_ops, 'stitch_survivors') as calls:
+        for k_max in STITCH_K_MAXES + (m,):
+            pipeline.compact_survivors(body, m, k_max, n_basins)
+        sharding.simulate_batch_sharded(
+            sharding.local_mesh([pack_y.device] * MESH_SHARDS), rng.key(61),
+            pack_y, cfg_t, BASIN, N_SEEDS, MESH_K_MAX, plane0)
+        pipeline.compact_survivors(pipeline.launch_body(
+            key, pack_y, cfg_d, BASIN, STITCH_DENSE_SEEDS, plane0), m_d, m_d,
+            n_basins)
+    torch.cuda.synchronize()
+    labels = [f'bench k_max {k}' for k in STITCH_K_MAXES + (m,)] + [
+        f'mesh k_max {MESH_K_MAX}',
+        f'{STITCH_DENSE_SEEDS} seeds k_max = m {m_d}']
+    return [(label, args) for label, (args, *_) in zip(labels, calls)]
+
+
+def stitch_times(runs, dev):
+    """K4's survivor stitch on runs (stitch_runs) at W = 4, and on the
+    first (k_max 64) with each segment's winds widened to each of
+    STITCH_WIDTHS as seeded random floats (the same segments, order and
+    maps; the stitch only copies the winds): each bit for bit against its
+    twin, its device time after a clean L2 flush (clean) and after a
+    write flush (cold), TIME_ROUNDS rounds each (median and range), and
+    warm, its bound (stitch_bound) and the share of it in each, and the
+    bound at sector granularity (stitch_sectors)."""
+    from tropical_cyclone_risk_tpu_torch.kernels import compact as k4
+    from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
+    g = torch.Generator(device=dev).manual_seed(18)
+    order, tms, segs, keep, rank = runs[0][1]
+    runs = runs + [(f'bench k_max 64 W {W}', lambda W=W: (
+        order, tuple(dict(tm, wnds=torch.randn(
+            tuple(tm['wnds'].shape[:2]) + (W,), generator=g, device=dev))
+            for tm in tms), segs, keep, rank)) for W in STITCH_WIDTHS]
+    rows = []
+    for label, args in runs:
+        args = args() if callable(args) else args
+        launch, out = k4.launcher('stitch', *args)
+        launch()
+        ref = uncounted(compact_ops.stitch_survivors_plain, *args)
+        b_ms, b_by = stitch_bound(args, out)
+        row = {'run': label, 'shape': list(out[0]['wnds'].shape),
+               'segments': len(args[1]), 'exact': not same_parts(out, ref),
+               'bound_ms': b_ms, 'bound_by': b_by,
+               'sector_bound_ms': stitch_sectors(args, out)}
+        del ref
+        for name, flush in (('clean', clean), ('cold', cold)):
+            ts = sorted(device_ms(flush(launch), K4_REPS, ('stitch_kernel',))
+                        for _ in range(TIME_ROUNDS))
+            row[name + '_ms'], row[name + '_range'] = ts[len(ts) // 2], [
+                ts[0], ts[-1]]
+        row['warm_ms'] = device_ms(launch, K4_REPS, ('stitch_kernel',))
+        for name in ('clean', 'cold', 'warm'):
+            row[name + '_share'] = b_ms / row[name + '_ms']
+        log(f'[kernel-times] stitch {row}')
+        rows.append(row)
+        del args, launch, out
+    return rows
+
+
 def kernel_times(root):
     """--kernel-times ROOT: with the port imported from the tree at ROOT,
     K1 and K2 on every segment and K4 on every partition of one full-width
@@ -4749,6 +4947,10 @@ def kernel_times(root):
     preparation and the launch); K3 through models.seeding.propose_seeds
     at N_SEEDS slots with the auto-tuned caps, none and the overflow caps
     (k3_times: device, event and host time, device operations per call);
+    K4's partitions also after a clean L2 flush (clean), and its stitch
+    at the bench launch's k_max 64, 4096 and m, on the mesh launch, at
+    k_max = m on a launch of the default seed_batch (stitch_runs) and at
+    wider winds (stitch_times);
     K6 through ops.pi.cape_pi on the 12 x 181 x 360 columns and 28
     levels that gen_thermo gives it on the one-year workspace of
     utils/synthetic_era5 (written once into build/ and reused), and K6's
@@ -4796,9 +4998,11 @@ def kernel_times(root):
     k6 = k6_times(dev)
     k6['sass'] = {fn: {'instructions': n_ins, 'loops': loops}
                   for fn, (n_ins, loops) in sass_counts(k6_lib).items()}
+    m = pipeline.launch_width(cfg_t, N_SEEDS)
     with captured(diagnostics, 'axi_to_max_wind_raw') as k2_calls:
-        segs, parts, _, _, draws = launch_calls(rng.key(99), pack_y, cfg_t,
-                                                plane0)
+        segs, parts, _, n_launch, draws = launch_calls(
+            rng.key(99), pack_y, cfg_t, plane0)
+    stitches = stitch_runs(rng.key(99), pack_y, cfg_t, plane0, m)
     modes = {name: mode_calls(rng.key(97), pack_y, cfg_t.replace(**kw),
                               plane0)[0][0]
              for name, kw in MODES.items()}
@@ -4825,12 +5029,18 @@ def kernel_times(root):
     for args, kw, *_ in parts:
         largs = ('partition', *args, kw.get('acc'), kw.get('slot_rank', False),
                  kw.get('a_prev'), kw.get('inv_len'))
+        call = lambda: compact_ops.partition_take(*args, **kw)
+        names = ('count_kernel', 'partition_kernel', 'gather_kernel')
         k4_rows.append({
             'n': args[0].shape[0], 'w': args[1],
-            **timed(lambda: compact_ops.partition_take(*args, **kw), K4_REPS,
-                    ('count_kernel', 'partition_kernel', 'gather_kernel')),
+            **timed(call, K4_REPS, names),
+            'clean_device_ms': statistics.median(
+                device_ms(clean(call), K4_REPS, names)
+                for _ in range(TIME_ROUNDS)),
             'prep_host_ms': host_ms(lambda: k4.launcher(*largs), K4_REPS),
             'launch_host_ms': host_ms(k4.launcher(*largs)[0], K4_REPS)})
+    k4_stitch = stitch_times(stitches, dev)
+    del stitches
     (d_args, d_kw, d_out, _), = draws
     k5 = {'shape': list(d_out.A.shape),
           **timed(lambda: fourier.draw_fourier(*d_args, **d_kw), 20,
@@ -4861,7 +5071,8 @@ def kernel_times(root):
             3, f'{tmp}/launches.json')
     res = {'kernel_times': root, 'card': card_line(),
            'k1_default_instance': k1_frame(k1_info)[0], 'k1': k1, 'k2': k2,
-           'k3': k3, 'k4': k4_rows, 'k5': k5, 'k6': k6,
+           'k3': k3, 'k4': k4_rows, 'k4_stitch': k4_stitch, 'k5': k5,
+           'k6': k6,
            'k1_modes_segment0_device_ms': k1_modes,
            'launch_ms': launch_ms[1:], 'launch_peak_mib': peak_mib,
            'launch_ms_median': statistics.median(launch_ms[1:]),
@@ -4873,6 +5084,7 @@ def kernel_times(root):
             if key.endswith('_ms'):
                 res[f'{name}_{key}'] = sum(r[key] for r in rows)
     print(json.dumps(res))
+    return 0 if all(r['exact'] for r in k4_stitch) else 1
 
 
 # the level counts and K7 block shapes at which gate_times times the

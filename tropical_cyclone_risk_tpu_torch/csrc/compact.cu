@@ -28,13 +28,22 @@
 //                    pointers and row size (kernels/compact.py gather_plan);
 //                    a thread reads order[row] and copies one word of that
 //                    source row to the next word of the dense output;
-//   stitch_kernel    one thread per (survivor, output step): the segment
-//                    holding the step, the survivor's column there (its own
-//                    slot, or the segment's inverse map), the six track
-//                    fields NaN-masked where not alive, time second (the
-//                    W = 2 x steering levels winds as one 16-byte word at
-//                    W = 4, else as 8-byte pairs); and the survivor mask
-//                    put back on the slot axis.
+//   stitch_kernel    the survivor stitch: one block per tile of kStitchSurv
+//                    survivors x TS steps lying in one segment (TS a power
+//                    of two up to kStitchSteps; kernels/compact.py
+//                    stitch_plan), step tiles fastest, then the survivor
+//                    mask put back on the slot axis in blocks of its own.
+//                    A block finds its segment from blockIdx alone (the
+//                    count of segments whose first tile, in one table, is
+//                    at or before its own), loads its survivors' column
+//                    (the slot itself, or the segment's inverse map) and
+//                    selected flag once into shared memory, reads the five
+//                    track fields and alive with lanes over survivors at
+//                    one step and writes them NaN-masked with lanes over
+//                    the steps of one survivor's output row, through
+//                    shared memory; the W = 2 x steering levels winds are
+//                    copied without a turn, the tile's 16- or 8-byte words
+//                    spread over lanes by (survivor, step, word).
 //
 // What bounds it on this card: bytes.  Each input (mask, rows, time-major
 // buffers) is read once and each output written once; the arithmetic is a
@@ -52,6 +61,32 @@
 // each) apart from the copy's grid.  Nothing synchronises with the host:
 // the overflow stays on the device, as the twin's does.  Everything is
 // integer or a copy, so the results equal the twin's bit for bit.
+//
+// The stitch is a column gather out of time-major [T_s, w_s] buffers into
+// survivor-major [k, T] rows, and the card moves 32-byte sectors: a
+// 4-byte value read alone costs a sector.  Survivors come in ascending
+// slot order and keep it in every later segment (the compactions are
+// stable), so where they are dense (late, narrow segments; k_max = m)
+// neighbouring survivors share sectors.  The tiled form reads with lanes over survivors, so such
+// neighbours share each sector of a warp's load, and turns the tile in
+// shared memory (an XOR swizzle by step keeps both the survivor-fastest
+// writes and the step-fastest reads free of bank conflicts at every TS)
+// so that the [k, T] writes are runs along a row.  The winds need no turn:
+// a sample's W floats are contiguous in both layouts, so lanes run over
+// (step, word) of one survivor and both sides are runs.  Each thread
+// issues its loads before its stores, the first round of wind loads
+// before the tile's barrier; alive && selected is formed once per
+// (survivor, step) and kept in shared memory for the winds.  The plan
+// keeps the bench's [64, 361] at 132 blocks or more (TS shrinks while
+// fewer tiles than SMs: a latency of three dependent loads, order, map,
+// data), and a tile's winds within four rounds of kWindBytes a thread (TS
+// shrinks as W grows); the staging is static, 24960 bytes at every W.
+// Step tiles run fastest so that a survivor tile's rows are written by
+// neighbouring blocks: with survivor tiles fastest, or with a block
+// walking several tiles, the rows in flight spread over more of the
+// output and the dense stitches ran slower on the H100.  What a dense
+// stitch (k_max = m) still pays is its writes in 128-byte row pieces that
+// start at any 4-byte offset (T is odd), not whole aligned lines.
 //
 // Each C entry returns cudaGetLastError() after its launches; the wrapper
 // (kernels/compact.py) raises if it is not cudaSuccess.
@@ -72,6 +107,18 @@ constexpr int kUnroll = 4;                 // words per gather thread
 constexpr int kMaxSegs = 16;
 constexpr int kFields = 5;                 // lon, lat, v, m, vmax
 constexpr unsigned kFull = 0xffffffffu;
+// the stitch: survivors a tile (a warp's lanes), most steps a tile, threads
+// a block, (survivor, step) cells a thread, wind bytes a thread loads per
+// round and keep_full slots a thread of the tail (kernels/compact.py
+// stitch_plan reads these)
+constexpr int kLogSurv = 5;
+constexpr int kStitchSurv = 1 << kLogSurv;
+constexpr int kStitchSteps = 32;
+constexpr int kStitchThreads = 256;
+constexpr int kTileCells = kStitchSurv * kStitchSteps;
+constexpr int kCellRounds = kTileCells / kStitchThreads;
+constexpr int kWindBytes = 64;
+constexpr int kKeepPer = 4;
 
 // one row tensor of the gather pass, planned by kernels/compact.py
 struct GatherRow {
@@ -104,22 +151,28 @@ struct PartParams {
   uint8_t* sel;             // may be null
 };
 
+// one segment of the stitch
 struct Seg {
   const float* f[kFields];
   const float* wnds;
   const uint8_t* alive;
   const int64_t* inv;       // null for segment 0
   const uint8_t* sel;       // null for segment 0
-  int64_t edge, width;
+  int64_t width;
+  int edge, steps;
 };
 
 struct StitchParams {
+  int first_tile[kMaxSegs]; // each segment's first step tile, back to back
   const int64_t* order;
   int64_t k, T, n;
   int n_segs;
+  int W;                    // winds per sample
+  int log_ts;               // log2 of a tile's steps
+  int step_tiles;           // over every segment
+  int tile_blocks;          // tiles of kStitchSurv survivors x step_tiles
   float* out[kFields];
   float* out_wnds;
-  int W;                    // winds per sample
   const int64_t* rank;      // may be null
   const uint8_t* keep;
   uint8_t* keep_full;
@@ -277,46 +330,173 @@ gather_kernel(const __grid_constant__ GatherParams p) {
   }
 }
 
-// kVec4: four winds per sample (one 16-byte word), else p.W as 8-byte pairs
-template <bool kVec4>
-__global__ void __launch_bounds__(kThreads)
+template <typename Word>
+__device__ __forceinline__ Word nan_word();
+template <>
+__device__ __forceinline__ uint4 nan_word<uint4>() {
+  return make_uint4(0x7fc00000u, 0x7fc00000u, 0x7fc00000u, 0x7fc00000u);
+}
+template <>
+__device__ __forceinline__ uint2 nan_word<uint2>() {
+  return make_uint2(0x7fc00000u, 0x7fc00000u);
+}
+
+// Word: the winds' 16- or 8-byte word
+template <typename Word>
+__global__ void __launch_bounds__(kStitchThreads)
 stitch_kernel(const __grid_constant__ StitchParams p) {
-  const int64_t g = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const int64_t kT = p.k * p.T;
-  if (g >= kT) {
-    const int64_t q = g - kT;                 // keep back on the slot axis
-    if (q < p.n) {
-      const int64_t r = p.rank[q];
-      p.keep_full[q] = r >= 0 ? p.keep[r] : 0;
+  __shared__ float s_val[kFields][kTileCells];
+  __shared__ int s_live[kTileCells];
+  __shared__ int64_t s_col[kStitchSurv];
+  __shared__ int s_on[kStitchSurv];
+  const int b = (int)blockIdx.x, tid = (int)threadIdx.x;
+  if (b >= p.tile_blocks) {                 // keep back on the slot axis
+    const int64_t q0 = (int64_t)(b - p.tile_blocks) *
+                           (kStitchThreads * kKeepPer) + tid;
+    int64_t r[kKeepPer];
+    uint8_t v[kKeepPer];
+#pragma unroll
+    for (int u = 0; u < kKeepPer; ++u) {
+      const int64_t q = q0 + u * kStitchThreads;
+      r[u] = q < p.n ? p.rank[q] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kKeepPer; ++u) v[u] = r[u] >= 0 ? p.keep[r[u]] : 0;
+#pragma unroll
+    for (int u = 0; u < kKeepPer; ++u) {
+      const int64_t q = q0 + u * kStitchThreads;
+      if (q < p.n) p.keep_full[q] = v[u];
     }
     return;
   }
-  const int64_t j = g / p.T, t = g - j * p.T;
-  int s = p.n_segs - 1;
-  while (s > 0 && t < p.segs[s].edge) --s;
-  const Seg& sg = p.segs[s];
-  const int64_t slot = p.order[j];
-  int64_t col = slot;
-  bool alive = true;
-  if (s > 0) {
-    col = sg.inv[slot];
-    alive = sg.sel[slot] != 0;
+
+  // the block's tile, step tiles fastest (a survivor tile's rows are
+  // written by neighbouring blocks); its segment is the number of later
+  // segments whose first tile is at or before it (uniform)
+  const int sv = b / p.step_tiles, st = b - sv * p.step_tiles;
+  int s = 0;
+#pragma unroll
+  for (int i = 1; i < kMaxSegs; ++i)
+    s += i < p.n_segs && p.first_tile[i] <= st;
+  const Seg& g = p.segs[s];
+  const int lts = p.log_ts, ts = 1 << lts;
+  const int swz = kLogSurv - lts;           // cell (tt, i) at tt * 32 + (i ^ tt << swz)
+  const int tt0 = (st - p.first_tile[s]) << lts;       // in the segment
+  const int n_steps = min(ts, g.steps - tt0);
+  const int64_t j0 = (int64_t)sv * kStitchSurv;
+  const int n_surv = p.k - j0 < kStitchSurv ? (int)(p.k - j0) : kStitchSurv;
+  const int64_t t_out = (int64_t)g.edge + tt0;         // on the output's T
+
+  // the tile's survivors: column and selected flag in this segment
+  if (tid < kStitchSurv) {
+    int64_t col = 0;
+    int on = 0;
+    if (tid < n_surv) {
+      const int64_t slot = p.order[j0 + tid];
+      col = slot;
+      on = 1;
+      if (g.inv != nullptr) {
+        col = g.inv[slot];
+        on = g.sel[slot] != 0;
+      }
+    }
+    s_col[tid] = col;
+    s_on[tid] = on;
   }
-  const int64_t o = (t - sg.edge) * sg.width + col;
-  alive = alive && sg.alive[o] != 0;
+  __syncthreads();
+
+  // the winds: word e of the tile is (survivor i, step tt, word c), c
+  // fastest; a thread's round is kU words kStitchThreads apart
+  constexpr int kU = kWindBytes / (int)sizeof(Word);
+  const int wv = p.W * 4 / (int)sizeof(Word);
+  const int n_words = (kStitchSurv << lts) * wv;
+  const Word* __restrict__ src = reinterpret_cast<const Word*>(g.wnds);
+  Word* __restrict__ dst = reinterpret_cast<Word*>(p.out_wnds);
+  Word w[kU];
+  int at[kU];                               // c << 10 | i << 5 | tt, or -1
+  // loads of the round from e0 where the survivor is selected (live: and
+  // the sample alive)
+  auto load_round = [&](int e0, bool live) {
+    int q = e0 / wv, c = e0 - q * wv;
+    const int dq = kStitchThreads / wv, dc = kStitchThreads - dq * wv;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = q >> lts, tt = q & (ts - 1);
+      const bool in = e0 + u * kStitchThreads < n_words && i < n_surv &&
+                      tt < n_steps;
+      at[u] = in ? (c << 10 | i << 5 | tt) : -1;
+      if (in && (live ? s_live[tt * kStitchSurv + (i ^ tt << swz)] != 0
+                      : s_on[i] != 0))
+        w[u] = __ldg(src + ((int64_t)(tt0 + tt) * g.width + s_col[i]) * wv + c);
+      q += dq;
+      c += dc;
+      if (c >= wv) {
+        c -= wv;
+        ++q;
+      }
+    }
+  };
+  auto store_round = [&]() {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (at[u] < 0) continue;
+      const int i = at[u] >> 5 & (kStitchSurv - 1), tt = at[u] & 31,
+                c = at[u] >> 10;
+      const bool live = s_live[tt * kStitchSurv + (i ^ tt << swz)] != 0;
+      dst[((j0 + i) * p.T + t_out + tt) * wv + c] =
+          live ? w[u] : nan_word<Word>();
+    }
+  };
+
+  // read: lanes over survivors at one step, every load before a store
+  const int cells = n_steps << kLogSurv;
+  float v[kCellRounds][kFields];
+  uint8_t a[kCellRounds];
+#pragma unroll
+  for (int r = 0; r < kCellRounds; ++r) {
+    const int c = tid + r * kStitchThreads;
+    const int tt = c >> kLogSurv, i = c & (kStitchSurv - 1);
+    a[r] = 0;
+    if (c < cells && s_on[i] != 0) {
+      const int64_t o = (int64_t)(tt0 + tt) * g.width + s_col[i];
+      a[r] = __ldg(g.alive + o);
+#pragma unroll
+      for (int f = 0; f < kFields; ++f) v[r][f] = __ldg(g.f[f] + o);
+    }
+  }
+  load_round(tid, false);
   const float nan = __int_as_float(0x7fc00000);
 #pragma unroll
-  for (int f = 0; f < kFields; ++f) p.out[f][g] = alive ? sg.f[f][o] : nan;
-  if constexpr (kVec4) {
-    const float4 w = __ldg(reinterpret_cast<const float4*>(sg.wnds) + o);
-    reinterpret_cast<float4*>(p.out_wnds)[g] =
-        alive ? w : make_float4(nan, nan, nan, nan);
-  } else {
-    const int pairs = p.W / 2;
-    const float2* src = reinterpret_cast<const float2*>(sg.wnds) + o * pairs;
-    float2* dst = reinterpret_cast<float2*>(p.out_wnds) + g * pairs;
-    for (int c = 0; c < pairs; ++c)
-      dst[c] = alive ? __ldg(src + c) : make_float2(nan, nan);
+  for (int r = 0; r < kCellRounds; ++r) {
+    const int c = tid + r * kStitchThreads;
+    const int tt = c >> kLogSurv, i = c & (kStitchSurv - 1);
+    if (c < cells) {
+      const int cell = tt * kStitchSurv + (i ^ tt << swz);
+      const bool live = a[r] != 0;
+      s_live[cell] = live;
+#pragma unroll
+      for (int f = 0; f < kFields; ++f) s_val[f][cell] = live ? v[r][f] : nan;
+    }
+  }
+  __syncthreads();
+
+  // write: lanes over the steps of one survivor's row
+#pragma unroll
+  for (int r = 0; r < kCellRounds; ++r) {
+    const int c = tid + r * kStitchThreads;
+    const int i = c >> lts, tt = c & (ts - 1);
+    if (c < (kStitchSurv << lts) && i < n_surv && tt < n_steps) {
+      const int cell = tt * kStitchSurv + (i ^ tt << swz);
+      const int64_t o = (j0 + i) * p.T + t_out + tt;
+#pragma unroll
+      for (int f = 0; f < kFields; ++f) p.out[f][o] = s_val[f][cell];
+    }
+  }
+  store_round();
+  for (int e0 = tid + kU * kStitchThreads; e0 < n_words;
+       e0 += kU * kStitchThreads) {
+    load_round(e0, true);
+    store_round();
   }
 }
 
@@ -374,9 +554,11 @@ extern "C" int tc_k4_partition(const int64_t* ip, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// ip: k, T, n, n_segs, W, order, out (lon, lat, v, m, vmax), out_wnds,
-// rank, keep, keep_full, then per segment: edge, width, the five fields,
-// wnds, alive, inv, sel
+// ip: k, T, n, n_segs, W, wind word bytes, log2 of a tile's steps, step
+// tiles, tile blocks, keep blocks, order, out (lon, lat, v, m, vmax),
+// out_wnds, rank, keep, keep_full, then per segment: edge, steps, width,
+// first tile, the five fields, wnds, alive, inv, sel (the tiles and blocks
+// of kernels/compact.py stitch_plan, from _stitch)
 extern "C" int tc_k4_stitch(const int64_t* ip, void* stream) {
   StitchParams p;
   int q = 0;
@@ -385,7 +567,12 @@ extern "C" int tc_k4_stitch(const int64_t* ip, void* stream) {
   p.n = ip[q++];
   p.n_segs = (int)ip[q++];
   p.W = (int)ip[q++];
-  if (p.n_segs < 1 || p.n_segs > kMaxSegs || p.W < 2 || p.W % 2 != 0)
+  const int64_t word = ip[q++];
+  p.log_ts = (int)ip[q++];
+  p.step_tiles = (int)ip[q++];
+  p.tile_blocks = (int)ip[q++];
+  const int64_t keep_blocks = ip[q++];
+  if (p.n_segs < 1 || p.n_segs > kMaxSegs || (word != 8 && word != 16))
     return (int)cudaErrorInvalidValue;
   p.order = reinterpret_cast<const int64_t*>(ip[q++]);
   for (int f = 0; f < kFields; ++f) p.out[f] = reinterpret_cast<float*>(ip[q++]);
@@ -393,20 +580,22 @@ extern "C" int tc_k4_stitch(const int64_t* ip, void* stream) {
   p.rank = reinterpret_cast<const int64_t*>(ip[q++]);
   p.keep = reinterpret_cast<const uint8_t*>(ip[q++]);
   p.keep_full = reinterpret_cast<uint8_t*>(ip[q++]);
+  for (int i = 0; i < kMaxSegs; ++i) p.first_tile[i] = 0;
   for (int i = 0; i < p.n_segs; ++i) {
     Seg& sg = p.segs[i];
-    sg.edge = ip[q++];
+    sg.edge = (int)ip[q++];
+    sg.steps = (int)ip[q++];
     sg.width = ip[q++];
+    p.first_tile[i] = (int)ip[q++];
     for (int f = 0; f < kFields; ++f) sg.f[f] = reinterpret_cast<const float*>(ip[q++]);
     sg.wnds = reinterpret_cast<const float*>(ip[q++]);
     sg.alive = reinterpret_cast<const uint8_t*>(ip[q++]);
     sg.inv = reinterpret_cast<const int64_t*>(ip[q++]);
     sg.sel = reinterpret_cast<const uint8_t*>(ip[q++]);
   }
-  const int64_t threads = p.k * p.T + (p.rank != nullptr ? p.n : 0);
-  if (threads == 0) return (int)cudaSuccess;
-  const int64_t blocks = (threads + kThreads - 1) / kThreads;
-  auto kern = p.W == 4 ? stitch_kernel<true> : stitch_kernel<false>;
-  kern<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(p);
+  if (p.tile_blocks + keep_blocks == 0) return (int)cudaSuccess;
+  auto kern = word == 16 ? stitch_kernel<uint4> : stitch_kernel<uint2>;
+  kern<<<(unsigned)(p.tile_blocks + keep_blocks), kStitchThreads, 0,
+         (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,6 +29,24 @@ MAX_SEGS = 16            # csrc/compact.cu kMaxSegs
 # csrc/compact.cu kGatherThreads * kUnroll: words per gather block
 GATHER_BLOCK_WORDS = 256 * 4
 WORD_BYTES = (16, 8, 4, 2, 1)
+# the stitch (csrc/compact.cu): survivors a tile (kStitchSurv), most steps
+# a tile (kStitchSteps), threads a block (kStitchThreads), wind bytes a
+# thread loads per round (kWindBytes), keep_full slots a tail block
+# (kStitchThreads * kKeepPer)
+STITCH_SURV = 32
+STITCH_STEPS = 32
+STITCH_THREADS = 256
+STITCH_WIND_BYTES = 64
+KEEP_BLOCK = STITCH_THREADS * 4
+# its static shared memory: five staged fields and the live flags (4
+# bytes a cell), each survivor's column (8) and selected flag (4)
+STITCH_SHARED_BYTES = (6 * 4 * STITCH_STEPS + 12) * STITCH_SURV
+# a tile's winds: at most four rounds of every thread's STITCH_WIND_BYTES
+STITCH_TILE_WIND_BYTES = 4 * STITCH_THREADS * STITCH_WIND_BYTES
+# tiles the plan keeps the grid at where it can (the H100's SMs), and the
+# fewest steps a tile it shrinks to for that
+STITCH_MIN_BLOCKS = 132
+STITCH_MIN_STEPS = 4
 
 
 def build() -> dict:
@@ -104,6 +123,52 @@ def gather_plan(rows, k: int):
         plan.append((word, wpr, words, first))
         first += -(-words // GATHER_BLOCK_WORDS)
     return plan, first
+
+
+class StitchPlan(NamedTuple):
+    """The stitch's grid (stitch_plan): a block per tile of STITCH_SURV
+    survivors x ``steps`` steps, each inside one segment, the blocks by
+    survivor tile, step tiles fastest."""
+    steps: int                  # TS, a power of two
+    log_steps: int
+    first_tiles: tuple          # each segment's first step tile
+    step_tiles: int             # over every segment
+    surv_tiles: int
+    tile_blocks: int            # surv_tiles * step_tiles
+
+
+def stitch_plan(seg_steps, k: int, W: int) -> StitchPlan:
+    """The survivor stitch's tiles for segments of ``seg_steps`` steps, k
+    survivors and W winds a sample: TS from STITCH_STEPS halved while a
+    tile's winds pass STITCH_TILE_WIND_BYTES (W grows), then while the
+    grid has fewer than STITCH_MIN_BLOCKS tiles (k is small), down to
+    STITCH_MIN_STEPS; each segment's step tiles numbered on from the ones
+    before it (as vmax.last_plan numbers K2's segments)."""
+    ts = STITCH_STEPS
+    while ts > 1 and STITCH_SURV * ts * W * 4 > STITCH_TILE_WIND_BYTES:
+        ts //= 2
+    surv = -(-k // STITCH_SURV)
+    tiles = lambda ts: sum(-(-int(s) // ts) for s in seg_steps)
+    while ts > STITCH_MIN_STEPS and surv * tiles(ts) < STITCH_MIN_BLOCKS:
+        ts //= 2
+    first, total = [], 0
+    for s in seg_steps:
+        first.append(total)
+        total += -(-int(s) // ts)
+    return StitchPlan(ts, ts.bit_length() - 1, tuple(first), total, surv,
+                      surv * total)
+
+
+def wind_word(W: int, ptrs) -> int:
+    """The stitch's wind word: 16 bytes where a sample's W floats and every
+    wind pointer (the segments' and the output's) are 16-byte aligned,
+    else 8 (the lowest set bit, capped, as gather_plan finds its words)."""
+    align = functools.reduce(lambda a, b: a | b, ptrs, W * 4 | 16)
+    word = align & -align
+    if word < 8:
+        raise ValueError(f'winds: {W} a sample or a pointer not aligned for '
+                         f'the stitch\'s 8-byte words')
+    return word
 
 
 def launcher(kind: str, *args):
@@ -190,31 +255,38 @@ def _stitch(dev, order, tms, segs, keep, slot_rank):
     out = {f: torch.empty((k, T), **f32) for f in scalar}
     out[wnd] = torch.empty((k, T, W), **f32)
     keep_full = keep
+    n = 0
     if slot_rank is not None:
         n = slot_rank.shape[0]
         _need('slot_rank', slot_rank, dev, torch.int64, (n,))
         keep_full = torch.empty((n,), dtype=torch.bool, device=dev)
-    ip = [k, T, 0 if slot_rank is None else slot_rank.shape[0], len(tms), W,
+    steps = [tm[scalar[0]].shape[0] for tm in tms]
+    plan = stitch_plan(steps, k, W)
+    word = wind_word(W, [tm[wnd].data_ptr() for tm in tms]
+                     + [out[wnd].data_ptr()])
+    keep_blocks = -(-n // KEEP_BLOCK)
+    if plan.tile_blocks + keep_blocks >= 1 << 31:
+        raise ValueError(f'{plan.tile_blocks} + {keep_blocks} stitch blocks '
+                         f'>= 2**31')
+    ip = [k, T, n, len(tms), W, word, plan.log_steps, plan.step_tiles,
+          plan.tile_blocks, keep_blocks,
           order.data_ptr(), *(out[f].data_ptr() for f in FIELDS),
           _ptr(slot_rank), keep.data_ptr(),
           0 if slot_rank is None else keep_full.data_ptr()]
     edge = 0
-    for i, tm in enumerate(tms):
+    for i, (tm, first) in enumerate(zip(tms, plan.first_tiles)):
         T_s, w_s = tm[scalar[0]].shape
         for f in scalar:
             _need(f'segment {i} {f}', tm[f], dev, torch.float32, (T_s, w_s))
         _need(f'segment {i} {wnd}', tm[wnd], dev, torch.float32,
               (T_s, w_s, W))
         _need(f'segment {i} alive', tm['alive'], dev, torch.bool, (T_s, w_s))
-        if tm[wnd].data_ptr() % (16 if W == 4 else 8):
-            raise ValueError(f'segment {i} {wnd}: not aligned for its '
-                             f'{16 if W == 4 else 8}-byte loads')
         inv = sel = None
         if i > 0:
             inv, sel = segs[i - 1]['inv'], segs[i - 1]['selected']
             _need(f'segment {i} inv', inv, dev, torch.int64, (m,))
             _need(f'segment {i} selected', sel, dev, torch.bool, (m,))
-        ip += [edge, w_s, *(tm[f].data_ptr() for f in scalar),
+        ip += [edge, T_s, w_s, first, *(tm[f].data_ptr() for f in scalar),
                tm[wnd].data_ptr(), tm['alive'].data_ptr(), _ptr(inv),
                _ptr(sel)]
         edge += T_s
