@@ -88,7 +88,9 @@ def main(argv=None) -> int:
     ap.add_argument('--seed', type=int, default=None,
                     help='seed for a reproducible run (default: the clock)')
     ap.add_argument('--trace-dir', default=None,
-                    help='write a torch.profiler trace of the simulation')
+                    help='write a torch.profiler trace of the simulation, '
+                         'with the year driver\'s tc.driver.* and the '
+                         'launch\'s tc.launch.* spans (utils/obs.py)')
     ap.add_argument('--device', default='cuda',
                     help="device to run on: 'cuda' (default) or 'cpu'")
     args = ap.parse_args(argv)

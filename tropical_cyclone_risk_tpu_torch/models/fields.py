@@ -20,6 +20,7 @@ from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch.ops.interp import (UniformGrid,
                                                         pack_corners)
 from tropical_cyclone_risk_tpu_torch.utils import basins as basins_mod
+from tropical_cyclone_risk_tpu_torch.utils import obs
 
 # env channel indices
 CHI, VPOT, MLD, STRAT, RH = range(5)
@@ -73,24 +74,25 @@ class GatherStacks(NamedTuple):
 
 def build_stacks(pack: FieldPack) -> GatherStacks:
     """Fused, corner-packed gather stacks (see GatherStacks)."""
-    cell = torch.cat([pack.wind, pack.env], dim=-1)
-    geo_in_cell = (pack.land_grid == pack.grid
-                   and pack.bathy_grid == pack.grid)
-    if geo_in_cell:
-        geo = torch.stack([pack.land, pack.bathy], dim=-1)
-        cell = torch.cat([cell, geo[None].expand((cell.shape[0],) +
-                                                 geo.shape)], dim=-1)
-    if pack.land_grid == pack.bathy_grid:
-        land_geo = torch.stack([pack.land, pack.bathy], dim=-1)
-    else:
-        land_geo = pack.land[..., None]
-    return GatherStacks(grid=pack.grid, cell4=pack_corners(cell),
-                        n_wind_ch=pack.wind.shape[-1],
-                        geo_in_cell=geo_in_cell,
-                        land_grid=pack.land_grid,
-                        land_geo4=pack_corners(land_geo),
-                        bathy_grid=pack.bathy_grid,
-                        bathy4=pack_corners(pack.bathy[..., None]))
+    with obs.span('tc.launch.stacks'):
+        cell = torch.cat([pack.wind, pack.env], dim=-1)
+        geo_in_cell = (pack.land_grid == pack.grid
+                       and pack.bathy_grid == pack.grid)
+        if geo_in_cell:
+            geo = torch.stack([pack.land, pack.bathy], dim=-1)
+            cell = torch.cat([cell, geo[None].expand((cell.shape[0],) +
+                                                     geo.shape)], dim=-1)
+        if pack.land_grid == pack.bathy_grid:
+            land_geo = torch.stack([pack.land, pack.bathy], dim=-1)
+        else:
+            land_geo = pack.land[..., None]
+        return GatherStacks(grid=pack.grid, cell4=pack_corners(cell),
+                            n_wind_ch=pack.wind.shape[-1],
+                            geo_in_cell=geo_in_cell,
+                            land_grid=pack.land_grid,
+                            land_geo4=pack_corners(land_geo),
+                            bathy_grid=pack.bathy_grid,
+                            bathy4=pack_corners(pack.bathy[..., None]))
 
 
 def crop_pack(pack: FieldPack, cfg: Namelist, basin_id: str,

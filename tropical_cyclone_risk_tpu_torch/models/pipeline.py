@@ -278,22 +278,24 @@ def launch_inputs(key: rng.Key, pack: FieldPack, cfg: Namelist,
     are identical to an uncapped launch's."""
     dev = pack.device
     k_seed, k_fourier = rng.split(key)
-    prop = seeding.propose_seeds(k_seed, pack, cfg, basin_id, n,
-                                 plane_offset)
+    with obs.span('tc.launch.propose'):
+        prop = seeding.propose_seeds(k_seed, pack, cfg, basin_id, n,
+                                     plane_offset)
     m = launch_width(cfg, n)
     rows = (prop.plane, prop.h_bl, prop.lon, prop.lat, prop.v_init,
             prop.m_init, prop.integrate, prop.month, prop.basin_idx)
     shape = (n, cfg.n_wind_levels)
-    slot_rank = None
+    slot_rank = order = None
     overflow = torch.zeros((1,), dtype=torch.int64, device=dev)
     if m < n:
-        part = compact_ops.partition_take(prop.integrate, m, rows,
-                                          slot_rank=True)
+        with obs.span('tc.launch.partition'):
+            part = compact_ops.partition_take(prop.integrate, m, rows,
+                                              slot_rank=True)
         rows, overflow, slot_rank = part.rows, part.overflow, part.slot_rank
+        order = part.order
+    with obs.span('tc.launch.draw'):
         fs = fourier.draw_fourier(k_fourier, shape, cfg.T_fourier_s, dev,
-                                  rows=part.order)
-    else:
-        fs = fourier.draw_fourier(k_fourier, shape, cfg.T_fourier_s, dev)
+                                  rows=order)
     plane, h_bl, lon, lat, v, m_init, integrate, month, basin_idx = rows
     params = fast.SeedParams(plane=plane, h_bl=h_bl, fourier=fs)
     state = fast.State(lon, lat, v, m_init)
@@ -301,7 +303,9 @@ def launch_inputs(key: rng.Key, pack: FieldPack, cfg: Namelist,
         state = state._replace(m=fast.init_m_dvdt0(
             pack, cfg, state.lon, state.lat, state.v, params))
     stacks = fields_mod.build_stacks(pack)
-    alive0 = simulator.genesis_alive(stacks, cfg, state, params, integrate)
+    with obs.span('tc.launch.gate'):
+        alive0 = simulator.genesis_alive(stacks, cfg, state, params,
+                                         integrate)
     return LaunchInputs(prop, slot_rank, overflow, stacks, state, params,
                         alive0, month, basin_idx)
 
@@ -357,34 +361,37 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
                                      torch.full((m,), -math.inf, **f32))
         peak_acc = dstate.peak
     for k, w in enumerate(widths):
-        if k > 0:
-            fs = params_k.fourier
-            part = compact_ops.partition_take(
-                alive_k, w, (params_k.plane, params_k.h_bl, fs.A, fs.B,
-                             *state_k, alive_k, *(dstate or ())),
-                acc=over2, a_prev=a_idx, inv_len=m)
-            plane, h_bl, A, B, lon, lat, v, m_k, alive_k = part.rows[:9]
-            params_k = fast.SeedParams(plane, h_bl, fs._replace(A=A, B=B))
-            state_k = fast.State(lon, lat, v, m_k)
+        # one span a segment: its boundary partition and its integration
+        with obs.span('tc.launch.segment'):
+            if k > 0:
+                fs = params_k.fourier
+                part = compact_ops.partition_take(
+                    alive_k, w, (params_k.plane, params_k.h_bl, fs.A, fs.B,
+                                 *state_k, alive_k, *(dstate or ())),
+                    acc=over2, a_prev=a_idx, inv_len=m)
+                plane, h_bl, A, B, lon, lat, v, m_k, alive_k = part.rows[:9]
+                params_k = fast.SeedParams(plane, h_bl, fs._replace(A=A, B=B))
+                state_k = fast.State(lon, lat, v, m_k)
+                if dstate is not None:
+                    dstate = simulator.DiagState(*part.rows[9:])
+                over2, a_idx = part.overflow, part.a_idx
+                orders.append(part.order)
+                a_idxs.append(a_idx)
+                segs.append({'inv': part.inv, 'selected': part.selected})
+            outs_k, carry = simulator.integrate_segment(
+                stacks, cfg, bounds, state_k, alive_k, params_k, edges[k],
+                edges[k + 1] - edges[k], dstate,
+                edges[-1] - 1 if k + 1 == len(widths) else -1)
+            raws.append(dict(zip(('lon', 'lat', 'v', 'm', 'wnds', 'alive',
+                                  'vmax'), outs_k)))
+            state_k, alive_k = carry[:2]
             if dstate is not None:
-                dstate = simulator.DiagState(*part.rows[9:])
-            over2, a_idx = part.overflow, part.a_idx
-            orders.append(part.order)
-            a_idxs.append(a_idx)
-            segs.append({'inv': part.inv, 'selected': part.selected})
-        outs_k, carry = simulator.integrate_segment(
-            stacks, cfg, bounds, state_k, alive_k, params_k, edges[k],
-            edges[k + 1] - edges[k], dstate,
-            edges[-1] - 1 if k + 1 == len(widths) else -1)
-        raws.append(dict(zip(('lon', 'lat', 'v', 'm', 'wnds', 'alive',
-                              'vmax'), outs_k)))
-        state_k, alive_k = carry[:2]
-        if dstate is not None:
-            # bank the segment's running peak on the m axis: a storm dropped
-            # at the next boundary keeps its lifetime maximum
-            dstate = carry[2]
-            peak_acc = diagnostics.bank_peak(peak_acc, dstate.peak, a_idx)
-        bnd_states.append(state_k)
+                # bank the segment's running peak on the m axis: a storm
+                # dropped at the next boundary keeps its lifetime maximum
+                dstate = carry[2]
+                peak_acc = diagnostics.bank_peak(peak_acc, dstate.peak,
+                                                 a_idx)
+            bnd_states.append(state_k)
 
     # stitched per-slot reductions on the m axis
     last_step = raws[0]['alive'].sum(dim=0)
@@ -403,35 +410,39 @@ def launch_body(key: rng.Key, pack: FieldPack, cfg: Namelist, basin_id: str,
     is_tc = reached & (v_2d >= cfg.seed_v_2d_threshold_ms) \
         & raws[0]['alive'][0]
 
-    if peak_acc is not None:
-        # in-scan: only each track's final valid sample is re-derived
-        # (edge extrapolation) and joins the banked running peaks, over
-        # every segment at once
-        vmaxs, peak = diagnostics.fix_in_scan(raws, edges, a_idxs, orders,
-                                              last_step, peak_acc, dt_out,
-                                              cfg)
-        for r, v in zip(raws, vmaxs):
-            r['vmax'] = v
-    else:
-        # vmax per segment with exact boundary neighbours; tracks that end
-        # in another segment never trigger this segment's end fix-up
-        for k, r in enumerate(raws):
-            if k == 0:
-                ls_k, pos_before = last_step, None
-            else:
-                ls_k = last_step[a_idxs[k - 1]] - edges[k]
-                prev = raws[k - 1]
-                pos_before = torch.stack([prev['lon'][-1][orders[k - 1]],
-                                          prev['lat'][-1][orders[k - 1]]])
-            # the carry at this segment's end is the sample after its last
-            # row
-            pos_after = (torch.stack([bnd_states[k].lon, bnd_states[k].lat])
-                         if k + 1 < len(raws) else None)
-            r['vmax'], peak_k = diagnostics.axi_to_max_wind_raw(
-                r['lon'], r['lat'], dt_out, r['v'], r['wnds'], r['alive'],
-                ls_k, cfg, pos_before=pos_before, pos_after=pos_after)
-            peak = (peak_k if k == 0
-                    else diagnostics.bank_peak(peak, peak_k, a_idxs[k - 1]))
+    with obs.span('tc.launch.vmax'):
+        if peak_acc is not None:
+            # in-scan: only each track's final valid sample is re-derived
+            # (edge extrapolation) and joins the banked running peaks, over
+            # every segment at once
+            vmaxs, peak = diagnostics.fix_in_scan(raws, edges, a_idxs,
+                                                  orders, last_step,
+                                                  peak_acc, dt_out, cfg)
+            for r, v in zip(raws, vmaxs):
+                r['vmax'] = v
+        else:
+            # vmax per segment with exact boundary neighbours; tracks that
+            # end in another segment never trigger this segment's end fix-up
+            for k, r in enumerate(raws):
+                if k == 0:
+                    ls_k, pos_before = last_step, None
+                else:
+                    ls_k = last_step[a_idxs[k - 1]] - edges[k]
+                    prev = raws[k - 1]
+                    o = orders[k - 1]
+                    pos_before = torch.stack([prev['lon'][-1][o],
+                                              prev['lat'][-1][o]])
+                # the carry at this segment's end is the sample after its
+                # last row
+                pos_after = (torch.stack([bnd_states[k].lon,
+                                          bnd_states[k].lat])
+                             if k + 1 < len(raws) else None)
+                r['vmax'], peak_k = diagnostics.axi_to_max_wind_raw(
+                    r['lon'], r['lat'], dt_out, r['v'], r['wnds'],
+                    r['alive'], ls_k, cfg, pos_before=pos_before,
+                    pos_after=pos_after)
+                peak = (peak_k if k == 0 else
+                        diagnostics.bank_peak(peak, peak_k, a_idxs[k - 1]))
     keep = is_tc & (peak >= cfg.seed_vmax_threshold_ms)
 
     slot_rank = li.slot_rank
@@ -527,9 +538,11 @@ def _simulate_batch(key: rng.Key, pack: FieldPack, cfg: Namelist,
     """One launch: propose n seeds, integrate, filter, compact.  Returns
     per-slot metadata plus the first k_max surviving tracks; the
     throughput benchmark unit."""
-    body = launch_body(key, pack, cfg, basin_id, n, plane_offset)
-    return compact_survivors(body, launch_width(cfg, n), k_max,
-                             n_basins=len(cfg.basin_ids_sorted()))
+    with obs.span('tc.launch'):
+        body = launch_body(key, pack, cfg, basin_id, n, plane_offset)
+        with obs.span('tc.launch.compact'):
+            return compact_survivors(body, launch_width(cfg, n), k_max,
+                                     n_basins=len(cfg.basin_ids_sorted()))
 
 
 def _simulate_batches(keys, pack: FieldPack, cfg: Namelist, basin_id: str,
@@ -613,14 +626,17 @@ class Transfer:
             self._event.record(torch.cuda.current_stream(flat.device))
 
     def get(self) -> list:
-        if self._event is not None:
-            self._event.synchronize()
-        buf = self._host.numpy()
-        out, o = [], 0
-        for dtype, shape, n in self._layout:
-            dt = torch.empty((), dtype=dtype).numpy().dtype
-            out.append(np.frombuffer(buf, dt, n, o).reshape(shape).copy())
-            o += n * dt.itemsize
+        # the read is a wait span on every device (none blocks on the CPU)
+        with obs.span('tc.driver.wait'):
+            if self._event is not None:
+                self._event.synchronize()
+        with obs.span('tc.driver.copy'):
+            buf = self._host.numpy()
+            out, o = [], 0
+            for dtype, shape, n in self._layout:
+                dt = torch.empty((), dtype=dtype).numpy().dtype
+                out.append(np.frombuffer(buf, dt, n, o).reshape(shape).copy())
+                o += n * dt.itemsize
         return out
 
 
@@ -677,10 +693,12 @@ def prefetch_year_batch0(key: rng.Key, pack: FieldPack, cfg: Namelist,
     n_tracks = n_tracks or cfg.tracks_per_year
     N = cfg.seed_batch
     cfg_d = quota_cfg(cfg, n_tracks, N, _n_dev(mesh)) or cfg
-    return _issue(*_dispatch_batch(
-        rng.fold_in(key, 0), fields_mod.slice_pack_year(pack, cfg, year_idx),
-        cfg_d, basin_id, N, min(n_tracks, launch_width(cfg_d, N)),
-        cfg.start_month - 1, mesh))
+    with obs.span('tc.driver.dispatch'):
+        return _issue(*_dispatch_batch(
+            rng.fold_in(key, 0),
+            fields_mod.slice_pack_year(pack, cfg, year_idx), cfg_d, basin_id,
+            N, min(n_tracks, launch_width(cfg_d, N)), cfg.start_month - 1,
+            mesh))
 
 
 def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
@@ -714,10 +732,13 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
     plane_off = cfg.start_month - 1
 
     def launch(b_i, c, k):
-        if not pack_y:
-            pack_y.append(fields_mod.slice_pack_year(pack, cfg, year_idx))
-        return _issue(*_dispatch_batch(rng.fold_in(key, b_i), pack_y[0], c,
-                                       basin_id, N, k, plane_off, mesh))
+        with obs.span('tc.driver.dispatch'):
+            if not pack_y:
+                pack_y.append(fields_mod.slice_pack_year(pack, cfg,
+                                                         year_idx))
+            return _issue(*_dispatch_batch(rng.fold_in(key, b_i), pack_y[0],
+                                           c, basin_id, N, k, plane_off,
+                                           mesh))
 
     rows: List[dict] = []
     n_seeds = np.zeros((n_basins, 12))
@@ -727,8 +748,11 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
     for b_i in range(max_batches):
         q_mode = cfg_q is not None
         if b_i == 0 and first_batch is not None:
-            batch = (first_batch if len(first_batch) > 2
-                     else _issue(*first_batch))
+            if len(first_batch) > 2:
+                batch = first_batch
+            else:
+                with obs.span('tc.driver.dispatch'):
+                    batch = _issue(*first_batch)
         else:
             batch = launch(b_i, cfg_q if q_mode else cfg,
                            k_max_q if q_mode else k_max)
@@ -745,8 +769,14 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
                 pass
             else:
                 # prefix miss: relaunch at the tuned width with the same key
-                batch = launch(b_i, cfg, k_max)
-                dec, host = _read(batch)
+                obs.log.warning(
+                    'quota prefix missed (%d of %d tracks provable, batch '
+                    '%d, integrate_width=%s); relaunching at the tuned '
+                    'width', dec[0][4], n_tracks - got, b_i,
+                    cfg_q.integrate_width)
+                with obs.span('tc.driver.prefix_relaunch'):
+                    batch = launch(b_i, cfg, k_max)
+                    dec, host = _read(batch)
                 n_new, n_over1, n_over2, relaunch_drop = dec[0][:4]
                 assert relaunch_drop == n_drop, (
                     'seeding drops must not depend on the integrate width')
@@ -762,8 +792,9 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
             cfg_full = cfg.replace(integrate_cap=1.0, recompact_step=None,
                                    recompact_cap=None,
                                    recompact_schedule=None)
-            batch = launch(b_i, cfg_full, min(n_tracks, N))
-            dec, host = _read(batch)
+            with obs.span('tc.driver.uncapped_relaunch'):
+                batch = launch(b_i, cfg_full, min(n_tracks, N))
+                dec, host = _read(batch)
             n_new = dec[0][0]
             cfg = bump_caps(cfg, n_over1, n_over2, N)
             k_max = min(n_tracks, launch_width(cfg, N))
@@ -786,9 +817,11 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
             # precomputed inside the launch for the full-quota batch
             if j == bk_max - 1:
                 return dec[1]
-            return _count_upto_body(meta['keep'], meta['counted'],
+            upto = _count_upto_body(meta['keep'], meta['counted'],
                                     meta['basin_idx'], meta['month'], j,
-                                    n_basins).cpu().numpy()
+                                    n_basins)
+            with obs.span('tc.driver.wait'):
+                return upto.cpu().numpy()
 
         if take > 0:
             rows.append({k: v[:take] for k, v in host.items()})
@@ -808,10 +841,12 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
             f'({got}/{n_tracks}); environment may not support genesis')
 
     cat = lambda k: np.concatenate([r[k] for r in rows], axis=0)[:n_tracks]
-    return YearTracks(lon=cat('lon'), lat=cat('lat'), v=cat('v'), m=cat('m'),
-                      vmax=cat('vmax'), wnds=cat('wnds'), month=cat('month'),
-                      basin_idx=cat('basin_idx'), n_seeds=n_seeds,
-                      n_dropped=n_dropped, n_proposed=n_proposed)
+    with obs.span('tc.driver.copy'):
+        return YearTracks(lon=cat('lon'), lat=cat('lat'), v=cat('v'),
+                          m=cat('m'), vmax=cat('vmax'), wnds=cat('wnds'),
+                          month=cat('month'), basin_idx=cat('basin_idx'),
+                          n_seeds=n_seeds, n_dropped=n_dropped,
+                          n_proposed=n_proposed)
 
 
 YEAR_FIELDS = ('lon', 'lat', 'v', 'm', 'vmax', 'wnds', 'month', 'basin_idx')
@@ -856,10 +891,11 @@ def run_tracks_years_fused(key: rng.Key, pack: FieldPack, cfg: Namelist,
                 adapt.get('cfg', cfg0) if adapt is not None else cfg0,
                 basin_id, yi + 1, n_tracks=n_tracks, mesh=mesh) \
                 if yi + 1 < len(years) else None
-            results.append(run_tracks_year(
-                rng.fold_in(key, year), pack, cfg, basin_id, yi,
-                n_tracks=n_tracks, first_batch=pending, adapt=adapt,
-                mesh=mesh))
+            with obs.span('tc.driver.fallback'):
+                results.append(run_tracks_year(
+                    rng.fold_in(key, year), pack, cfg, basin_id, yi,
+                    n_tracks=n_tracks, first_batch=pending, adapt=adapt,
+                    mesh=mesh))
             pending = nxt
         return results
     groups = [list(range(i, min(i + k_fuse, len(years))))
@@ -867,23 +903,24 @@ def run_tracks_years_fused(key: rng.Key, pack: FieldPack, cfg: Namelist,
     t0 = time.time()
 
     def dispatch(g):
-        cfg_g = adapt.get('cfg', cfg) if adapt is not None else cfg
-        # the quota-prefix derivation of run_tracks_year: a fallback year
-        # reuses this launch as its batch 0
-        cfg_q = quota_cfg(cfg_g, n_tracks, N, _n_dev(mesh))
-        cfg_d = cfg_q if cfg_q is not None else cfg_g
-        k_max = min(n_tracks, launch_width(cfg_d, N))
-        iv = [fields_mod.year_plane_indices(cfg_g, pack.n_planes, yi)
-              for yi in g]
-        outs = _simulate_years(key, [years[yi] for yi in g],
-                               [x[0] for x in iv], [x[1] for x in iv], pack,
-                               cfg_d, basin_id, N, k_max, mesh)
-        # one host transfer per group, issued right behind its launches:
-        # every year's decisions and rows
-        xfer = Transfer([t for tracks, meta in outs
-                         for t in (meta['scalars'], meta['spm_upto'],
-                                   *(tracks[k] for k in YEAR_FIELDS))])
-        return outs, xfer, cfg_g, k_max, cfg_q is not None
+        with obs.span('tc.driver.dispatch'):
+            cfg_g = adapt.get('cfg', cfg) if adapt is not None else cfg
+            # the quota-prefix derivation of run_tracks_year: a fallback
+            # year reuses this launch as its batch 0
+            cfg_q = quota_cfg(cfg_g, n_tracks, N, _n_dev(mesh))
+            cfg_d = cfg_q if cfg_q is not None else cfg_g
+            k_max = min(n_tracks, launch_width(cfg_d, N))
+            iv = [fields_mod.year_plane_indices(cfg_g, pack.n_planes, yi)
+                  for yi in g]
+            outs = _simulate_years(key, [years[yi] for yi in g],
+                                   [x[0] for x in iv], [x[1] for x in iv],
+                                   pack, cfg_d, basin_id, N, k_max, mesh)
+            # one host transfer per group, issued right behind its launches:
+            # every year's decisions and rows
+            xfer = Transfer([t for tracks, meta in outs
+                             for t in (meta['scalars'], meta['spm_upto'],
+                                       *(tracks[k] for k in YEAR_FIELDS))])
+            return outs, xfer, cfg_g, k_max, cfg_q is not None
 
     results: List[Optional[YearTracks]] = [None] * len(years)
     pending = dispatch(groups[0]) if groups else None
@@ -912,10 +949,11 @@ def run_tracks_years_fused(key: rng.Key, pack: FieldPack, cfg: Namelist,
             else:
                 # overflow or unfilled quota: finish the year on the
                 # general path with this launch as its batch 0
-                results[yi] = run_tracks_year(
-                    rng.fold_in(key, years[yi]), pack, cfg_g, basin_id, yi,
-                    n_tracks=n_tracks, adapt=adapt, first_batch=outs[j],
-                    mesh=mesh)
+                with obs.span('tc.driver.fallback'):
+                    results[yi] = run_tracks_year(
+                        rng.fold_in(key, years[yi]), pack, cfg_g, basin_id,
+                        yi, n_tracks=n_tracks, adapt=adapt,
+                        first_batch=outs[j], mesh=mesh)
         done = sum(r is not None for r in results)
         obs.log.info('years %d-%d: %d tracks, %.1f s elapsed (%d/%d years)',
                      years[g[0]], years[g[-1]],

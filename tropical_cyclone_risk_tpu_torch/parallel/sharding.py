@@ -30,6 +30,7 @@ from tropical_cyclone_risk_tpu_torch import rng
 from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch.models import pipeline
 from tropical_cyclone_risk_tpu_torch.models.fields import FieldPack
+from tropical_cyclone_risk_tpu_torch.utils import obs
 
 SEED_AXIS = 'seeds'
 
@@ -160,14 +161,16 @@ def simulate_batch_sharded(mesh: SeedMesh, key: rng.Key, pack: FieldPack,
     if n % n_dev:
         raise ValueError(f'seed batch {n} not divisible by {n_dev} devices')
     n_local = n // n_dev
-    bodies = [pipeline.launch_body(rng.fold_in(key, mesh.first + i), p, cfg,
-                                   basin_id, n_local, plane_offset,
-                                   shard_index=mesh.first + i)
-              for i, p in enumerate(shard_packs(pack, mesh))]
-    return pipeline.compact_survivors(
-        gather_bodies(bodies, mesh),
-        n_dev * pipeline.launch_width(cfg, n_local), k_max,
-        n_basins=len(cfg.basin_ids_sorted()), n_shards=n_dev)
+    with obs.span('tc.launch'):
+        bodies = [pipeline.launch_body(rng.fold_in(key, mesh.first + i), p,
+                                       cfg, basin_id, n_local, plane_offset,
+                                       shard_index=mesh.first + i)
+                  for i, p in enumerate(shard_packs(pack, mesh))]
+        body = gather_bodies(bodies, mesh)
+        with obs.span('tc.launch.compact'):
+            return pipeline.compact_survivors(
+                body, n_dev * pipeline.launch_width(cfg, n_local), k_max,
+                n_basins=len(cfg.basin_ids_sorted()), n_shards=n_dev)
 
 
 def simulate_years_sharded(mesh: SeedMesh, key: rng.Key, years, plane_idx,

@@ -1,6 +1,26 @@
-"""Observability: structured logging, phase timing and the profiler hook
-(copy of tropical_cyclone_risk_tpu/utils/obs.py; the trace is
-``torch.profiler``'s instead of ``jax.profiler``'s)."""
+"""Observability: structured logging, phase timing, the program's spans and
+the profiler hook (twin of tropical_cyclone_risk_tpu/utils/obs.py; the
+trace is ``torch.profiler``'s instead of ``jax.profiler``'s, and only the
+port has spans).
+
+Spans (``span``) are ``torch.profiler`` ranges, recorded only while a
+profiler runs, into its buffer and on its clock, the clock the card's
+kernels are aligned to; whoever holds the profiler writes them out
+(``maybe_profile``, ``cli --trace-dir``).  Their names:
+
+- ``tc.driver.dispatch``: the year driver's issue of a batch (a fused
+  group's, a year's batch 0, a later batch) and its host transfer;
+- ``tc.driver.wait``: one blocking host read of the card's results;
+- ``tc.driver.copy``: the host's copying of delivered tracks (never nested
+  in a wait, nor a wait in it);
+- ``tc.driver.fallback``: a year the fused driver finishes on the
+  per-year loop;
+- ``tc.driver.prefix_relaunch``, ``tc.driver.uncapped_relaunch``: a launch
+  thrown away and run again, for a quota-prefix miss or a cap overflow;
+- ``tc.launch``: one launch, and inside it its stages
+  ``tc.launch.propose``, ``.partition``, ``.draw``, ``.stacks``, ``.gate``,
+  ``.segment`` (one per segment), ``.vmax`` and ``.compact``.
+"""
 
 from __future__ import annotations
 
@@ -9,6 +29,8 @@ import logging
 import os
 import time
 from typing import Dict, Optional
+
+import torch
 
 log = logging.getLogger('tc_risk_tpu')
 if not log.handlers:
@@ -35,10 +57,17 @@ class Metrics:
         t = self.timings.get(timing, 0.0)
         return self.counters.get(counter, 0.0) / t if t else 0.0
 
-    def summary(self) -> Dict[str, float]:
-        out = dict(self.counters)
-        out.update({f'{k}_s': v for k, v in self.timings.items()})
-        return out
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named ``name`` while a torch.profiler trace is
+    recorded; otherwise one shared null context, so that a span costs a
+    single check when nothing traces."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -63,7 +92,6 @@ def maybe_profile(trace_dir: Optional[str]):
     if not trace_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
