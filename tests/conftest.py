@@ -101,6 +101,8 @@ def pytest_configure(config):
     config.addinivalue_line(
         'markers', 'slow: multi-minute test, excluded from the default '
         'lane; run with --slow (or TC_FULL_SUITE=1)')
+    config.addinivalue_line(
+        'markers', 'card: needs a CUDA card (skips with a reason elsewhere)')
 
 
 def pytest_collection_modifyitems(config, items):

@@ -10,6 +10,10 @@ Tolerances, with their reasons:
   in the steady state, the fallback and the short circuit;
 - run_downscaling with years_per_program 2 and 1: every variable of the
   two tracks files equal bit for bit;
+- the host arrays: a settled fused year's are views of its group's
+  transfer, a fallback year takes its group's read as batch 0 (no second
+  transfer), and a year of two batches owns exactly its quota's rows,
+  equal bit for bit to each batch's taken rows concatenated;
 - the port's fused driver against the JAX package's from the same seed:
   seeds_per_month, months, basins, track counts, n_dropped and n_proposed
   equal; tracks within tests/test_torch_pipeline.py's TRACK_TOL (XLA on
@@ -146,6 +150,113 @@ def test_prefetched_batch0_settles_without_slicing(monkeypatch):
                                    first_batch=first)
     assert not sliced
     _assert_years_equal([ref], [got])
+
+
+@pytest.fixture(scope='module')
+def multi_batch_run():
+    """The fused driver where no batch 0 fills the quota (60 tracks from
+    2048 seeds, as the ablation quota): each year falls back on
+    run_tracks_year and finishes on a second batch.  Returns the
+    namelist, the years, the Transfers built, the number of launches
+    dispatched, and each batch's read in order (the decisions, the host
+    rows and a copy of them taken as read)."""
+    cfg = Namelist(seed_batch=2048, end_year=2017, tracks_per_year=60
+                   ).replace(**SEG)
+    pack = _pack(cfg, 24)
+    made, dispatched, reads = [], [], []
+
+    class Recorded(pipeline.Transfer):
+        def __init__(self, tensors):
+            super().__init__(tensors)
+            made.append(self)
+
+    read, dispatch = pipeline._read, pipeline._dispatch_batch
+
+    def recorded_read(batch):
+        dec, host = read(batch)
+        reads.append((dec, host, {k: v.copy() for k, v in host.items()}))
+        return dec, host
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pipeline, 'Transfer', Recorded)
+        mp.setattr(pipeline, '_read', recorded_read)
+        mp.setattr(pipeline, '_dispatch_batch',
+                   lambda *a: (dispatched.append(a[0]), dispatch(*a))[1])
+        out = pipeline.run_tracks_years_fused(rng.key(5), pack, cfg, 'GL',
+                                              list(cfg.years()), k_fuse=2)
+    return cfg, out, made, len(dispatched), reads
+
+
+def test_fused_fallback_transfers_batch0_once(multi_batch_run):
+    """A fallback year takes its fused batch 0 with the group's read: one
+    Transfer for the group and one per later batch, none re-issuing a
+    fused batch 0."""
+    cfg, out, made, n_dispatched, reads = multi_batch_run
+    n_years = len(out)
+    assert n_dispatched == 2 * n_years      # batch 0 and batch 1 a year
+    assert len(reads) == 2 * n_years
+    assert len(made) == 1 + n_dispatched - n_years
+
+
+def test_multi_batch_year_owns_its_rows(multi_batch_run):
+    """A year of two batches returns arrays of exactly n_tracks rows that
+    it owns, equal bit for bit to the concatenation of each batch's
+    taken rows (the stopping rule's take, no batch overflowing here)."""
+    cfg, out, made, _, reads = multi_batch_run
+    q = cfg.tracks_per_year
+    k_max = min(q, pipeline.launch_width(cfg, cfg.seed_batch))
+    it = iter(reads)
+    for y in out:
+        parts, got = [], 0
+        while got < q:
+            dec, host, copied = next(it)
+            assert dec[0][1:3] == [0, 0]
+            take = min(dec[0][0], q - got, k_max, host['lon'].shape[0])
+            parts.append({k: v[:take] for k, v in copied.items()})
+            got += take
+        assert len(parts) == 2
+        for k in pipeline.YEAR_FIELDS:
+            a = getattr(y, k)
+            ref = np.concatenate([p[k] for p in parts])
+            assert a.shape[0] == q and a.base is None, k
+            assert a.dtype == ref.dtype, k
+            np.testing.assert_array_equal(a, ref, err_msg=k)
+            assert not any(np.shares_memory(a, r[1][k]) for r in reads)
+
+
+def test_settled_years_view_the_group_transfer(monkeypatch):
+    """A settled fused year's tracks are writeable views of its group's
+    transfer buffer (no host copy), and keep their values through a later
+    run of the driver."""
+    cfg = Namelist(seed_batch=2048, end_year=2017, end_month=6,
+                   tracks_per_year=5).replace(**SEG)
+    pack = _pack(cfg, 18)
+    years = list(cfg.years())
+    made = []
+
+    class Recorded(pipeline.Transfer):
+        def __init__(self, tensors):
+            super().__init__(tensors)
+            made.append(self)
+
+    monkeypatch.setattr(pipeline, 'Transfer', Recorded)
+    out = pipeline.run_tracks_years_fused(rng.key(42), pack, cfg, 'GL',
+                                          years, k_fuse=2)
+    assert len(made) == 1
+    buf = made[0]._host.numpy()
+    kept = []
+    for y in out:
+        for k in pipeline.YEAR_FIELDS:
+            a = getattr(y, k)
+            assert np.shares_memory(a, buf) and a.flags.writeable, k
+        kept.append({k: getattr(y, k).copy() for k in YEAR_KEYS})
+    again = pipeline.run_tracks_years_fused(rng.key(43), pack, cfg, 'GL',
+                                            years, k_fuse=2)
+    assert len(made) == 2
+    assert not np.shares_memory(again[0].lon, out[0].lon)
+    for y, ref in zip(out, kept):
+        for k in YEAR_KEYS:
+            np.testing.assert_array_equal(getattr(y, k), ref[k], err_msg=k)
 
 
 def test_run_downscaling_fused_equals_per_year(tmp_path, monkeypatch):

@@ -59,6 +59,9 @@ class YearTracks:
     n_proposed: int = 0      # total proposal slots drawn
 
 
+YEAR_FIELDS = ('lon', 'lat', 'v', 'm', 'vmax', 'wnds', 'month', 'basin_idx')
+
+
 def _round256(w: float, lo: int, hi: int) -> int:
     """ceil to a multiple of 256, clamped to [lo, hi]."""
     w = int(-(-int(w) // 256) * 256)
@@ -609,11 +612,15 @@ def bump_caps(cfg: Namelist, n_over1: int, n_over2: int, n: int,
 
 
 class Transfer:
-    """numpy copies of tensors through one device-to-host transfer, issued
+    """numpy views of tensors through one device-to-host transfer, issued
     at construction on the current stream behind the work that makes
     them: their bytes concatenated on the device and copied without
-    blocking (into pinned host memory).  get() waits for that copy alone,
-    so work issued after it (the next launch) runs on meanwhile."""
+    blocking into one host buffer (pinned, from torch's caching host
+    allocator).  get() waits for that copy alone, so work issued after
+    it (the next launch) runs on meanwhile, and copies nothing: each
+    array it returns is a writeable view of the buffer, which keeps the
+    buffer alive (numpy's base chain ends at its tensor) until the last
+    view is dropped, when the block returns to the allocator's cache."""
 
     def __init__(self, tensors):
         ts = [t.contiguous() for t in tensors]
@@ -630,13 +637,12 @@ class Transfer:
         with obs.span('tc.driver.wait'):
             if self._event is not None:
                 self._event.synchronize()
-        with obs.span('tc.driver.copy'):
-            buf = self._host.numpy()
-            out, o = [], 0
-            for dtype, shape, n in self._layout:
-                dt = torch.empty((), dtype=dtype).numpy().dtype
-                out.append(np.frombuffer(buf, dt, n, o).reshape(shape).copy())
-                o += n * dt.itemsize
+        buf = self._host.numpy()
+        out, o = [], 0
+        for dtype, shape, n in self._layout:
+            dt = torch.empty((), dtype=dtype).numpy().dtype
+            out.append(np.frombuffer(buf, dt, n, o).reshape(shape))
+            o += n * dt.itemsize
         return out
 
 
@@ -649,8 +655,11 @@ def _issue(tracks: dict, meta: dict) -> tuple:
 
 def _read(batch: tuple) -> tuple:
     """(scalars as ints, spm_upto, spm_all), {track field: host rows} of
-    an issued batch."""
+    an issued batch; a batch whose third item is that pair already (a
+    fused group's read, run_tracks_years_fused) is not read again."""
     tracks, _, xfer = batch
+    if not isinstance(xfer, Transfer):
+        return xfer
     sc, upto, all_, *rows = xfer.get()
     return ([int(x) for x in sc], upto, all_), dict(zip(tracks, rows))
 
@@ -709,11 +718,14 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
     """Generate the year's track quota (reference run_tracks,
     util/compute.py:64-210).  first_batch: an already issued batch 0
     with the same key and caps: prefetch_year_batch0's (tracks, meta,
-    transfer), or a fused launch's (tracks, meta).  Every batch is read
-    through one host transfer issued right behind it.  adapt: optional
-    mutable {'cfg': Namelist} shared across years, where cap re-tuning
-    after an overflow is kept.  mesh: the seed mesh every launch runs over
-    (parallel.sharding; None: the pack's device)."""
+    transfer), or a fused launch's (tracks, meta, (decisions, host rows))
+    as its group's read gave them (_read).  Every other batch is read
+    through one host transfer issued right behind it.  A batch that alone
+    fills the quota is handed out as views of its host rows; a year of
+    several batches copies each batch's rows once into arrays of its own.
+    adapt: optional mutable {'cfg': Namelist} shared across years, where
+    cap re-tuning after an overflow is kept.  mesh: the seed mesh every
+    launch runs over (parallel.sharding; None: the pack's device)."""
     n_tracks = n_tracks or cfg.tracks_per_year
     if adapt is not None:
         cfg = adapt.get('cfg', cfg)
@@ -740,7 +752,7 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
                                            c, basin_id, N, k, plane_off,
                                            mesh))
 
-    rows: List[dict] = []
+    year = None         # {field: host rows} of the year's tracks
     n_seeds = np.zeros((n_basins, 12))
     n_dropped = 0
     n_proposed = 0
@@ -748,11 +760,7 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
     for b_i in range(max_batches):
         q_mode = cfg_q is not None
         if b_i == 0 and first_batch is not None:
-            if len(first_batch) > 2:
-                batch = first_batch
-            else:
-                with obs.span('tc.driver.dispatch'):
-                    batch = _issue(*first_batch)
+            batch = first_batch
         else:
             batch = launch(b_i, cfg_q if q_mode else cfg,
                            k_max_q if q_mode else k_max)
@@ -823,9 +831,17 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
             with obs.span('tc.driver.wait'):
                 return upto.cpu().numpy()
 
-        if take > 0:
-            rows.append({k: v[:take] for k, v in host.items()})
-            got += take
+        if take >= n_tracks:
+            # this batch alone fills the year: its rows, uncopied
+            year = {k: host[k][:take] for k in YEAR_FIELDS}
+        elif take > 0:
+            with obs.span('tc.driver.copy'):
+                if year is None:
+                    year = {k: np.empty((n_tracks,) + host[k].shape[1:],
+                                        host[k].dtype) for k in YEAR_FIELDS}
+                for k in YEAR_FIELDS:
+                    year[k][got:got + take] = host[k][:take]
+        got += take
         if got >= n_tracks:
             n_seeds += spm_upto(take - 1)
             break
@@ -840,16 +856,8 @@ def run_tracks_year(key: rng.Key, pack: FieldPack, cfg: Namelist,
             f'track quota not reached after {max_batches} batches '
             f'({got}/{n_tracks}); environment may not support genesis')
 
-    cat = lambda k: np.concatenate([r[k] for r in rows], axis=0)[:n_tracks]
-    with obs.span('tc.driver.copy'):
-        return YearTracks(lon=cat('lon'), lat=cat('lat'), v=cat('v'),
-                          m=cat('m'), vmax=cat('vmax'), wnds=cat('wnds'),
-                          month=cat('month'), basin_idx=cat('basin_idx'),
-                          n_seeds=n_seeds, n_dropped=n_dropped,
-                          n_proposed=n_proposed)
-
-
-YEAR_FIELDS = ('lon', 'lat', 'v', 'm', 'vmax', 'wnds', 'month', 'basin_idx')
+    return YearTracks(**year, n_seeds=n_seeds, n_dropped=n_dropped,
+                      n_proposed=n_proposed)
 
 
 def run_tracks_years_fused(key: rng.Key, pack: FieldPack, cfg: Namelist,
@@ -919,6 +927,7 @@ def run_tracks_years_fused(key: rng.Key, pack: FieldPack, cfg: Namelist,
             # every year's decisions and rows
             xfer = Transfer([t for tracks, meta in outs
                              for t in (meta['scalars'], meta['spm_upto'],
+                                       meta['spm_all'],
                                        *(tracks[k] for k in YEAR_FIELDS))])
             return outs, xfer, cfg_g, k_max, cfg_q is not None
 
@@ -928,9 +937,9 @@ def run_tracks_years_fused(key: rng.Key, pack: FieldPack, cfg: Namelist,
         outs, xfer, cfg_g, k_max, q_mode = pending
         pending = dispatch(groups[gi + 1]) if gi + 1 < len(groups) else None
         host = xfer.get()
-        per = 2 + len(YEAR_FIELDS)
+        per = 3 + len(YEAR_FIELDS)
         for j, yi in enumerate(g):
-            scalars, spm_upto, *rows = host[j * per:(j + 1) * per]
+            scalars, spm_upto, spm_all, *rows = host[j * per:(j + 1) * per]
             n_new, n_over1, n_over2, n_drop = (int(x) for x in scalars[:4])
             if q_mode:
                 # the integrate-cap overflow is the prefix truncation itself
@@ -941,19 +950,24 @@ def run_tracks_years_fused(key: rng.Key, pack: FieldPack, cfg: Namelist,
                            and k_max >= n_tracks)
             if settled:
                 # the stopping-rule seed counts for take == k_max were
-                # computed inside the launch (compact_survivors)
+                # computed inside the launch (compact_survivors); the
+                # tracks are views of the group's host buffer
                 results[yi] = YearTracks(
                     **{k: r[:n_tracks] for k, r in zip(YEAR_FIELDS, rows)},
                     n_seeds=np.asarray(spm_upto, np.float64),
                     n_dropped=n_drop, n_proposed=N)
             else:
                 # overflow or unfilled quota: finish the year on the
-                # general path with this launch as its batch 0
+                # general path with this launch, and the group's read of
+                # it, as its batch 0
+                dec = ([int(x) for x in scalars], spm_upto, spm_all)
                 with obs.span('tc.driver.fallback'):
                     results[yi] = run_tracks_year(
                         rng.fold_in(key, years[yi]), pack, cfg_g, basin_id,
                         yi, n_tracks=n_tracks, adapt=adapt,
-                        first_batch=outs[j], mesh=mesh)
+                        first_batch=(*outs[j],
+                                     (dec, dict(zip(YEAR_FIELDS, rows)))),
+                        mesh=mesh)
         done = sum(r is not None for r in results)
         obs.log.info('years %d-%d: %d tracks, %.1f s elapsed (%d/%d years)',
                      years[g[0]], years[g[-1]],

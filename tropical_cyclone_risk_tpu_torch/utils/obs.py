@@ -11,8 +11,10 @@ kernels are aligned to; whoever holds the profiler writes them out
 - ``tc.driver.dispatch``: the year driver's issue of a batch (a fused
   group's, a year's batch 0, a later batch) and its host transfer;
 - ``tc.driver.wait``: one blocking host read of the card's results;
-- ``tc.driver.copy``: the host's copying of delivered tracks (never nested
-  in a wait, nor a wait in it);
+- ``tc.driver.copy``: the host's copy of one batch's delivered tracks
+  into a year's own arrays, made only where a year takes several batches
+  (a year one batch fills is handed out as views of its transfer);
+  never nested in a wait, nor a wait in it;
 - ``tc.driver.fallback``: a year the fused driver finishes on the
   per-year loop;
 - ``tc.driver.prefix_relaunch``, ``tc.driver.uncapped_relaunch``: a launch
