@@ -77,7 +77,9 @@ def test_fused_driver_spans(case, monkeypatch):
     state, whose years are views of the group's read (no copy), and in
     the fallback one tc.driver.fallback a year with at least one uncapped
     relaunch, and one wait for the group's read, one per later launch and
-    one per seed count read up to a year's last track."""
+    one per seed count read up to a year's last track; a host transfer
+    (tc.driver.transfer) inside a dispatch for the group and for each
+    later launch."""
     kw, n_planes, seed = CASES[case]
     cfg = Namelist().replace(**kw)
     pack = fields.synthetic_pack(cfg, n_planes, 91, 180, seed=0,
@@ -107,6 +109,10 @@ def test_fused_driver_spans(case, monkeypatch):
     for w in by('tc.driver.wait'):
         assert not any(_overlap(w, c) for c in by('tc.driver.copy'))
     assert n['tc.driver.dispatch'] >= 1
+    # a host transfer is issued inside the dispatch of the work it reads
+    assert n['tc.driver.transfer'] >= 1
+    for t in by('tc.driver.transfer'):
+        assert _inside(t, by('tc.driver.dispatch'))
 
     if case == 'steady':
         n_seg = 1 + len(pipeline.seg_schedule(
@@ -121,6 +127,7 @@ def test_fused_driver_spans(case, monkeypatch):
         assert n['tc.driver.wait'] == 1
         assert n['tc.driver.copy'] == 0
         assert n['tc.driver.dispatch'] == 1
+        assert n['tc.driver.transfer'] == 1
         for name in RELAUNCHES + ('tc.driver.fallback',):
             assert n[name] == 0, name
     else:
@@ -135,6 +142,8 @@ def test_fused_driver_spans(case, monkeypatch):
         # batches (its batch 0 is the group's read) and of its seed counts
         n_upto = len(counts) - n['tc.launch']
         assert n['tc.driver.wait'] == 1 + n['tc.launch'] - len(years) + n_upto
+        # the group's transfer, then one behind each later launch
+        assert n['tc.driver.transfer'] == 1 + n['tc.launch'] - len(years)
         assert n['tc.launch'] >= 2 * len(years)
 
 

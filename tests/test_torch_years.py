@@ -14,11 +14,13 @@ Tolerances, with their reasons:
   transfer, a fallback year takes its group's read as batch 0 (no second
   transfer), and a year of two batches owns exactly its quota's rows,
   equal bit for bit to each batch's taken rows concatenated;
-- the port's fused driver against the JAX package's from the same seed:
-  seeds_per_month, months, basins, track counts, n_dropped and n_proposed
-  equal; tracks within tests/test_torch_pipeline.py's TRACK_TOL (XLA on
-  the CPU contracts multiply-adds and rounds transcendentals otherwise
-  than torch; found ~2e-5 deg, ~2e-4 m/s in vmax).
+- the port's fused driver against the JAX package's from the same seed,
+  at two levels and at the benchmark's deep layer (17 levels, uncoupled;
+  46x90, 256 seeds, five-day tracks): seeds_per_month, months, basins,
+  track counts, n_dropped and n_proposed equal; tracks within
+  tests/test_torch_pipeline.py's TRACK_TOL (XLA on the CPU contracts
+  multiply-adds and rounds transcendentals otherwise than torch; found
+  ~2e-5 deg, ~2e-4 m/s in vmax; at 17 levels ~4e-6 deg, ~1e-4 m/s).
 """
 
 import jax
@@ -28,10 +30,12 @@ import pytest
 from tropical_cyclone_risk_tpu.config import Namelist as JNamelist
 from tropical_cyclone_risk_tpu.models import fields as jfields
 from tropical_cyclone_risk_tpu.models import pipeline as jpipeline
+from tropical_cyclone_risk_tpu.ops import chol as jchol
 from tropical_cyclone_risk_tpu_torch import rng, runtime
 from tropical_cyclone_risk_tpu_torch.config import Namelist
 from tropical_cyclone_risk_tpu_torch.io import netcdf
 from tropical_cyclone_risk_tpu_torch.models import fields, pipeline
+from test_torch_deep_layer import NL as NL17, STEERING, cholesky_rolled
 from test_torch_pipeline import TRACK_KEYS, TRACK_TOL
 
 SEG = dict(integrate_cap=0.375, recompact_schedule=((90, 0.75), (180, 0.5)))
@@ -282,26 +286,47 @@ def test_run_downscaling_fused_equals_per_year(tmp_path, monkeypatch):
     assert df.variables['lon_trks'].data.shape[0] == 3 * 3
 
 
-def test_fused_years_match_jax():
+# case -> (namelist fields, pack planes, latitudes, longitudes): the
+# default two levels, compacted in three segments; the deep-layer
+# configuration of the benchmark (tcbench/configs/era5_gl_dlm17.json: 17
+# levels, weights constant in intensity), one uncapped segment, five-day
+# tracks, with the JAX package's Cholesky rolled (cholesky_rolled)
+JAX_CASES = {
+    'L2': (dict(seed_batch=2048, end_year=2017, tracks_per_year=4,
+                integrate_cap=0.5, recompact_schedule=((90, 0.375),
+                                                       (180, 0.25))),
+           24, 91, 180),
+    'L17-uncoupled': (dict(seed_batch=256, end_year=2017, tracks_per_year=3,
+                           integrate_cap=1.0, total_track_time_days=5,
+                           **{k: tuple(NL17[k]) for k in STEERING},
+                           coupled_track=False),
+                      24, 46, 90),
+}
+
+
+@pytest.mark.parametrize('case', sorted(JAX_CASES))
+def test_fused_years_match_jax(case, monkeypatch):
     """The port's fused driver against the JAX package's from the same
     seed (module docstring's tolerances)."""
-    kw = dict(seed_batch=2048, end_year=2017, tracks_per_year=4,
-              integrate_cap=0.5, recompact_schedule=((90, 0.375),
-                                                     (180, 0.25)))
+    kw, n_planes, nlat, nlon = JAX_CASES[case]
+    if case.startswith('L17'):
+        monkeypatch.setattr(jchol, 'cholesky_unrolled', cholesky_rolled)
     cfg, jcfg = Namelist(**kw), JNamelist(**kw)
-    jpack = jfields.synthetic_pack(jcfg, 24, 91, 180, seed=0)
+    jpack = jfields.synthetic_pack(jcfg, n_planes, nlat, nlon, seed=0)
     pack = fields.pack_from_numpy(jpack, device='cpu')
     years = list(cfg.years())
     ours = pipeline.run_tracks_years_fused(rng.key(3), pack, cfg, 'GL',
                                            years, k_fuse=2)
     theirs = jpipeline.run_tracks_years_fused(jax.random.key(3), jpack, jcfg,
                                               'GL', years, k_fuse=2)
+    assert len(ours) == len(theirs) == 2
     for t, j in zip(ours, theirs):
         np.testing.assert_array_equal(t.n_seeds, j.n_seeds)
         for k in ('month', 'basin_idx'):
             np.testing.assert_array_equal(getattr(t, k), getattr(j, k))
         assert (t.n_dropped, t.n_proposed) == (j.n_dropped, j.n_proposed)
-        assert t.lon.shape == j.lon.shape == (4, cfg.n_steps_output)
+        assert t.lon.shape == j.lon.shape == (cfg.tracks_per_year,
+                                              cfg.n_steps_output)
         for k in TRACK_KEYS:
             a, b = getattr(t, k), np.asarray(getattr(j, k))
             np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b),

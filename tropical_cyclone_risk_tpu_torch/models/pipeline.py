@@ -623,14 +623,15 @@ class Transfer:
     view is dropped, when the block returns to the allocator's cache."""
 
     def __init__(self, tensors):
-        ts = [t.contiguous() for t in tensors]
-        self._layout = [(t.dtype, tuple(t.shape), t.numel()) for t in ts]
-        flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in ts])
-        self._host = flat.to('cpu', non_blocking=True)
-        self._event = None
-        if flat.is_cuda:
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(flat.device))
+        with obs.span('tc.driver.transfer'):
+            ts = [t.contiguous() for t in tensors]
+            self._layout = [(t.dtype, tuple(t.shape), t.numel()) for t in ts]
+            flat = torch.cat([t.reshape(-1).view(torch.uint8) for t in ts])
+            self._host = flat.to('cpu', non_blocking=True)
+            self._event = None
+            if flat.is_cuda:
+                self._event = torch.cuda.Event()
+                self._event.record(torch.cuda.current_stream(flat.device))
 
     def get(self) -> list:
         # the read is a wait span on every device (none blocks on the CPU)

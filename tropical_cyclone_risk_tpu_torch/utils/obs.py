@@ -10,6 +10,9 @@ kernels are aligned to; whoever holds the profiler writes them out
 
 - ``tc.driver.dispatch``: the year driver's issue of a batch (a fused
   group's, a year's batch 0, a later batch) and its host transfer;
+- ``tc.driver.transfer``: one host transfer's issue (``pipeline.Transfer``:
+  the device-side concatenation of its tensors and the non-blocking copy
+  into pinned host memory), nested in the dispatch that makes it;
 - ``tc.driver.wait``: one blocking host read of the card's results;
 - ``tc.driver.copy``: the host's copy of one batch's delivered tracks
   into a year's own arrays, made only where a year takes several batches
