@@ -6,6 +6,7 @@
     python3 chip_smoke.py --ranks N              (see ranks_times; N cards)
     python3 chip_smoke.py --sass ROOT            (see sass_against)
     python3 chip_smoke.py --lanes                (see lanes_times)
+    python3 chip_smoke.py --stacks-times         (see stacks_times)
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -17,7 +18,8 @@ Phases (any failure raises, and the script exits non-zero):
                seventeen; any other count builds at its first launch),
                vmax (K2, with its
                last-sample entry), seeding (K3), compaction (K4), threefry
-               (K5) and CAPE-PI (K6) kernels with nvcc, one process each,
+               (K5), CAPE-PI (K6) and field stacks kernels with nvcc, one
+               process each,
                all started together; print the build times, nvcc's register,
                stack and spill report and the SASS local-memory
                instructions of each kernel (and K3's and K6's SASS
@@ -298,10 +300,10 @@ OVERFLOW_CAPS = (1 / 64,) * 15
 # the kernels a simulation (run_downscaling) launches, those of the
 # workspace path (cli.main), and those of a launch with the in-scan vmax
 SIMULATION_KERNELS = ('integrator', 'vmax', 'seeding', 'threefry', 'compact',
-                      'genesis')
+                      'genesis', 'stacks')
 WORKSPACE_KERNELS = SIMULATION_KERNELS + ('cape_pi',)
 IN_SCAN_KERNELS = ('integrator', 'vmax_last', 'seeding', 'threefry',
-                   'compact', 'genesis')
+                   'compact', 'genesis', 'stacks')
 WS_YEAR = 2016      # the workspace: one year at one degree
 # repetitions of each K1 segment, K2 and K4 call when timed alone
 K1_REPS = 20
@@ -3171,7 +3173,8 @@ def build_all(dev):
     with and without the in-scan vmax, and the level sets of [levels4]: five
     with and without it, seven, fifteen and seventeen), K2, K3, K4, K5
     and K6, one
-    thread each (sixteen processes at once); logs the wall
+    thread each (seventeen processes at once, the field stacks' kernel
+    among them); logs the wall
     time of the builds, each build's seconds, each kernel's registers,
     stack frame, spills and SASS local-memory instructions (K1's and K7's
     instances of every stack layout among them); requires K1's default
@@ -3183,6 +3186,7 @@ def build_all(dev):
     from tropical_cyclone_risk_tpu_torch.kernels import integrator
     from tropical_cyclone_risk_tpu_torch.kernels import rng as k5
     from tropical_cyclone_risk_tpu_torch.kernels import seeding as k3
+    from tropical_cyclone_risk_tpu_torch.kernels import stacks as kstacks
     from tropical_cyclone_risk_tpu_torch.kernels import vmax as vmax_kernel
     builds, errors = {}, []
 
@@ -3200,7 +3204,8 @@ def build_all(dev):
     threads = [threading.Thread(target=nvcc, args=a)
                for a in (*units, ('vmax', vmax_kernel.build),
                          ('seeding', k3.build), ('compact', k4.build),
-                         ('threefry', k5.build), ('cape_pi', k6.build))]
+                         ('threefry', k5.build), ('cape_pi', k6.build),
+                         ('stacks', kstacks.build))]
     t_all = time.perf_counter()
     for t in threads:
         t.start()
@@ -4213,11 +4218,12 @@ def twins_on_card(keep=()):
     counters are left as they were: a launch through the twins only to
     compare the kernels' with."""
     from tropical_cyclone_risk_tpu_torch import kernels
-    from tropical_cyclone_risk_tpu_torch.models import (diagnostics, seeding,
-                                                        simulator)
+    from tropical_cyclone_risk_tpu_torch.models import (diagnostics, fields,
+                                                        seeding, simulator)
     from tropical_cyclone_risk_tpu_torch.ops import compact as compact_ops
     from tropical_cyclone_risk_tpu_torch.ops import fourier
     swaps = [(seeding, 'propose_seeds'), (fourier, 'draw_fourier'),
+             (fields, 'build_stacks'),
              (simulator, 'genesis_alive'), (simulator, 'integrate_segment'),
              (diagnostics, 'axi_to_max_wind_raw'),
              (diagnostics, 'fix_in_scan'),
@@ -5642,6 +5648,137 @@ def ranks_times(n_ranks):
         'count': torch.cuda.device_count()}}))
 
 
+# the field stacks' shapes of the benchmark's cells: (label, wind
+# statistics, env channels); 12 planes of the one-degree grid, land and
+# bathymetry in the cell row
+STACK_SHAPES = (('dlm17.landfall', 629, 5), ('gl2.landfall', 14, 5))
+STACK_REPS = 10
+
+
+def stack_pack(n_wind, n_env, dev):
+    """A FieldPack of 12 one-degree planes with n_wind wind statistics and
+    n_env env channels of random values (the kernel copies), land and
+    bathymetry on the atmospheric grid."""
+    from tropical_cyclone_risk_tpu_torch.models import fields
+    from tropical_cyclone_risk_tpu_torch.ops.interp import UniformGrid
+    gen = torch.Generator(device=dev).manual_seed(n_wind)
+    rand = lambda *s: torch.randn(s, generator=gen, device=dev)   # noqa
+    grid = UniformGrid(0.0, 1.0, 360, -90.0, 1.0, 181)
+    return fields.FieldPack(
+        grid=grid, wind=rand(12, 181, 360, n_wind),
+        env=rand(12, 181, 360, n_env), land_grid=grid, land=rand(181, 360),
+        bathy_grid=grid, bathy=rand(181, 360), mask_grid=grid,
+        basin_masks=rand(181, 360, 1), run_mask=rand(181, 360))
+
+
+def stacks_res_usage(lib_path):
+    """{the kernel's word type: 'REG r STACK s LOCAL l'} of each instance
+    of stack_corners_kernel, by cuobjdump -res-usage (None without
+    cuobjdump); its shared memory is the plan's, at run time."""
+    import re
+    text = cuobjdump('-res-usage', lib_path)
+    if text is None:
+        return None
+    return {re.search(r'stack_corners_kernelI(\w+?)E', name).group(1):
+            f'REG {reg} STACK {stack} LOCAL {local}'
+            for name, reg, stack, local in re.findall(
+                r'Function ([\w$]+):\s+REG:(\d+) STACK:(\d+) SHARED:\d+ '
+                r'LOCAL:(\d+)', text)
+            if 'stack_corners_kernel' in name}
+
+
+def stacks_times():
+    """The field stacks at the benchmark cells' shapes on the card: the
+    kernel on the cell row alone (device time under torch.profiler and
+    CUDA-event time) beside its bytes bound, the three launches of one
+    build_stacks, the plain twin (build_stacks_plain, all three outputs)
+    and the cell row by PyTorch's cat chain (ops/interp.py pack_corners of
+    torch.cat, the library yardstick), every output held bit for bit
+    against the twin's, and each path's peak device memory; the kernel's
+    registers (cuobjdump) and its plan.  One JSON line."""
+    if not torch.cuda.is_available():
+        raise SystemExit('chip_smoke --stacks-times: no CUDA device')
+    from tropical_cyclone_risk_tpu_torch import kernels
+    from tropical_cyclone_risk_tpu_torch.kernels import stacks as kstacks
+    from tropical_cyclone_risk_tpu_torch.models import fields
+    from tropical_cyclone_risk_tpu_torch.ops.interp import pack_corners
+    dev = torch.device('cuda', 0)
+    card = card_line()
+    info = kstacks.build()
+    res = {'card': card, 'nvcc_s': info['seconds'],
+           'res_usage': stacks_res_usage(info['path']), 'shapes': {}}
+    log(f'[stacks] {card}; nvcc {info["seconds"]:.1f} s; {res["res_usage"]}')
+    for label, n_wind, n_env in STACK_SHAPES:
+        pack = stack_pack(n_wind, n_env, dev)
+        cell_src = fields.stack_sources(pack)[0]
+        launch, cell4 = kstacks.launcher(cell_src)
+        C = cell4.shape[-1] // 4
+        pl = kstacks.plan(360, C)
+        # the least bytes: every source float read once (land and
+        # bathymetry once, not once a plane), every output float written
+        # once
+        by = nbytes(*cell_src, cell4)
+        bound_ms = by / PEAK_BYTES * 1e3
+        kernel_ms = device_ms(launch, STACK_REPS, ('stack_corners_kernel',))
+        event_ms = cuda_ms(launch, STACK_REPS)
+        launch = cell4 = None
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        got = fields.build_stacks(pack)
+        torch.cuda.synchronize()
+        peak_kernel = torch.cuda.max_memory_allocated(dev) - base
+        launches = kernels.LAUNCHES['stacks']
+        all_by = sum(nbytes(*src, out) for src, out in zip(
+            fields.stack_sources(pack),
+            (got.cell4, got.land_geo4, got.bathy4)))
+        build_ms = device_ms(lambda: fields.build_stacks(pack), STACK_REPS,
+                             ('stack_corners_kernel',))
+        got = (got.cell4, got.land_geo4, got.bathy4)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        want = uncounted(fields.build_stacks_plain, pack)
+        torch.cuda.synchronize()
+        peak_twin = torch.cuda.max_memory_allocated(dev) - base
+        same_all = all(torch.equal(a, b) for a, b in zip(
+            got, (want.cell4, want.land_geo4, want.bathy4)))
+        want = None
+        twin_ms = device_ms(lambda: uncounted(fields.build_stacks_plain,
+                                              pack), 3)
+        library_ms = device_ms(lambda: pack_corners(torch.cat(
+            [pack.wind, pack.env, torch.stack([pack.land, pack.bathy], -1)
+             [None].expand(12, 181, 360, 2)], -1)), 3)
+        out = {'C': C, 'plan': pl._asdict(), 'bytes': by,
+               'bound_ms': bound_ms, 'kernel_ms': kernel_ms,
+               'kernel_event_ms': event_ms,
+               'share_of_bound': bound_ms / kernel_ms,
+               'build_stacks_ms': build_ms,
+               'build_stacks_bound_ms': all_by / PEAK_BYTES * 1e3,
+               'launches': launches, 'twin_ms': twin_ms,
+               'library_ms': library_ms, 'bit_exact': same_all,
+               'peak_bytes_kernel': peak_kernel,
+               'peak_bytes_twin': peak_twin}
+        res['shapes'][label] = out
+        log(f'[stacks] {label}: C {C}, plan {tuple(pl)}; kernel '
+            f'{kernel_ms:.4f} ms ({event_ms:.4f} event) against the bound '
+            f'{bound_ms:.4f} ({100 * bound_ms / kernel_ms:.1f}%); '
+            f'build_stacks {build_ms:.4f} ms in {launches} launches; twin '
+            f'{twin_ms:.4f}, cat chain (cell row) {library_ms:.4f}; '
+            f'bit-exact {same_all}; peak {peak_kernel / 1e9:.2f} GB against '
+            f'the twin\'s {peak_twin / 1e9:.2f}')
+        if not same_all or launches != 3:
+            raise AssertionError(f'stacks {label}: bit-exact {same_all}, '
+                                 f'{launches} launches')
+        pack = got = None
+        torch.cuda.empty_cache()
+    print(json.dumps(res))
+    print(card)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+
+
 if __name__ == '__main__':
     if len(sys.argv) == 3 and sys.argv[1] == '--kernel-times':
         sys.exit(kernel_times(sys.argv[2]))
@@ -5655,4 +5792,6 @@ if __name__ == '__main__':
         sys.exit(sass_against(sys.argv[2]))
     if len(sys.argv) == 2 and sys.argv[1] == '--lanes':
         sys.exit(lanes_times())
+    if len(sys.argv) == 2 and sys.argv[1] == '--stacks-times':
+        sys.exit(stacks_times())
     sys.exit(main())

@@ -24,6 +24,10 @@
 - ``genesis`` (K7): the step-0 genesis gate, CUDA C++ for sm_90a, a second
   kernel of csrc/integrator.cu that reuses K1's blend, Cholesky and
   coloring on rows staged in shared memory with cp.async.
+- ``stacks``: the field stacks, each launch's corner-packed cell rows (and
+  the land and bathymetry stacks) written in one pass from the pack's
+  planes, CUDA C++ for sm_90a (csrc/stacks.cu); one launch per output,
+  three per models/fields.py build_stacks.
 
 The CUDA sources are built with nvcc at first use (kernels/build.py) and
 bound with ctypes.  Each wrapper adds one to ``LAUNCHES[name]`` where it
@@ -34,7 +38,7 @@ twin).
 """
 
 NAMES = ('integrator', 'vmax', 'seeding', 'threefry', 'compact', 'cape_pi',
-         'genesis', 'vmax_last')
+         'genesis', 'vmax_last', 'stacks')
 LAUNCHES = dict.fromkeys(NAMES, 0)
 PLAIN_ON_CUDA = dict.fromkeys(NAMES, 0)
 

@@ -16,7 +16,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tropical_cyclone_risk_tpu_torch import kernels
 from tropical_cyclone_risk_tpu_torch.config import Namelist
+from tropical_cyclone_risk_tpu_torch.kernels import stacks as kstacks
 from tropical_cyclone_risk_tpu_torch.ops.interp import (UniformGrid,
                                                         pack_corners)
 from tropical_cyclone_risk_tpu_torch.utils import basins as basins_mod
@@ -73,26 +75,66 @@ class GatherStacks(NamedTuple):
 
 
 def build_stacks(pack: FieldPack) -> GatherStacks:
-    """Fused, corner-packed gather stacks (see GatherStacks)."""
+    """Fused, corner-packed gather stacks (see GatherStacks).  CPU tensors
+    take the plain twin, build_stacks_plain; CUDA tensors launch the
+    stacks kernel (kernels/stacks.py) once per output, writing each
+    corner-packed row straight from the pack's planes, bit for bit the
+    twin's."""
     with obs.span('tc.launch.stacks'):
-        cell = torch.cat([pack.wind, pack.env], dim=-1)
-        geo_in_cell = (pack.land_grid == pack.grid
-                       and pack.bathy_grid == pack.grid)
-        if geo_in_cell:
-            geo = torch.stack([pack.land, pack.bathy], dim=-1)
-            cell = torch.cat([cell, geo[None].expand((cell.shape[0],) +
-                                                     geo.shape)], dim=-1)
-        if pack.land_grid == pack.bathy_grid:
-            land_geo = torch.stack([pack.land, pack.bathy], dim=-1)
-        else:
-            land_geo = pack.land[..., None]
-        return GatherStacks(grid=pack.grid, cell4=pack_corners(cell),
-                            n_wind_ch=pack.wind.shape[-1],
-                            geo_in_cell=geo_in_cell,
-                            land_grid=pack.land_grid,
-                            land_geo4=pack_corners(land_geo),
-                            bathy_grid=pack.bathy_grid,
-                            bathy4=pack_corners(pack.bathy[..., None]))
+        if pack.device.type == 'cpu':
+            return build_stacks_plain(pack)
+        return _gather_stacks(pack, _geo_layout(pack)[0],
+                              *(kstacks.corner_stack(sources)
+                                for sources in stack_sources(pack)))
+
+
+def stack_sources(pack: FieldPack) -> tuple:
+    """The sources of build_stacks' cell4, land_geo4 and bathy4, each a
+    list that kernels/stacks.py corner_stack concatenates by channel:
+    wind, env (and land and bathymetry, one plane for all, where they
+    share the grid); land (and bathymetry where they share a grid);
+    bathymetry."""
+    geo_in_cell, fused = _geo_layout(pack)
+    geo = [pack.land, pack.bathy]
+    return ([pack.wind, pack.env] + (geo if geo_in_cell else []),
+            geo if fused else [pack.land], [pack.bathy])
+
+
+def build_stacks_plain(pack: FieldPack) -> GatherStacks:
+    """build_stacks' plain twin: the sources concatenated and corner-packed
+    (ops/interp.py pack_corners) by torch, land and bathymetry expanded
+    over the planes."""
+    if pack.device.type == 'cuda':
+        kernels.PLAIN_ON_CUDA['stacks'] += 1
+    geo_in_cell, fused = _geo_layout(pack)
+    cell = torch.cat([pack.wind, pack.env], dim=-1)
+    if geo_in_cell:
+        geo = torch.stack([pack.land, pack.bathy], dim=-1)
+        cell = torch.cat([cell, geo[None].expand((cell.shape[0],) +
+                                                 geo.shape)], dim=-1)
+    if fused:
+        land_geo = torch.stack([pack.land, pack.bathy], dim=-1)
+    else:
+        land_geo = pack.land[..., None]
+    return _gather_stacks(pack, geo_in_cell, pack_corners(cell),
+                          pack_corners(land_geo),
+                          pack_corners(pack.bathy[..., None]))
+
+
+def _geo_layout(pack: FieldPack) -> tuple:
+    """(land and bathymetry in the cell row, land and bathymetry fused in
+    one stack): each where they share the grid."""
+    return (pack.land_grid == pack.grid and pack.bathy_grid == pack.grid,
+            pack.land_grid == pack.bathy_grid)
+
+
+def _gather_stacks(pack: FieldPack, geo_in_cell: bool, cell4, land_geo4,
+                   bathy4) -> GatherStacks:
+    return GatherStacks(grid=pack.grid, cell4=cell4,
+                        n_wind_ch=pack.wind.shape[-1],
+                        geo_in_cell=geo_in_cell, land_grid=pack.land_grid,
+                        land_geo4=land_geo4, bathy_grid=pack.bathy_grid,
+                        bathy4=bathy4)
 
 
 def crop_pack(pack: FieldPack, cfg: Namelist, basin_id: str,
